@@ -7,16 +7,27 @@ Needs one CUDA card and the CUDA toolkit (nvcc); exits non-zero, printing
 no result, without them.  Phases, each of which raises on failure:
 
   1. device: torch / CUDA versions and the card's name and power limit;
-  2. build: compiles every kernel of the main path from nct_tpu_torch/csrc;
-  3. kernels: the NN kernel against its plain PyTorch version at the four
-     L0-L3 shapes of the 452x680 / 600x960 pair — index agreement >= 99%,
-     distance at the kernel's match <= the plain minimum + 1e-3, and
-     bitwise equality on integer-valued features with exact ties — with
-     CUDA-event times of both;
+  2. build: compiles every kernel from nct_tpu_torch/csrc;
+  3. kernels: the bidirectional NN kernel against its plain PyTorch version
+     at the four L0-L3 shapes of the 452x680 / 600x960 pair — index
+     agreement >= 99%, distance at the kernel's match <= the plain minimum
+     + 1e-3, and bitwise equality on integer-valued features with exact
+     ties — with CUDA-event times of both and of one cuBLAS bf16 GEMM over
+     the same tables (the yardstick of the products alone: no single
+     PyTorch call computes the masked argmin);
+  3b. the directed NN kernel at the same shapes and checks, and bitwise
+     equal to the bidirectional kernel's row result on the same tables;
   4. slice: ``transfer_pair`` under the default Config on the seeded
      452x680 / 600x960 pair with seeded VGG-19 weights, one cold and three
      warm runs, 4 kernel launches per pair; plus a small pair run on the
-     card and on the CPU (plain path), which must agree.
+     card and on the CPU (plain path), which must agree;
+  5. PatchMatch: ``Config(fine_strategy="patchmatch")`` on the same pair
+     (exact L0-L3, PatchMatch at L4), one cold and two warm runs with the
+     checks of phase 4; then a 3-frame ``transfer_sequence`` under
+     ``Config(exact_nn_levels=0, fine_strategy="patchmatch")``, whose
+     frames 2-3 must start from the previous frame's level-0 fields;
+  6. profiler: ``nct_tpu_torch.tools.profile_stages`` at its real shapes,
+     the path of the directed kernel.
 
 The line before the last holds {"kernels": [...]}, the one before it the
 card's name and power limit; the last line is {"ok": true, "device": ...}.
@@ -41,6 +52,9 @@ NN_SHAPES = (
 )
 AGREE_MIN = 0.99      # share of equal indices, kernel vs plain
 DIST_TOL = 1e-3       # distance at the kernel's match vs the plain minimum
+# H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 # card vs CPU on the small pair: values within 2 LSB.  Summation order
 # differs (cuDNN, the kernel, reductions), which moves near-tied matches;
 # the JAX package's own fused-vs-staged test allows 95%.
@@ -70,7 +84,8 @@ def build_kernels() -> None:
 
     t0 = time.perf_counter()
     path = _build.build("nn_bidir")
-    log(f"[build] nn_bidir.cu -> {path} in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] nn_bidir.cu (instances nn_bidir, nn_directed) -> {path} "
+        f"in {time.perf_counter() - t0:.1f} s")
     with open(path[:-3] + ".log") as f:
         for line in f:
             if "registers" in line or "smem" in line or "spill" in line:
@@ -101,13 +116,49 @@ def _time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_kernels(torch) -> dict:
+def reset_counts() -> None:
     from nct_tpu_torch.ops import cuda_nn
-    from nct_tpu_torch.ops.exact_nn import nn_bidir_tables_plain
+
+    for name in cuda_nn.LAUNCHES:
+        cuda_nn.LAUNCHES[name] = 0
+
+
+def _gemm_ms(torch, fa, fb) -> float:
+    """CUDA-event time of the bf16 products alone: one cuBLAS ``torch.mm``
+    per chunk of A rows, chunked so that the bf16 output fits 2 GiB."""
+    rows = max(128, (2 ** 30 // (fb.shape[0] * 2)) // 128 * 128)
+    out = torch.empty((rows, fb.shape[0]), dtype=torch.bfloat16,
+                      device="cuda")
+    fbt = fb.T
+
+    def run():
+        for a0 in range(0, fa.shape[0], rows):
+            chunk = fa[a0:a0 + rows]
+            torch.mm(chunk, fbt, out=out[:chunk.shape[0]])
+    return _time_ms(torch, run, 3)
+
+
+def _bound_ms(na, nb, c, directed: bool) -> float:
+    """Least time for the work on the card: 2 Na Nb (9C + 9) operations at
+    the bf16 rate against the tables read once and the keys written once."""
+    flops = 2.0 * na * nb * (9 * c + 9)
+    nbytes = (na + nb) * (9 * c * 2 + 4) + (na if directed else na + nb) * 8
+    return max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3
+
+
+def check_kernels(torch) -> tuple[dict, dict]:
+    """Phases 3 and 3b; returns the kernel records (launches filled in by
+    the phases that drive their paths)."""
+    from nct_tpu_torch.ops import cuda_nn
+    from nct_tpu_torch.ops.exact_nn import (
+        nn_bidir_tables_plain, nn_tables_plain,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain version in full f32
     gen = torch.Generator().manual_seed(0)
-    tot_ms = tot_plain = max_err = 0.0
+    rec = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                  "cublas_gemm_ms": 0.0, "max_abs_err": 0.0}
+           for name in ("nn_bidir", "nn_directed")}
     for lvl, (ha, wa, hb, wb, c) in enumerate(NN_SHAPES):
         na, nb = ha * wa, hb * wb
         for integer in (False, True):
@@ -116,26 +167,40 @@ def check_kernels(torch) -> dict:
             fb, mb = cuda_nn.padded_tables(
                 _features(torch, gen, hb, wb, c, integer), 3)
             got = cuda_nn.nn_bidir_tables(fa, ma, fb, mb)
+            got_dir = cuda_nn.nn_directed_tables(fa, ma, fb, mb)
             torch.cuda.synchronize()
-            # the plain version on the same tables (masks as 0/1 columns)
+            # the plain versions on the same tables (masks as 0/1 columns)
             ma01 = ((ma[:, None] >> torch.arange(9, device="cuda")) & 1).float()
             mb01 = ((mb[:, None] >> torch.arange(9, device="cuda")) & 1).float()
             ref = nn_bidir_tables_plain(fa, ma01, fb, mb01)
+            ref_dir = nn_tables_plain(fa, ma01, fb, mb01)
+            row_same = (torch.equal(got_dir[0], got[0])
+                        and torch.equal(got_dir[1], got[1]))
+            log(f"[directed] L{lvl} {'integer' if integer else 'random'} "
+                f"case: bitwise equal to nn_bidir's row keys={row_same}")
+            if not row_same:
+                raise AssertionError(f"L{lvl}: nn_directed differs from the "
+                                     f"row result of nn_bidir")
             d_ab, i_ab, d_ba, i_ba = (t for t in got)
             r_dab, r_iab, r_dba, r_iba = ref
             d_ab, i_ab, r_dab, r_iab = (t[:na] for t in (d_ab, i_ab, r_dab, r_iab))
             d_ba, i_ba, r_dba, r_iba = (t[:nb] for t in (d_ba, i_ba, r_dba, r_iba))
+            dd_ab, di_ab = (t[:na] for t in got_dir)
+            rd_ab, ri_ab = (t[:na] for t in ref_dir)
             if integer:
                 same = (torch.equal(i_ab, r_iab) and torch.equal(i_ba, r_iba)
                         and torch.equal(d_ab, r_dab) and torch.equal(d_ba, r_dba))
-                log(f"[kernel] L{lvl} integer case: bitwise equal={same} "
+                same_dir = torch.equal(di_ab, ri_ab) and torch.equal(dd_ab, rd_ab)
+                log(f"[kernel] L{lvl} integer case: bitwise equal={same}, "
+                    f"directed bitwise equal={same_dir} "
                     f"({r_dab.unique().numel()} distinct row minima over "
                     f"{na} rows)")
-                if not same:
+                if not (same and same_dir):
                     raise AssertionError(f"L{lvl}: integer case not bitwise equal")
                 continue
             agree_ab = (i_ab == r_iab).float().mean().item()
             agree_ba = (i_ba == r_iba).float().mean().item()
+            agree_dir = (di_ab == ri_ab).float().mean().item()
 
             def at_match(f_from, m_from, f_to, m_to, idx, n):
                 """f32 distance at the kernel's matches, row by row."""
@@ -145,27 +210,48 @@ def check_kernels(torch) -> dict:
                                    torch.full_like(dots, float("inf")))
             m_ab = at_match(fa, ma01, fb, mb01, i_ab, na)
             m_ba = at_match(fb, mb01, fa, ma01, i_ba, nb)
+            m_dir = at_match(fa, ma01, fb, mb01, di_ab, na)
             slack = max((m_ab - r_dab).max().item(), (m_ba - r_dba).max().item())
+            slack_dir = (m_dir - rd_ab).max().item()
             err = max((d_ab - r_dab).abs().max().item(),
                       (d_ba - r_dba).abs().max().item())
-            ms = _time_ms(torch, lambda: cuda_nn.nn_bidir_tables(fa, ma, fb, mb), 3)
-            plain = _time_ms(
-                torch, lambda: nn_bidir_tables_plain(fa, ma01, fb, mb01), 3)
+            err_dir = (dd_ab - rd_ab).abs().max().item()
+            gemm = _gemm_ms(torch, fa, fb)
             flops = 2.0 * na * nb * (9 * c + 9)
-            log(f"[kernel] L{lvl} Na={na} Nb={nb} C={c}: agree a->b {agree_ab:.5f} "
-                f"b->a {agree_ba:.5f}; match slack {slack:.2e}; max |d err| "
-                f"{err:.2e}; kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-                f"plain {plain:.3f} ms")
-            if min(agree_ab, agree_ba) < AGREE_MIN or slack > DIST_TOL:
-                raise AssertionError(f"L{lvl}: kernel disagrees with plain")
-            tot_ms += ms
-            tot_plain += plain
-            max_err = max(max_err, err)
-    return {"name": "nn_bidir", "route": "cuda",
-            "source": "nct_tpu_torch/csrc/nn_bidir.cu",
-            "replaces": "nct_tpu/ops/pallas_nn.py:86",
-            "launches": 0, "max_abs_err": max_err,
-            "ms": tot_ms, "plain_ms": tot_plain}
+            for name, kernel, plain, agree, slk, e in (
+                    ("nn_bidir",
+                     lambda: cuda_nn.nn_bidir_tables(fa, ma, fb, mb),
+                     lambda: nn_bidir_tables_plain(fa, ma01, fb, mb01),
+                     min(agree_ab, agree_ba), slack, err),
+                    ("nn_directed",
+                     lambda: cuda_nn.nn_directed_tables(fa, ma, fb, mb),
+                     lambda: nn_tables_plain(fa, ma01, fb, mb01),
+                     agree_dir, slack_dir, err_dir)):
+                ms = _time_ms(torch, kernel, 3)
+                plain_ms = _time_ms(torch, plain, 3)
+                bound = _bound_ms(na, nb, c, name == "nn_directed")
+                log(f"[{name}] L{lvl} Na={na} Nb={nb} C={c}: agree {agree:.5f}; "
+                    f"match slack {slk:.2e}; max |d err| {e:.2e}; kernel "
+                    f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                    f"{bound / ms:.3f} of bound {bound:.3f} ms), plain "
+                    f"{plain_ms:.3f} ms, cuBLAS bf16 GEMM {gemm:.3f} ms")
+                if agree < AGREE_MIN or slk > DIST_TOL:
+                    raise AssertionError(f"L{lvl}: {name} disagrees with plain")
+                r = rec[name]
+                r["ms"] += ms
+                r["plain_ms"] += plain_ms
+                r["bound_ms"] += bound
+                r["cublas_gemm_ms"] += gemm
+                r["max_abs_err"] = max(r["max_abs_err"], e)
+    source = "nct_tpu_torch/csrc/nn_bidir.cu"
+    bidir = {"name": "nn_bidir", "route": "cuda", "source": source,
+             "replaces": "nct_tpu/ops/pallas_nn.py:86", "launches": 0,
+             **rec["nn_bidir"], "bound_by": "operations", "library_ms": None}
+    directed = {"name": "nn_directed", "route": "cuda", "source": source,
+                "replaces": "nct_tpu/ops/pallas_nn.py:33", "launches": 0,
+                **rec["nn_directed"], "bound_by": "operations",
+                "library_ms": None}
+    return bidir, directed
 
 
 def _pair(torch, gen, hw_c, hw_s, smooth: bool):
@@ -185,50 +271,69 @@ def _pair(torch, gen, hw_c, hw_s, smooth: bool):
     return out
 
 
-def check_slice(torch) -> int:
-    """The default-Config slice on the card; returns the kernel launches of
-    the cold run."""
-    from nct_tpu_torch import Config, pipeline
-    from nct_tpu_torch.models import vgg19
+def _check_output(torch, out, trace=None) -> None:
+    """The output checks of phase 4: shape and type, not constant, and a
+    finite per-level trace."""
+    if tuple(out.shape) != (*CONTENT_HW, 3) or out.dtype != torch.uint8:
+        raise AssertionError(f"bad output {tuple(out.shape)} {out.dtype}")
+    if int(out.max()) == int(out.min()):
+        raise AssertionError("constant output")
+    for tr in trace or ():
+        for key in ("a", "b", "bds_err"):
+            if not bool(torch.isfinite(tr[key]).all()):
+                raise AssertionError(f"non-finite {key} at L{tr['level']}")
+
+
+def _timed_pairs(torch, label, model, config, cnt, stl, runs: int,
+                 launches: dict) -> dict:
+    """``runs`` checked transfer_pair runs (the first cold); each must make
+    exactly ``launches`` kernel launches.  Prints the times; returns the
+    launch counts read just after the cold run."""
+    from nct_tpu_torch import pipeline
     from nct_tpu_torch.ops import cuda_nn
 
-    gen = torch.Generator().manual_seed(0)
-    model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
-    config = Config()
-    cnt, stl = _pair(torch, gen, CONTENT_HW, STYLE_HW, smooth=False)
-    mp = CONTENT_HW[0] * CONTENT_HW[1] / 1e6
-    per_pair = config.exact_nn_levels
-
-    times, launches = [], []
+    times = []
     torch.cuda.reset_peak_memory_stats()
-    for run in range(4):
+    for run in range(runs):
         torch.cuda.synchronize()
-        cuda_nn.LAUNCHES = 0
+        reset_counts()
         t0 = time.perf_counter()
         out, trace = pipeline.transfer_pair(model, cnt, stl, 2.0, config,
                                             seed=7, return_intermediates=True)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        launches.append(cuda_nn.LAUNCHES)
-        log(f"[slice] run {run} ({'cold' if run == 0 else 'warm'}): "
-            f"{times[-1]:.3f} s, {cuda_nn.LAUNCHES} kernel launches")
-        if tuple(out.shape) != (*CONTENT_HW, 3) or out.dtype != torch.uint8:
-            raise AssertionError(f"bad output {tuple(out.shape)} {out.dtype}")
-        if int(out.max()) == int(out.min()):
-            raise AssertionError("constant output")
-        for tr in trace:
-            for key in ("a", "b", "bds_err"):
-                if not bool(torch.isfinite(tr[key]).all()):
-                    raise AssertionError(f"non-finite {key} at L{tr['level']}")
-        if cuda_nn.LAUNCHES != per_pair:
-            raise AssertionError(f"{cuda_nn.LAUNCHES} kernel launches, "
-                                 f"expected {per_pair} (L0-L3)")
+        log(f"[{label}] run {run} ({'cold' if run == 0 else 'warm'}): "
+            f"{times[-1]:.3f} s, kernel launches {cuda_nn.LAUNCHES}")
+        _check_output(torch, out, trace)
+        if cuda_nn.LAUNCHES != launches:
+            raise AssertionError(f"kernel launches {cuda_nn.LAUNCHES}, "
+                                 f"expected {launches}")
+        if run == 0:
+            cold_launches = dict(cuda_nn.LAUNCHES)
     warm = statistics.median(times[1:])
-    log(f"[slice] 452x680 / 600x960 default Config: cold {times[0]:.3f} s, "
-        f"warm median {warm:.3f} s ({mp / warm:.4f} MP/s), "
-        f"nl iters {[int(t['nl_iters']) for t in trace]}, "
-        f"wls iters {[int(t['wls_iters']) for t in trace]}, peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    mp = CONTENT_HW[0] * CONTENT_HW[1] / 1e6
+    log(f"[{label}] 452x680 / 600x960: cold {times[0]:.3f} s, warm "
+        f"{[round(t, 3) for t in times[1:]]} s, median {warm:.3f} s "
+        f"({mp / warm:.4f} MP/s), nl iters "
+        f"{[int(t['nl_iters']) for t in trace]}, wls iters "
+        f"{[int(t['wls_iters']) for t in trace]}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return cold_launches
+
+
+def check_slice(torch) -> int:
+    """The default-Config slice on the card; returns the nn_bidir launches
+    of the cold run."""
+    from nct_tpu_torch import Config, pipeline
+    from nct_tpu_torch.models import vgg19
+
+    gen = torch.Generator().manual_seed(0)
+    model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
+    config = Config()
+    cnt, stl = _pair(torch, gen, CONTENT_HW, STYLE_HW, smooth=False)
+    per_pair = {"nn_bidir": config.exact_nn_levels, "nn_directed": 0}
+    launches = _timed_pairs(torch, "slice", model, config, cnt, stl, 4,
+                            per_pair)
 
     # small smooth pair: the card path against the CPU path of the port
     cnt_s, stl_s = _pair(torch, gen, (64, 80), (72, 88), smooth=True)
@@ -243,7 +348,77 @@ def check_slice(torch) -> int:
         f"{within:.4f} of values, mean |diff| {diff.float().mean().item():.4f}")
     if within < SMALL_WITHIN2_MIN:
         raise AssertionError("card and CPU paths disagree on the small pair")
-    return launches[0]
+    return launches["nn_bidir"]
+
+
+def check_patchmatch(torch) -> None:
+    """Phase 5: the PatchMatch configuration and the video sequence."""
+    from nct_tpu_torch import Config, pipeline
+    from nct_tpu_torch.models import vgg19
+
+    gen = torch.Generator().manual_seed(0)
+    model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
+    cnt, stl = _pair(torch, gen, CONTENT_HW, STYLE_HW, smooth=False)
+    config = Config(fine_strategy="patchmatch")
+    _timed_pairs(torch, "patchmatch", model, config, cnt, stl, 3,
+                 {"nn_bidir": config.exact_nn_levels, "nn_directed": 0})
+
+    # a panning shot: each frame is the previous one moved 2 px right
+    frames = [cnt.copy()]
+    for _ in range(2):
+        frames.append(frames[-1][:, [0, 0, *range(CONTENT_HW[1] - 2)]])
+    seq = Config(exact_nn_levels=0, fine_strategy="patchmatch")
+    given, returned = [], []
+    transfer_pair = pipeline.transfer_pair
+
+    def recording(*args, **kwargs):
+        """transfer_pair, noting the warm start each frame gets."""
+        given.append(kwargs.get("warm_start"))
+        out = transfer_pair(*args, **kwargs)
+        returned.append(out[1])
+        return out
+
+    torch.cuda.synchronize()
+    reset_counts()
+    pipeline.transfer_pair = recording
+    try:
+        t0 = time.perf_counter()
+        outs = []
+        for out in pipeline.transfer_sequence(model, frames, stl, 2.0, seq,
+                                              seed=7):
+            torch.cuda.synchronize()
+            outs.append(time.perf_counter() - t0)
+            _check_output(torch, out)
+    finally:
+        pipeline.transfer_pair = transfer_pair
+    from nct_tpu_torch.ops import cuda_nn
+    per_frame = [round(b - a, 3) for a, b in zip([0.0, *outs], outs)]
+    warm = [given[k] is returned[k - 1] for k in (1, 2)]
+    log(f"[sequence] 3 frames 452x680 / 600x960, PatchMatch at every level: "
+        f"{per_frame} s per frame; frames 2-3 warm-started from the previous "
+        f"frame's level-0 fields: {warm}; kernel launches {cuda_nn.LAUNCHES}")
+    if len(outs) != 3 or given[0] is not None or not all(warm):
+        raise AssertionError("the sequence did not chain its warm starts")
+    if any(v for v in cuda_nn.LAUNCHES.values()):
+        raise AssertionError("no exact level, yet an NN kernel launched")
+
+
+def check_profiler(torch) -> int:
+    """Phase 6: the per-stage profiler at its real shapes; returns the
+    directed kernel's launches on that path."""
+    from nct_tpu_torch.ops import cuda_nn
+    from nct_tpu_torch.tools import profile_stages
+
+    torch.cuda.synchronize()
+    reset_counts()
+    stages = profile_stages.run("cuda", reps=3)
+    launches = cuda_nn.LAUNCHES["nn_directed"]
+    log(json.dumps({"profile_stages_ms": stages}))
+    bad = [k for k, v in stages.items() if not v > 0.0]
+    if bad or launches == 0:
+        raise AssertionError(f"profiler: stages {bad} not timed, "
+                             f"{launches} directed launches")
+    return launches
 
 
 def main() -> int:
@@ -253,9 +428,11 @@ def main() -> int:
 
     kind, smi = device_info(torch)
     build_kernels()
-    record = check_kernels(torch)
-    record["launches"] = check_slice(torch)
-    log(json.dumps({"kernels": [record]}))
+    bidir, directed = check_kernels(torch)
+    bidir["launches"] = check_slice(torch)
+    check_patchmatch(torch)
+    directed["launches"] = check_profiler(torch)
+    log(json.dumps({"kernels": [bidir, directed]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

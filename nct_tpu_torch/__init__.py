@@ -5,12 +5,17 @@ the reference the port is tested against.  The layout mirrors the JAX
 package so each counterpart is easy to find:
 
   nct_tpu_torch.config    -- hyper-parameters (fields of nct_tpu.config)
-  nct_tpu_torch.ops       -- colour, resize, patch NN search (CUDA kernel
-                             in ops/cuda_nn.py), window refine, BDS vote
+  nct_tpu_torch.ops       -- colour, resize, exact patch NN search (CUDA
+                             kernel in ops/cuda_nn.py), PatchMatch, window
+                             refine, BDS vote
   nct_tpu_torch.models    -- VGG-19 feature extractor (nn.Module)
   nct_tpu_torch.solve     -- k-means, k-NN graph, PCG solvers
-  nct_tpu_torch.pipeline  -- the 5-level progressive ``transfer_pair``
+  nct_tpu_torch.pipeline  -- the 5-level progressive ``transfer_pair`` and
+                             the video path ``transfer_sequence``
   nct_tpu_torch.cli       -- pairs.txt batch CLI (python -m nct_tpu_torch.cli)
+  nct_tpu_torch.utils     -- stage timing and profiler hooks
+  nct_tpu_torch.tools     -- per-stage profiler (python -m
+                             nct_tpu_torch.tools.profile_stages)
   nct_tpu_torch.csrc      -- CUDA C++ sources, built with nvcc at first use
 
 Public functions keep the JAX package's layouts: images [H, W, 3] uint8

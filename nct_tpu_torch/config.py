@@ -3,8 +3,9 @@
 The same fields and defaults as ``nct_tpu/config.py`` (whose comments give
 the reason for each default); the port keeps its own copy so that nothing
 it imports belongs to the JAX package.  ``tests/test_torch_pipeline.py``
-holds the two field lists and defaults equal.  Fields that select paths
-the port does not run yet are rejected by ``pipeline.check_config``.
+holds the two field lists, the defaults and the two methods below equal.
+Fields that select paths the port does not run yet are rejected by
+``pipeline.check_config``.
 """
 
 from __future__ import annotations
@@ -66,6 +67,26 @@ class Config:
     knn_memberships: int = 1
     space_mesh: object = None
     space_axis: str = "space"
+
+    @classmethod
+    def reference_parity(cls, **overrides) -> "Config":
+        """The reference-shaped configuration: PatchMatch at every level
+        with 10 iterations, unhalved CG budgets, tolerance 1e-6 and the
+        block-Jacobi nonlocal preconditioner (which the port does not run
+        yet: ``pipeline.check_config`` rejects it)."""
+        base = dict(
+            exact_nn_levels=0, fine_strategy="patchmatch",
+            pm_iters=10, pm_iters_fine=10, nl_precond="block_jacobi",
+            cg_iters=100, cg_iters_final=50, wls_cg_iters=400,
+            wls_cg_iters_mg=100, cg_tol=1e-6,
+        )
+        base.update(overrides)
+        return cls(**base)
+
+    def pm_search_radii(self, max_len: int) -> list[int]:
+        """Per-level PatchMatch random-search radii for an image pair whose
+        longest side is ``max_len``."""
+        return [max_len // 16, max_len // 32, max_len // 64, 32, 32]
 
     def vgg_layers(self) -> list[str]:
         """Coarse-to-fine post-ReLU feature taps; ``num_levels < 5`` keeps

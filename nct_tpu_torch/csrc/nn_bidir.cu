@@ -1,20 +1,31 @@
-// Exact bidirectional patch nearest-neighbour search for Hopper (sm_90a).
+// Exact patch nearest-neighbour search for Hopper (sm_90a), bidirectional
+// and directed.
 //
-// Replaces the TPU kernel nct_tpu/ops/pallas_nn.py::_nn_bidir_kernel
-// (pallas_call at pallas_nn.py:221, entry exact_nn_pallas_bidir), which the
-// pipeline runs at pyramid levels L0-L3.  For bf16 patch tables Fa [Na, KC]
-// and Fb [Nb, KC] (KC = 9 * channels) and 9-bit validity masks, it computes
+// Replaces the two TPU kernels of nct_tpu/ops/pallas_nn.py:
+//   * _nn_bidir_kernel (pallas_call at pallas_nn.py:221, entry
+//     exact_nn_pallas_bidir), which the pipeline runs at pyramid levels
+//     L0-L3: instance nn_kernel<true>, entry nn_bidir_launch;
+//   * _nn_kernel (pallas_call at pallas_nn.py:299, entry exact_nn_pallas),
+//     the directed a -> b search the per-stage profiler times: instance
+//     nn_kernel<false>, entry nn_directed_launch.  It is the same kernel
+//     with the column fold compiled out, so its tile arithmetic and
+//     accumulation order are those of the bidirectional instance and its
+//     row result is bitwise the same.
+//
+// For bf16 patch tables Fa [Na, KC] and Fb [Nb, KC] (KC = 9 * channels) and
+// 9-bit validity masks, it computes
 //
 //     d(a, b) = -(Fa[a] . Fb[b]) / max(cnt(a, b), 1),  +inf where cnt == 0,
 //     cnt(a, b) = popcount(Ma[a] & Mb[b])   (= the f32 product of 0/1 masks)
 //
-// and folds, from the same tile, the row argmin (a -> b) and the column
-// argmin (b -> a), both first-match on ties.  The [Na, Nb] matrix is never
-// stored (44 GB in f32 at L3 of the 452x680 / 600x960 pair).
+// and folds, from the same tile, the row argmin (a -> b) and (bidirectional
+// instance only) the column argmin (b -> a), both first-match on ties.  The
+// [Na, Nb] matrix is never stored (44 GB in f32 at L3 of the 452x680 /
+// 600x960 pair).
 //
-// Bound: compute.  A pair runs about 29 TFLOP of bf16 products over about
-// 0.9 GB of patch tables, some 30,000 operations per byte, far above the
-// card's ~295 FLOP/byte ridge.  The design therefore puts the products on
+// Bound: compute.  The work is 2 Na Nb (KC + 9) operations: a pair runs
+// about 29 TFLOP of bf16 products over about 0.9 GB of patch tables, some
+// 30,000 operations per byte, far above the card's ~295 FLOP/byte ridge.  The design therefore puts the products on
 // the tensor cores (nvcuda::wmma bf16 16x16x16, f32 accumulation), keeps a
 // 128x128 output tile per block so each operand byte loaded into shared
 // memory feeds 128 products, and keeps every reduction on chip:
@@ -52,8 +63,13 @@ constexpr int LDC = TB + 4;    // f32 tile row stride in smem
 constexpr int NTHREADS = 256;  // 8 warps: 4 (rows) x 2 (columns)
 
 constexpr size_t CTILE_BYTES = sizeof(float) * TA * LDC;
-constexpr size_t SMEM_BYTES = CTILE_BYTES + sizeof(int) * (TA + TB) +
-                              (sizeof(float) + sizeof(int)) * TB;
+// f32 tile (aliased by the operand stages), both mask tiles and, for the
+// column fold only, the per-column half minima.
+template <bool kColumns>
+constexpr size_t smem_bytes() {
+  return CTILE_BYTES + sizeof(int) * (TA + TB) +
+         (kColumns ? (sizeof(float) + sizeof(int)) * TB : 0);
+}
 static_assert(2 * sizeof(__nv_bfloat16) * TA * LDS <= CTILE_BYTES,
               "operand stages must fit inside the aliased f32 tile");
 
@@ -65,22 +81,21 @@ __device__ __forceinline__ unsigned long long make_key(float d, int idx) {
          static_cast<unsigned int>(idx);
 }
 
+// kColumns: also fold the column argmin into col_keys (unused, and may be
+// null, when false).
+template <bool kColumns>
 __global__ void __launch_bounds__(NTHREADS)
-nn_bidir_kernel(const __nv_bfloat16* __restrict__ fa,
-                const int* __restrict__ ma,
-                const __nv_bfloat16* __restrict__ fb,
-                const int* __restrict__ mb,
-                int kc, int nb_tiles, int tiles_per_split,
-                unsigned long long* __restrict__ row_keys,
-                unsigned long long* __restrict__ col_keys) {
+nn_kernel(const __nv_bfloat16* __restrict__ fa, const int* __restrict__ ma,
+          const __nv_bfloat16* __restrict__ fb, const int* __restrict__ mb,
+          int kc, int nb_tiles, int tiles_per_split,
+          unsigned long long* __restrict__ row_keys,
+          unsigned long long* __restrict__ col_keys) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* ctile = reinterpret_cast<float*>(smem);
   __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem);  // aliases ctile
   __nv_bfloat16* sb = sa + TA * LDS;
   int* sma = reinterpret_cast<int*>(smem + CTILE_BYTES);
   int* smb = sma + TA;
-  float* half_d = reinterpret_cast<float*>(smb + TB);
-  int* half_i = reinterpret_cast<int*>(half_d + TB);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -198,8 +213,12 @@ nn_bidir_kernel(const __nv_bfloat16* __restrict__ fa,
       }
     }
 
-    // b -> a: lowest row of the column minimum, then one atomic per column
-    {
+    // b -> a: lowest row of the column minimum, then one atomic per column.
+    // Compiled out of the directed instance, barrier included; the branch
+    // is uniform, so every thread meets the same barriers.
+    if constexpr (kColumns) {
+      float* half_d = reinterpret_cast<float*>(smb + TB);
+      int* half_i = reinterpret_cast<int*>(half_d + TB);
       const int c = tid % TB, h = tid / TB;
       float dmin = INFINITY;
       int rmin = h * (TA / 2);
@@ -218,6 +237,30 @@ nn_bidir_kernel(const __nv_bfloat16* __restrict__ fa,
   if (my_half == 0) atomicMin(row_keys + a0 + my_row, make_key(best_d, best_i));
 }
 
+template <bool kColumns>
+cudaError_t launch(const void* fa, const void* ma, const void* fb,
+                   const void* mb, int na_pad, int nb_pad, int kc,
+                   int tiles_per_split, void* row_keys, void* col_keys,
+                   void* stream) {
+  if (na_pad <= 0 || nb_pad <= 0 || na_pad % TA || nb_pad % TB || kc <= 0 ||
+      kc % TK || tiles_per_split <= 0)
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = smem_bytes<kColumns>();
+  auto* kernel = &nn_kernel<kColumns>;
+  cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(kernel),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int nb_tiles = nb_pad / TB;
+  dim3 grid(na_pad / TA, (nb_tiles + tiles_per_split - 1) / tiles_per_split);
+  kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(fa), static_cast<const int*>(ma),
+      static_cast<const __nv_bfloat16*>(fb), static_cast<const int*>(mb), kc,
+      nb_tiles, tiles_per_split, static_cast<unsigned long long*>(row_keys),
+      static_cast<unsigned long long*>(col_keys));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -233,22 +276,18 @@ int nn_bidir_launch(const void* fa, const void* ma, const void* fb,
                     const void* mb, int na_pad, int nb_pad, int kc,
                     int tiles_per_split, void* row_keys, void* col_keys,
                     void* stream) {
-  if (na_pad <= 0 || nb_pad <= 0 || na_pad % TA || nb_pad % TB || kc <= 0 ||
-      kc % TK || tiles_per_split <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      nn_bidir_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(SMEM_BYTES));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int nb_tiles = nb_pad / TB;
-  dim3 grid(na_pad / TA, (nb_tiles + tiles_per_split - 1) / tiles_per_split);
-  nn_bidir_kernel<<<grid, NTHREADS, SMEM_BYTES,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(fa), static_cast<const int*>(ma),
-      static_cast<const __nv_bfloat16*>(fb), static_cast<const int*>(mb), kc,
-      nb_tiles, tiles_per_split, static_cast<unsigned long long*>(row_keys),
-      static_cast<unsigned long long*>(col_keys));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch<true>(fa, ma, fb, mb, na_pad, nb_pad, kc,
+                                       tiles_per_split, row_keys, col_keys,
+                                       stream));
+}
+
+// The directed search: as nn_bidir_launch without the column keys.
+int nn_directed_launch(const void* fa, const void* ma, const void* fb,
+                       const void* mb, int na_pad, int nb_pad, int kc,
+                       int tiles_per_split, void* row_keys, void* stream) {
+  return static_cast<int>(launch<false>(fa, ma, fb, mb, na_pad, nb_pad, kc,
+                                        tiles_per_split, row_keys, nullptr,
+                                        stream));
 }
 
 const char* nn_bidir_error_string(int code) {

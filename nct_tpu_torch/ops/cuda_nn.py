@@ -1,15 +1,17 @@
-"""Exact bidirectional patch NN search on the card (counterpart of
-``nct_tpu/ops/pallas_nn.py::exact_nn_pallas_bidir``).
+"""Exact patch NN search on the card: bidirectional (counterpart of
+``nct_tpu/ops/pallas_nn.py::exact_nn_pallas_bidir``) and directed
+(counterpart of ``exact_nn_pallas``).
 
-``exact_nn_bidir`` launches the hand-written CUDA kernel
-``csrc/nn_bidir.cu`` for CUDA tensors and runs the plain PyTorch version
-(``exact_nn.exact_nn_bidir_plain``) for CPU tensors.  There is no switch
-and no fallback: on a CUDA tensor a failed build or launch raises.
+``exact_nn_bidir`` and ``exact_nn`` launch the hand-written CUDA kernel
+``csrc/nn_bidir.cu`` (its bidirectional and directed instances) for CUDA
+tensors and run the plain PyTorch versions (``exact_nn.exact_nn_bidir_plain``
+and ``exact_nn.exact_nn_plain``) for CPU tensors.  There is no switch and no
+fallback: on a CUDA tensor a failed build or launch raises.
 
-The kernel returns, per row and per column, a 64-bit key
+The kernel returns, per row (and per column), a 64-bit key
 ``ordered_bits(d) << 32 | index`` reduced with atomicMin (see the source
 note in ``nn_bidir.cu``); ``decode_keys`` turns keys back into
-(distance, index).  ``LAUNCHES`` counts kernel launches.
+(distance, index).  ``LAUNCHES`` counts kernel launches per instance.
 """
 
 from __future__ import annotations
@@ -21,10 +23,10 @@ import torch
 
 from nct_tpu_torch import _build
 from nct_tpu_torch.ops.exact_nn import (
-    exact_nn_bidir_plain, prep_tables, unpack_nnf,
+    exact_nn_bidir_plain, exact_nn_plain, prep_tables, unpack_nnf,
 )
 
-LAUNCHES = 0
+LAUNCHES = {"nn_bidir": 0, "nn_directed": 0}
 
 TILE = 128   # rows of A per block and columns of B per tile (nn_bidir.cu TA/TB)
 DEPTH = 32   # K*C must be a multiple of the shared-memory stage depth (TK)
@@ -37,6 +39,8 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.nn_bidir_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p]
     lib.nn_bidir_launch.restype = i
+    lib.nn_directed_launch.argtypes = [p, p, p, p, i, i, i, i, p, p]
+    lib.nn_directed_launch.restype = i
     lib.nn_bidir_error_string.argtypes = [i]
     lib.nn_bidir_error_string.restype = ctypes.c_char_p
     lib.nn_bidir_tile_rows.restype = i
@@ -69,15 +73,8 @@ def mask_bits(m: torch.Tensor) -> torch.Tensor:
     return (m.long() * w).sum(dim=1).to(torch.int32)
 
 
-def nn_bidir_tables(fa: torch.Tensor, ma: torch.Tensor, fb: torch.Tensor,
-                    mb: torch.Tensor):
-    """Launch the kernel on padded patch tables.
-
-    fa/fb: bf16 [Na_pad, KC] / [Nb_pad, KC], rows a multiple of TILE, KC a
-    multiple of DEPTH; ma/mb: int32 [Na_pad] / [Nb_pad] bit masks (0 on
-    padded rows).  Returns (d_ab, i_ab, d_ba, i_ba) over the padded rows.
-    """
-    global LAUNCHES
+def _check_tables(fa, ma, fb, mb) -> None:
+    """Raise on operands the kernel does not take."""
     for name, t in (("fa", fa), ("fb", fb)):
         if t.dtype != torch.bfloat16 or t.dim() != 2:
             raise ValueError(f"{name}: expected a 2-D bfloat16 table, got "
@@ -99,9 +96,14 @@ def nn_bidir_tables(fa: torch.Tensor, ma: torch.Tensor, fb: torch.Tensor,
         raise ValueError(f"rows must be padded to a multiple of {TILE}")
     dev = fa.device
     if dev.type != "cuda" or any(t.device != dev for t in (ma, fb, mb)):
-        raise ValueError("nn_bidir_tables needs all tables on one CUDA device")
+        raise ValueError("the NN kernels need all tables on one CUDA device")
 
+
+def _launch(kind: str, fa, ma, fb, mb):
+    """Launch one instance on checked tables; returns its key tensors."""
     lib = _lib()
+    dev = fa.device
+    na_pad, nb_pad, kc = fa.shape[0], fb.shape[0], fa.shape[1]
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     ni, nb_tiles = na_pad // TILE, nb_pad // TILE
     n_split = min(nb_tiles, -(-_BLOCKS_PER_SM * n_sm // ni))
@@ -109,19 +111,43 @@ def nn_bidir_tables(fa: torch.Tensor, ma: torch.Tensor, fb: torch.Tensor,
     inf_key = encode_keys(torch.tensor([float("inf")], device=dev),
                           torch.zeros(1, dtype=torch.int64, device=dev))
     row_keys = inf_key.expand(na_pad).contiguous()
-    col_keys = inf_key.expand(nb_pad).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.nn_bidir_launch(
-        fa.data_ptr(), ma.data_ptr(), fb.data_ptr(), mb.data_ptr(),
-        na_pad, nb_pad, kc, tiles_per_split, row_keys.data_ptr(),
-        col_keys.data_ptr(), stream)
+    args = (fa.data_ptr(), ma.data_ptr(), fb.data_ptr(), mb.data_ptr(),
+            na_pad, nb_pad, kc, tiles_per_split, row_keys.data_ptr())
+    if kind == "nn_bidir":
+        col_keys = inf_key.expand(nb_pad).contiguous()
+        err = lib.nn_bidir_launch(*args, col_keys.data_ptr(), stream)
+        keys = (row_keys, col_keys)
+    else:
+        err = lib.nn_directed_launch(*args, stream)
+        keys = (row_keys,)
     if err != 0:
-        raise RuntimeError("nn_bidir kernel launch failed: "
+        raise RuntimeError(f"{kind} kernel launch failed: "
                            + lib.nn_bidir_error_string(err).decode())
-    LAUNCHES += 1
-    d_ab, i_ab = decode_keys(row_keys)
-    d_ba, i_ba = decode_keys(col_keys)
-    return d_ab, i_ab, d_ba, i_ba
+    LAUNCHES[kind] += 1
+    return keys
+
+
+def nn_bidir_tables(fa: torch.Tensor, ma: torch.Tensor, fb: torch.Tensor,
+                    mb: torch.Tensor):
+    """Launch the bidirectional kernel on padded patch tables.
+
+    fa/fb: bf16 [Na_pad, KC] / [Nb_pad, KC], rows a multiple of TILE, KC a
+    multiple of DEPTH; ma/mb: int32 [Na_pad] / [Nb_pad] bit masks (0 on
+    padded rows).  Returns (d_ab, i_ab, d_ba, i_ba) over the padded rows.
+    """
+    _check_tables(fa, ma, fb, mb)
+    row_keys, col_keys = _launch("nn_bidir", fa, ma, fb, mb)
+    return (*decode_keys(row_keys), *decode_keys(col_keys))
+
+
+def nn_directed_tables(fa: torch.Tensor, ma: torch.Tensor, fb: torch.Tensor,
+                       mb: torch.Tensor):
+    """Launch the directed kernel (a -> b only) on padded patch tables, as
+    ``nn_bidir_tables``.  Returns (d_ab, i_ab) over the padded A rows."""
+    _check_tables(fa, ma, fb, mb)
+    (row_keys,) = _launch("nn_directed", fa, ma, fb, mb)
+    return decode_keys(row_keys)
 
 
 def padded_tables(x_norm: torch.Tensor, patch_size: int):
@@ -154,3 +180,23 @@ def exact_nn_bidir(a_norm: torch.Tensor, b_norm: torch.Tensor,
     d_ab, i_ab, d_ba, i_ba = nn_bidir_tables(fa, ma, fb, mb)
     return (unpack_nnf(i_ab[:na], nb, ha, wa, wb), d_ab[:na].reshape(ha, wa),
             unpack_nnf(i_ba[:nb], na, hb, wb, wa), d_ba[:nb].reshape(hb, wb))
+
+
+def exact_nn(a_norm: torch.Tensor, b_norm: torch.Tensor, patch_size: int = 3):
+    """Exhaustive NN a -> b (counterpart of ``exact_nn_pallas``).
+
+    Returns (nnf [Ha,Wa,2] int32, annd [Ha,Wa] f32), first match on ties.
+    CUDA tensors go through the directed kernel; CPU tensors through the
+    plain version.
+    """
+    if a_norm.device != b_norm.device:
+        raise ValueError("a_norm and b_norm must be on one device")
+    if a_norm.device.type == "cpu":
+        return exact_nn_plain(a_norm, b_norm, patch_size)
+    ha, wa, _ = a_norm.shape
+    hb, wb, _ = b_norm.shape
+    na = ha * wa
+    fa, ma = padded_tables(a_norm, patch_size)
+    fb, mb = padded_tables(b_norm, patch_size)
+    d_ab, i_ab = nn_directed_tables(fa, ma, fb, mb)
+    return unpack_nnf(i_ab[:na], hb * wb, ha, wa, wb), d_ab[:na].reshape(ha, wa)

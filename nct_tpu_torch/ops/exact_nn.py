@@ -1,15 +1,20 @@
-"""Exact bidirectional patch NN search: the plain PyTorch version.
+"""Exact patch NN search, bidirectional and directed: the plain PyTorch
+version.
 
 The masked cosine patch distance between patch p of A and q of B is
 
     d(p, q) = -<Fa[p], Fb[q]> / max(Ma[p] . Mb[q], 1),  +inf where the count is 0
 
 over patchified features rounded to bfloat16 (``prep_tables``).  One sweep
-over A chunks x B tiles folds both the row argmin (a -> b) and the column
-argmin (b -> a), first match on ties, so the [Na, Nb] matrix is never
-stored.  This is the CPU path and the card-side oracle of the CUDA kernel
-in ``cuda_nn.py`` (the counterpart of ``nct_tpu/ops/pallas_nn.py``); on a
-CUDA tensor the pipeline always goes through the kernel.
+over A chunks x B tiles folds the row argmin (a -> b) and, for the
+bidirectional search, the column argmin (b -> a), first match on ties, so
+the [Na, Nb] matrix is never stored.  The directed search is the same sweep
+without the column fold (``nn_tables_plain``, ``exact_nn_plain``: the
+counterparts of ``nct_tpu/ops/exact_nn.py::exact_nn`` and of the Pallas
+``exact_nn_pallas``).  This is the CPU path and the card-side oracle of the
+CUDA kernels in ``cuda_nn.py`` (the counterparts of
+``nct_tpu/ops/pallas_nn.py``); on a CUDA tensor the port always goes
+through the kernels.
 
 The bfloat16 tables are cast to float32 before ``torch.matmul``: a bf16 x
 bf16 matmul in torch returns bf16 and rounds every dot product, while a
@@ -50,10 +55,9 @@ def _first_min(d: torch.Tensor, dim: int):
     return dmin.squeeze(dim), idx
 
 
-def nn_bidir_tables_plain(fa, ma, fb, mb, a_chunk: int = 4096,
-                          b_tile: int = 4096):
-    """Row and column (min, first argmin) of the masked distance between
-    patch tables.  Returns (d_ab [Na], i_ab [Na], d_ba [Nb], i_ba [Nb])."""
+def _sweep(fa, ma, fb, mb, a_chunk: int, b_tile: int, columns: bool):
+    """Row (and, with ``columns``, column) min and first argmin of the
+    masked distance between patch tables."""
     na, nb = fa.shape[0], fb.shape[0]
     dev = fa.device
     fa32, ma32 = fa.float(), ma.float()
@@ -75,12 +79,27 @@ def nn_bidir_tables_plain(fa, ma, fb, mb, a_chunk: int = 4096,
             better = rmin < d_ab[a0:a1]
             d_ab[a0:a1] = torch.where(better, rmin, d_ab[a0:a1])
             i_ab[a0:a1] = torch.where(better, rcol + b0, i_ab[a0:a1])
+            if not columns:
+                continue
             # b -> a: strict < across ascending A chunks = first match
             cmin, crow = _first_min(d, 0)
             better = cmin < d_ba[b0:b1]
             d_ba[b0:b1] = torch.where(better, cmin, d_ba[b0:b1])
             i_ba[b0:b1] = torch.where(better, crow + a0, i_ba[b0:b1])
     return d_ab, i_ab, d_ba, i_ba
+
+
+def nn_bidir_tables_plain(fa, ma, fb, mb, a_chunk: int = 4096,
+                          b_tile: int = 4096):
+    """Row and column (min, first argmin) of the masked distance between
+    patch tables.  Returns (d_ab [Na], i_ab [Na], d_ba [Nb], i_ba [Nb])."""
+    return _sweep(fa, ma, fb, mb, a_chunk, b_tile, columns=True)
+
+
+def nn_tables_plain(fa, ma, fb, mb, a_chunk: int = 4096, b_tile: int = 4096):
+    """Row (min, first argmin) only: the directed a -> b search.  Returns
+    (d_ab [Na], i_ab [Na])."""
+    return _sweep(fa, ma, fb, mb, a_chunk, b_tile, columns=False)[:2]
 
 
 def exact_nn_bidir_plain(a_norm: torch.Tensor, b_norm: torch.Tensor,
@@ -95,3 +114,15 @@ def exact_nn_bidir_plain(a_norm: torch.Tensor, b_norm: torch.Tensor,
     d_ab, i_ab, d_ba, i_ba = nn_bidir_tables_plain(fa, ma, fb, mb)
     return (unpack_nnf(i_ab, hb * wb, ha, wa, wb), d_ab.reshape(ha, wa),
             unpack_nnf(i_ba, ha * wa, hb, wb, wa), d_ba.reshape(hb, wb))
+
+
+def exact_nn_plain(a_norm: torch.Tensor, b_norm: torch.Tensor,
+                   patch_size: int = 3):
+    """Exhaustive NN a -> b.  a_norm [Ha,Wa,C], b_norm [Hb,Wb,C]
+    L2-normalized.  Returns (nnf [Ha,Wa,2] int32, annd [Ha,Wa] f32)."""
+    ha, wa, _ = a_norm.shape
+    hb, wb, _ = b_norm.shape
+    fa, ma = prep_tables(a_norm, patch_size)
+    fb, mb = prep_tables(b_norm, patch_size)
+    d_ab, i_ab = nn_tables_plain(fa, ma, fb, mb)
+    return unpack_nnf(i_ab, hb * wb, ha, wa, wb), d_ab.reshape(ha, wa)

@@ -13,8 +13,9 @@ def _grid(h: int, w: int, device):
 
 
 def init_scaled_identity(ah: int, aw: int, bh: int, bw: int,
-                         device=None) -> torch.Tensor:
-    """Scaled-identity init: bx = min(int(ax/(aw-1)*(bw-1)), bw-1)."""
+                         device: torch.device | str) -> torch.Tensor:
+    """Scaled-identity init on ``device``: bx = min(int(ax/(aw-1)*(bw-1)),
+    bw-1)."""
     xs, ys = _grid(ah, aw, device)
     if aw > 1:
         bx = torch.clamp((xs.float() / (aw - 1) * (bw - 1)).int(), max=bw - 1)

@@ -4,8 +4,10 @@
 Per level (conv5_1 -> conv1_1):
 
   1. correspondence search: exact bidirectional patch NN at levels
-     [0, exact_nn_levels) (the CUDA kernel on the card), window refine of
-     the upsampled fields above;
+     [0, exact_nn_levels) (the CUDA kernel on the card); above them window
+     refine of the upsampled fields (``fine_strategy="window"``) or
+     PatchMatch, seeded at level 0 by the scaled identity or a video warm
+     start;
   2. BDS colour guidance + BDS feature vote -> matching error;
   3. semantic k-NN graph on down-res Lab colours;
   4. patch-moment (a, b) init + confidence;
@@ -14,9 +16,11 @@ Per level (conv5_1 -> conv1_1):
   7. apply a*Lab+b at full res, Lab -> BGR;
   8. re-extract the next level's VGG tap from the refined image.
 
-Randomness enters only through ``draws`` (k-means initial centres and each
-level's cluster candidates); by default a ``torch.Generator`` seeded from
-``seed`` supplies them.
+Randomness enters only through ``draws`` (k-means initial centres, each
+PatchMatch level's random-search uniforms and each level's cluster
+candidates); by default a ``torch.Generator`` seeded from ``seed`` supplies
+them.  ``transfer_pair`` and ``transfer_sequence`` run on ``cuda`` unless
+the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from nct_tpu_torch.config import Config
 from nct_tpu_torch.models import vgg19
 from nct_tpu_torch.ops import bds, cuda_nn, features, nnf, resize
 from nct_tpu_torch.ops.color import bgr_u8_to_lab_u8, unit_lab_to_bgr_u8
+from nct_tpu_torch.ops.patchmatch import patchmatch, random_search_mags
 from nct_tpu_torch.ops.window_refine import window_refine
 from nct_tpu_torch.solve import cluster, knn, stats
 from nct_tpu_torch.solve.nonlocal_solve import solve_nonlocal
@@ -40,14 +45,21 @@ STAGE1_SUBSET_PIXELS = 320_000
 
 
 class GeneratorDraws:
-    """Default draws: k-means initial indices and per-level candidate
-    scores from one ``torch.Generator`` seeded with ``seed``."""
+    """Default draws: k-means initial indices, PatchMatch uniforms and
+    per-level candidate scores from one CPU ``torch.Generator`` seeded with
+    ``seed`` (so a run on the card draws what a run on the CPU draws)."""
 
     def __init__(self, seed: int):
         self.generator = torch.Generator().manual_seed(seed)
 
     def kmeans_init(self, n: int, num_clusters: int) -> torch.Tensor:
         return cluster.draw_kmeans_init(n, num_clusters, self.generator)
+
+    def patchmatch_uniforms(self, level: int, direction: str,
+                            shape: tuple) -> torch.Tensor:
+        """Random-search uniforms of one PatchMatch call; ``direction`` is
+        "ab", then "ba", at each PatchMatch level."""
+        return torch.rand(shape, generator=self.generator)
 
     def candidates(self, level: int, membership_pix: torch.Tensor,
                    m: int) -> torch.Tensor:
@@ -59,23 +71,16 @@ class GeneratorDraws:
 
 def check_config(config: Config) -> None:
     """Raise NotImplementedError for Config values the port does not run."""
-    todo = "not ported yet (ROADMAP Queue 1 #13)"
-    left_out = "not ported yet (ROADMAP Queue 1, left out of items 1-11)"
-    for l in range(len(config.vgg_layers())):
-        exact = l < config.exact_nn_levels
-        window = config.fine_strategy == "window" and l > 0
-        if not (exact or window):
-            raise NotImplementedError(
-                f"level {l} would run PatchMatch (fine_strategy="
-                f"{config.fine_strategy!r}, exact_nn_levels="
-                f"{config.exact_nn_levels}): PatchMatch is {todo}")
+    left_out = "not ported yet (ROADMAP Queue 1 #13)"
+    if config.fine_strategy not in ("window", "patchmatch"):
+        raise ValueError(f"fine_strategy={config.fine_strategy!r}")
     if config.knn_memberships != 1:
         raise NotImplementedError(
             f"knn_memberships={config.knn_memberships}: the multi-membership "
             f"k-NN merge is {left_out}")
     if config.space_mesh is not None:
         raise NotImplementedError(
-            f"space_mesh: the space-sharded ring search is {todo}")
+            f"space_mesh: the space-sharded ring search is {left_out}")
     if config.nl_precond != "mg" or config.wls_precond != "mg":
         raise NotImplementedError(
             f"nl_precond={config.nl_precond!r} / wls_precond="
@@ -86,6 +91,16 @@ def check_config(config: Config) -> None:
             f"nl_transpose='scatter' is {left_out}")
     if config.feature_dtype not in ("bfloat16", "float32"):
         raise ValueError(f"feature_dtype={config.feature_dtype!r}")
+
+
+def _resolve_device(device) -> torch.device:
+    """``device`` or, by default, ``cuda``; raises when that is ``cuda`` and
+    no card is present (never carries on on the CPU unasked)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the pipeline runs on cuda unless device='cpu' is "
+                           "passed, and no CUDA device is available")
+    return device
 
 
 def image_pyramid(img_u8: torch.Tensor,
@@ -139,10 +154,11 @@ def _stage1_channels(config: Config, pixels: int) -> int:
     return config.window_stage1_channels
 
 
-def _level_match(config: Config, l: int, bds_weight: float, ann_prev,
-                 bnn_prev, cnt_feat_l, stl_feat_l, down_stl):
-    """Correspondence search + BDS guidance.  Returns (ann, bnn, guide_bgr,
-    bds_err)."""
+def _level_match(config: Config, l: int, rs: int, draws, bds_weight: float,
+                 ann_prev, bnn_prev, cnt_feat_l, stl_feat_l, down_stl):
+    """Correspondence search + BDS guidance.  ``ann_prev``/``bnn_prev``:
+    the previous level's fields, or at level 0 the warm start (or None).
+    Returns (ann, bnn, guide_bgr, bds_err)."""
     ah, aw = cnt_feat_l.shape[0], cnt_feat_l.shape[1]
     bh, bw = down_stl.shape[0], down_stl.shape[1]
     fdt = _dtype(config.feature_dtype)
@@ -152,7 +168,7 @@ def _level_match(config: Config, l: int, bds_weight: float, ann_prev,
     fs_n = features.l2_normalize(fs)[0].to(fdt)
     if l < config.exact_nn_levels:
         ann, _, bnn, _ = cuda_nn.exact_nn_bidir(fc_n, fs_n, ps)
-    else:
+    elif config.fine_strategy == "window" and l > 0:
         ann0 = nnf.upsample(ann_prev, ah, aw, bh, bw)
         bnn0 = nnf.upsample(bnn_prev, bh, bw, ah, aw)
         ann, _ = window_refine(
@@ -161,6 +177,27 @@ def _level_match(config: Config, l: int, bds_weight: float, ann_prev,
         bnn, _ = window_refine(
             fs_n, fc_n, bnn0, config.window_radius, config.window_shortlist,
             ps, _stage1_channels(config, bh * bw))
+    else:
+        dev = fc_n.device
+        if l > 0:
+            ann0 = nnf.upsample(ann_prev, ah, aw, bh, bw)
+            bnn0 = nnf.upsample(bnn_prev, bh, bw, ah, aw)
+        elif ann_prev is not None:      # video warm start
+            ann0, bnn0 = ann_prev, bnn_prev
+        else:
+            ann0 = nnf.init_scaled_identity(ah, aw, bh, bw, dev)
+            bnn0 = nnf.init_scaled_identity(bh, bw, ah, aw, dev)
+        iters = (config.pm_iters_fine if config.exact_nn_levels > 0
+                 else config.pm_iters)
+        fields = []
+        for direction, (fa, fb, f0) in (("ab", (fc_n, fs_n, ann0)),
+                                        ("ba", (fs_n, fc_n, bnn0))):
+            n_mags = max(len(random_search_mags(rs, fb.shape[0],
+                                                fb.shape[1])), 1)
+            u = draws.patchmatch_uniforms(
+                l, direction, (iters, n_mags, fa.shape[0], fa.shape[1], 2))
+            fields.append(patchmatch(fa, fb, f0, u, iters, rs, ps)[0])
+        ann, bnn = fields
 
     guide_bgr = bds.bds_reconstruct_color(down_stl, ann, bnn, 1.0,
                                           bds_weight, ps)
@@ -254,18 +291,20 @@ def transfer_pair(
 
     model: ``vgg19.VGG19`` (moved to ``device``); cnt/stl: uint8 BGR
     [H, W, 3] arrays or tensors, already capped to max_size.  ``device``
-    defaults to the model's.  ``draws`` supplies k-means initial indices
-    and per-level candidates (default ``GeneratorDraws(seed)``).
+    defaults to ``cuda`` and raises RuntimeError when no card is present;
+    ``device="cpu"`` runs the plain PyTorch path.  ``draws`` supplies the
+    k-means initial indices, PatchMatch uniforms and per-level candidates
+    (default ``GeneratorDraws(seed)``).
 
     Returns the uint8 BGR result [H, W, 3] on ``device``; with
     ``return_intermediates`` also a per-level trace list (``"stats"``:
     solver iteration counts and residuals only); with ``return_state`` also
-    the level-0 {"ann", "bnn"} for the next frame's ``warm_start``.
+    the level-0 {"ann", "bnn"} for the next frame's ``warm_start``, which
+    replaces the scaled-identity init of a level-0 PatchMatch (an exact
+    level 0 ignores it).
     """
     check_config(config)
-    if device is None:
-        device = next(model.parameters()).device
-    device = torch.device(device)
+    device = _resolve_device(device)
     model = model.to(device)
     if draws is None:
         draws = GeneratorDraws(seed)
@@ -273,6 +312,7 @@ def transfer_pair(
     numlayer = len(taps)
     cnt = _as_image(cnt_bgr_u8, device)
     stl = _as_image(stl_bgr_u8, device)
+    ranges = config.pm_search_radii(max(*cnt.shape[:2], *stl.shape[:2]))
 
     (cnt_feats, stl_feats, cnt_pyr, stl_pyr, cnt_lab_unit, label_map,
      membership) = _setup(model, cnt, stl, draws, config, taps)
@@ -288,8 +328,8 @@ def transfer_pair(
     coarse_state = None
     for l in range(numlayer):
         ann, bnn, guide_bgr, bds_err = _level_match(
-            config, l, bds_weight, ann, bnn, cnt_feat_l, stl_feats[taps[l]],
-            stl_pyr[l])
+            config, l, max(int(ranges[l]), 1), draws, bds_weight, ann, bnn,
+            cnt_feat_l, stl_feats[taps[l]], stl_pyr[l])
         (refined, cnt_feat_l, a_d, b_d, a_f, b_f, nl_info,
          wls_info) = _level_solve(
             model, config, l, numlayer, taps, draws, guide_bgr, bds_err,
@@ -312,3 +352,34 @@ def transfer_pair(
     if return_state:
         outs.append(coarse_state)
     return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def transfer_sequence(
+    model: vgg19.VGG19,
+    frames,
+    stl_bgr_u8,
+    bds_weight: float,
+    config: Config = Config(),
+    seed: int = 7,
+    draws=None,
+    device: torch.device | str | None = None,
+):
+    """Transfer same-size content frames against one style, warm-starting
+    each frame's level-0 fields from the previous frame's (the video path).
+    One ``draws`` (default ``GeneratorDraws(seed)``) serves every frame in
+    turn.  Returns an iterator of the uint8 BGR results on ``device``
+    (default ``cuda``; raises here, before the first frame, without a
+    card)."""
+    device = _resolve_device(device)
+    if draws is None:
+        draws = GeneratorDraws(seed)
+
+    def results():
+        state = None
+        for frame in frames:
+            out, state = transfer_pair(
+                model, frame, stl_bgr_u8, bds_weight, config, draws=draws,
+                device=device, warm_start=state, return_state=True)
+            yield out
+
+    return results()

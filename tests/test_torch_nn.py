@@ -1,12 +1,13 @@
-"""Parity of the port's exact bidirectional NN search with nct_tpu.
+"""Parity of the port's exact NN searches with nct_tpu.
 
-``exact_nn_bidir_plain`` (the CPU path and the card-side oracle of the CUDA
-kernel) is held against the Pallas kernel in interpret mode
-(``exact_nn_pallas_bidir``) and against the XLA formulation
-(``exact_nn.exact_nn``, run once per direction): bitwise where every f32
-sum is exact, tie-robust otherwise.  The CUDA wrapper's own checks (which
-raise rather than fall back) and the key encoding the kernel reduces with
-are tested here too; the kernel itself runs in chip_smoke.py on the card.
+``exact_nn_bidir_plain`` and the directed ``exact_nn_plain`` (the CPU paths
+and the card-side oracles of the CUDA kernel's two instances) are held
+against the Pallas kernels in interpret mode (``exact_nn_pallas_bidir``,
+``exact_nn_pallas``) and against the XLA formulation (``exact_nn.exact_nn``):
+bitwise where every f32 sum is exact, tie-robust otherwise.  The CUDA
+wrappers' own checks (which raise rather than fall back) and the key
+encoding the kernel reduces with are tested here too; the kernel itself
+runs in chip_smoke.py and tests/test_torch_cuda.py on the card.
 """
 
 import numpy as np
@@ -17,7 +18,8 @@ import torch
 from nct_tpu.ops.exact_nn import exact_nn
 from nct_tpu_torch.ops import cuda_nn
 from nct_tpu_torch.ops.exact_nn import (
-    exact_nn_bidir_plain, nn_bidir_tables_plain, prep_tables,
+    exact_nn_bidir_plain, exact_nn_plain, nn_bidir_tables_plain,
+    nn_tables_plain, prep_tables,
 )
 
 torch.set_num_threads(1)
@@ -87,6 +89,59 @@ def test_plain_random_tie_robust(rng):
             np.testing.assert_allclose(got[i + 1], ref[i + 1], atol=1e-5)
 
 
+def _pallas_directed(a, b):
+    from jax.experimental.pallas import tpu as pltpu
+
+    from nct_tpu.ops.pallas_nn import exact_nn_pallas
+
+    with pltpu.force_tpu_interpret_mode():
+        return [np.asarray(x) for x in exact_nn_pallas(
+            jnp.asarray(a), jnp.asarray(b), 3, a_tile=32, b_tile=32)]
+
+
+def _torch_directed(a, b):
+    return [x.numpy() for x in exact_nn_plain(
+        torch.from_numpy(a), torch.from_numpy(b), 3)]
+
+
+@pytest.mark.parametrize("shape", [((8, 9), (9, 11), 8), ((7, 13), (12, 6), 16)])
+def test_directed_plain_bitwise_integer(rng, shape):
+    (ha, wa), (hb, wb), c = shape
+    a, b = _integer(rng, ha, wa, c), _integer(rng, hb, wb, c)
+    got = _torch_directed(a, b)
+    xla = [np.asarray(x) for x in exact_nn(jnp.asarray(a), jnp.asarray(b), 3)]
+    for ref in (xla, _pallas_directed(a, b)):
+        for x, y in zip(got, ref):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_directed_plain_random_tie_robust(rng):
+    a = _norm(rng.standard_normal((10, 12, 16)))
+    b = _norm(rng.standard_normal((11, 9, 16)))
+    got = _torch_directed(a, b)
+    xla = [np.asarray(x) for x in exact_nn(jnp.asarray(a), jnp.asarray(b), 3)]
+    for ref in (xla, _pallas_directed(a, b)):
+        # f32 sums in another order: index agreement >= 0.99 and the
+        # distance at the port's match no worse than the minimum by > 1e-3
+        assert (got[0] == ref[0]).all(-1).mean() >= 0.99
+        assert (got[1] <= ref[1] + 1e-3).all()
+        np.testing.assert_allclose(got[1], ref[1], atol=1e-5)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_directed_plain_is_bidir_row_half(rng, integer):
+    """The directed search is the bidirectional sweep without its column
+    fold: its result is the row half, bitwise."""
+    make = _integer if integer else (
+        lambda r, h, w, c: _norm(r.standard_normal((h, w, c))))
+    fa, ma = prep_tables(torch.from_numpy(make(rng, 9, 10, 8)), 3)
+    fb, mb = prep_tables(torch.from_numpy(make(rng, 11, 7, 8)), 3)
+    d_ab, i_ab = nn_tables_plain(fa, ma, fb, mb, a_chunk=16, b_tile=8)
+    bidir = nn_bidir_tables_plain(fa, ma, fb, mb, a_chunk=16, b_tile=8)
+    torch.testing.assert_close(d_ab, bidir[0], rtol=0, atol=0)
+    torch.testing.assert_close(i_ab, bidir[1], rtol=0, atol=0)
+
+
 def test_plain_tiles_do_not_change_result(rng):
     a = _integer(rng, 9, 10, 8)
     b = _integer(rng, 11, 7, 8)
@@ -101,12 +156,25 @@ def test_plain_tiles_do_not_change_result(rng):
 def test_cpu_dispatch_is_plain(rng):
     a = torch.from_numpy(_integer(rng, 5, 6, 8))
     b = torch.from_numpy(_integer(rng, 6, 5, 8))
-    before = cuda_nn.LAUNCHES
+    before = dict(cuda_nn.LAUNCHES)
     got = cuda_nn.exact_nn_bidir(a, b, 3)
     ref = exact_nn_bidir_plain(a, b, 3)
     for x, y in zip(got, ref):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
     assert cuda_nn.LAUNCHES == before
+
+
+def test_directed_cpu_dispatch_is_plain(rng):
+    a = torch.from_numpy(_integer(rng, 5, 6, 8))
+    b = torch.from_numpy(_integer(rng, 6, 5, 8))
+    before = dict(cuda_nn.LAUNCHES)
+    got = cuda_nn.exact_nn(a, b, 3)
+    ref = exact_nn_plain(a, b, 3)
+    for x, y in zip(got, ref):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    assert cuda_nn.LAUNCHES == before
+    with pytest.raises(ValueError, match="one device"):
+        cuda_nn.exact_nn(a, b.to("meta"), 3)
 
 
 def test_key_encoding_roundtrip_and_order():
@@ -156,3 +224,22 @@ def test_kernel_wrapper_raises_instead_of_falling_back():
     # the plain version
     with pytest.raises(ValueError, match="CUDA"):
         cuda_nn.nn_bidir_tables(fa, ma, fb, mb)
+
+
+def test_directed_wrapper_raises_instead_of_falling_back():
+    """The directed wrapper validates as the bidirectional one does."""
+    fn = cuda_nn.nn_directed_tables
+    fa, ma, fb, mb = _tables()
+    with pytest.raises(ValueError, match="bfloat16"):
+        fn(fa, ma, fb.float(), mb)
+    with pytest.raises(ValueError, match="int32"):
+        fn(fa, ma, fb, mb.long())
+    wide = torch.zeros(128, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(fa, ma, wide[:, ::2], mb)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        fn(*_tables(kc=40))
+    with pytest.raises(ValueError, match="padded"):
+        fn(*_tables(n_b=200))
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(fa, ma, fb, mb)

@@ -156,7 +156,7 @@ def test_patchify_bitwise(rng):
                                  ((10, 12), (12, 13))])
 def test_nnf_init_bitwise(a, b):
     np.testing.assert_array_equal(
-        tnnf.init_scaled_identity(*a, *b).numpy(),
+        tnnf.init_scaled_identity(*a, *b, "cpu").numpy(),
         np.asarray(jnnf.init_scaled_identity(*a, *b)))
 
 

@@ -47,7 +47,8 @@ NNF_AGREE_MIN = (0.99, 0.99, 0.9, 0.8, 0.6)      # per level, ann and bnn
 
 class JaxDraws:
     """Replays the JAX pipeline's key sequence: PRNGKey(seed), the split
-    for k-means (pipeline.py:642), then one split per level (:333)."""
+    for k-means (pipeline.py:642), then per level the split in three of a
+    PatchMatch level (:186) and one split for the candidates (:333)."""
 
     def __init__(self, seed):
         self.key = jax.random.PRNGKey(seed)
@@ -56,6 +57,15 @@ class JaxDraws:
         self.key, sub = jax.random.split(self.key)
         idx = jax.random.choice(sub, n, shape=(k,), replace=n < k)
         return torch.tensor(np.asarray(idx))
+
+    def patchmatch_uniforms(self, level, direction, shape):
+        # patchmatch.py:144-146 draws the uniforms from its key like this
+        if direction == "ab":
+            self.key, key, self.key_ba = jax.random.split(self.key, 3)
+        else:
+            key = self.key_ba
+        return torch.tensor(np.asarray(
+            jax.random.uniform(key, shape, dtype=jnp.float32)))
 
     def candidates(self, level, member_pix, m):
         self.key, sub = jax.random.split(self.key)
@@ -81,7 +91,7 @@ def slice_runs():
         return_intermediates=True)
     tout, ttrace = tpipe.transfer_pair(
         tvgg.params_from_numpy(params), cnt, stl, 2.0, config,
-        draws=JaxDraws(0), return_intermediates=True)
+        draws=JaxDraws(0), device="cpu", return_intermediates=True)
     return cnt, config, (np.asarray(jout), jtrace), (tout.numpy(), ttrace)
 
 
@@ -137,6 +147,34 @@ def test_config_fields_match_jax_config():
             JaxConfig(num_levels=n).vgg_layers()
 
 
+def test_config_methods_match_jax_config():
+    for max_len in (1, 63, 680, 960, 1000):
+        assert Config().pm_search_radii(max_len) == \
+            JaxConfig().pm_search_radii(max_len)
+    assert dataclasses.asdict(Config.reference_parity()) == \
+        dataclasses.asdict(JaxConfig.reference_parity())
+    assert dataclasses.asdict(Config.reference_parity(pm_iters=3)) == \
+        dataclasses.asdict(JaxConfig.reference_parity(pm_iters=3))
+
+
+def test_transfer_pair_without_device_needs_a_card():
+    """The default device is cuda; without a card the call raises instead
+    of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    cnt = np.zeros((24, 28, 3), np.uint8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpipe.transfer_pair(tvgg.init_params(), cnt, cnt, 2.0)
+
+
+@pytest.mark.parametrize("overrides", [
+    {"fine_strategy": "patchmatch"}, {"exact_nn_levels": 0},
+    {"exact_nn_levels": 0, "fine_strategy": "patchmatch"},
+])
+def test_patchmatch_config_values_run(overrides):
+    tpipe.check_config(Config(**overrides))
+
+
 def test_generator_draws_are_seeded():
     rng = np.random.default_rng(1)
     cnt = rng.integers(0, 256, (24, 32, 3)).astype(np.uint8)
@@ -145,21 +183,21 @@ def test_generator_draws_are_seeded():
     cfg = Config(cg_iters_mg=3, cg_iters_final_mg=2, wls_cg_iters_mg=2,
                  kmeans_iters=2)
     a, state = tpipe.transfer_pair(model, cnt, stl, 2.0, cfg, seed=5,
-                                   return_state=True)
+                                   device="cpu", return_state=True)
     b = tpipe.transfer_pair(model, cnt, stl, 2.0, cfg, seed=5,
-                            warm_start=state)
+                            device="cpu", warm_start=state)
     assert a.shape == cnt.shape and a.dtype == torch.uint8
     assert float(a.float().std()) > 0
     # level 0 runs the exact search, so the warm start cannot change it
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     _, stats = tpipe.transfer_pair(model, cnt, stl, 2.0, cfg, seed=5,
-                                   return_intermediates="stats")
+                                   device="cpu", return_intermediates="stats")
     assert set(stats[0]) == {"level", "nl_iters", "nl_r2", "wls_iters",
                              "wls_r2"}
 
 
 @pytest.mark.parametrize("overrides", [
-    {"fine_strategy": "patchmatch"}, {"exact_nn_levels": 0},
+    {"wls_precond": "jacobi"}, {"knn_memberships": 3},
     {"knn_memberships": 2}, {"space_mesh": object()},
     {"nl_precond": "block_jacobi"}, {"nl_transpose": "scatter"},
 ])
@@ -204,6 +242,8 @@ def test_port_never_imports_jax():
     code = (
         "import sys, numpy as np, torch\n"
         "import nct_tpu_torch, nct_tpu_torch.cli, nct_tpu_torch.io\n"
+        "import nct_tpu_torch.utils.profiling\n"
+        "import nct_tpu_torch.tools.profile_stages\n"
         "from nct_tpu_torch import pipeline\n"
         "from nct_tpu_torch.models import vgg19\n"
         "from nct_tpu_torch import Config\n"
@@ -215,6 +255,12 @@ def test_port_never_imports_jax():
         "out = pipeline.transfer_pair(vgg19.init_params(), c, s, 2.0, cfg,"
         " device='cpu')\n"
         "assert tuple(out.shape) == (24, 28, 3)\n"
+        "pm = Config(exact_nn_levels=0, fine_strategy='patchmatch', pm_iters=1,"
+        " cg_iters_mg=2, cg_iters_final_mg=2, wls_cg_iters_mg=2,"
+        " kmeans_iters=2, num_levels=2)\n"
+        "outs = list(pipeline.transfer_sequence(vgg19.init_params(), [c, c],"
+        " s, 2.0, pm, device='cpu'))\n"
+        "assert len(outs) == 2\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'nct_tpu'))\n"
         "assert not bad, bad\n"
