@@ -7,14 +7,17 @@ Needs one CUDA card and the CUDA toolkit (nvcc); exits non-zero, printing
 no result, without them.  Phases, each of which raises on failure:
 
   1. device: torch / CUDA versions and the card's name and power limit;
-  2. build: compiles every kernel from nct_tpu_torch/csrc;
+  2. build: compiles every kernel from nct_tpu_torch/csrc and prints
+     ptxas's register, spill and wgmma lines and each instance's resident
+     blocks per SM;
   3. kernels: the bidirectional NN kernel against its plain PyTorch version
      at the four L0-L3 shapes of the 452x680 / 600x960 pair — index
      agreement >= 99%, distance at the kernel's match <= the plain minimum
      + 1e-3, and bitwise equality on integer-valued features with exact
-     ties — with CUDA-event times of both and of one cuBLAS bf16 GEMM over
-     the same tables (the yardstick of the products alone: no single
-     PyTorch call computes the masked argmin);
+     ties — with CUDA-event times of both (TFLOP/s and share of the bound
+     per shape) and of one cuBLAS bf16 GEMM over the same tables (the
+     yardstick of the products alone: no single PyTorch call computes the
+     masked argmin);
   3b. the directed NN kernel at the same shapes and checks, and bitwise
      equal to the bidirectional kernel's row result on the same tables;
   4. slice: ``transfer_pair`` under the default Config on the seeded
@@ -86,10 +89,18 @@ def build_kernels() -> None:
     path = _build.build("nn_bidir")
     log(f"[build] nn_bidir.cu (instances nn_bidir, nn_directed) -> {path} "
         f"in {time.perf_counter() - t0:.1f} s")
+    wgmma_lines = 0
     with open(path[:-3] + ".log") as f:
         for line in f:
-            if "registers" in line or "smem" in line or "spill" in line:
+            if any(w in line for w in ("registers", "smem", "spill", "wgmma")):
                 log("[build]   " + line.strip())
+                wgmma_lines += "wgmma" in line
+    log(f"[build]   ptxas lines that mention wgmma: {wgmma_lines}")
+    from nct_tpu_torch.ops import cuda_nn
+    for name in ("nn_bidir", "nn_directed"):
+        blocks, smem = cuda_nn.occupancy(name)
+        log(f"[build]   {name}: {blocks} resident blocks per SM at {smem} B "
+            f"of dynamic shared memory each")
 
 
 def _features(torch, gen, h, w, c, integer: bool):
@@ -157,7 +168,8 @@ def check_kernels(torch) -> tuple[dict, dict]:
     torch.backends.cuda.matmul.allow_tf32 = False   # plain version in full f32
     gen = torch.Generator().manual_seed(0)
     rec = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                  "cublas_gemm_ms": 0.0, "max_abs_err": 0.0}
+                  "cublas_gemm_ms": 0.0, "max_abs_err": 0.0,
+                  "ms_by_level": []}
            for name in ("nn_bidir", "nn_directed")}
     for lvl, (ha, wa, hb, wb, c) in enumerate(NN_SHAPES):
         na, nb = ha * wa, hb * wb
@@ -239,18 +251,21 @@ def check_kernels(torch) -> tuple[dict, dict]:
                     raise AssertionError(f"L{lvl}: {name} disagrees with plain")
                 r = rec[name]
                 r["ms"] += ms
+                r["ms_by_level"].append(ms)
                 r["plain_ms"] += plain_ms
                 r["bound_ms"] += bound
                 r["cublas_gemm_ms"] += gemm
                 r["max_abs_err"] = max(r["max_abs_err"], e)
     source = "nct_tpu_torch/csrc/nn_bidir.cu"
+    design = "wgmma-cp.async-2cta"
     bidir = {"name": "nn_bidir", "route": "cuda", "source": source,
              "replaces": "nct_tpu/ops/pallas_nn.py:86", "launches": 0,
-             **rec["nn_bidir"], "bound_by": "operations", "library_ms": None}
+             **rec["nn_bidir"], "bound_by": "operations", "library_ms": None,
+             "design": design}
     directed = {"name": "nn_directed", "route": "cuda", "source": source,
                 "replaces": "nct_tpu/ops/pallas_nn.py:33", "launches": 0,
                 **rec["nn_directed"], "bound_by": "operations",
-                "library_ms": None}
+                "library_ms": None, "design": design}
     return bidir, directed
 
 

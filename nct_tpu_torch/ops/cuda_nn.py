@@ -29,8 +29,10 @@ from nct_tpu_torch.ops.exact_nn import (
 LAUNCHES = {"nn_bidir": 0, "nn_directed": 0}
 
 TILE = 128   # rows of A per block and columns of B per tile (nn_bidir.cu TA/TB)
-DEPTH = 32   # K*C must be a multiple of the shared-memory stage depth (TK)
-_BLOCKS_PER_SM = 8   # B sweep split so the grid holds ~8 blocks per SM
+DEPTH = 64   # K*C is zero-padded to a multiple of the stage depth (TK)
+# B sweep split so the grid holds ~64 blocks per SM: with 2 resident per SM
+# that is ~32 waves, so the last wave's tail costs little at L1-L3
+_BLOCKS_PER_SM = 64
 
 
 @functools.lru_cache(maxsize=None)
@@ -41,6 +43,8 @@ def _lib() -> ctypes.CDLL:
     lib.nn_bidir_launch.restype = i
     lib.nn_directed_launch.argtypes = [p, p, p, p, i, i, i, i, p, p]
     lib.nn_directed_launch.restype = i
+    lib.nn_kernel_occupancy.argtypes = [i, p, p]
+    lib.nn_kernel_occupancy.restype = i
     lib.nn_bidir_error_string.argtypes = [i]
     lib.nn_bidir_error_string.restype = ctypes.c_char_p
     lib.nn_bidir_tile_rows.restype = i
@@ -48,6 +52,19 @@ def _lib() -> ctypes.CDLL:
     if (lib.nn_bidir_tile_rows(), lib.nn_bidir_tile_depth()) != (TILE, DEPTH):
         raise RuntimeError("nn_bidir.cu tile geometry differs from cuda_nn.py")
     return lib
+
+
+def occupancy(kind: str) -> tuple[int, int]:
+    """(resident blocks per SM, dynamic shared-memory bytes per block) of
+    one instance on the current card, from the CUDA occupancy API."""
+    lib = _lib()
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.nn_kernel_occupancy(int(kind == "nn_bidir"), ctypes.byref(blocks),
+                                  ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"{kind} occupancy query failed: "
+                           + lib.nn_bidir_error_string(err).decode())
+    return blocks.value, smem.value
 
 
 def encode_keys(d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -84,8 +101,9 @@ def _check_tables(fa, ma, fb, mb) -> None:
             raise ValueError(f"{name}: expected 1-D int32 bit masks, got "
                              f"{t.dtype} {tuple(t.shape)}")
     for name, t in (("fa", fa), ("ma", ma), ("fb", fb), ("mb", mb)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned "
+                             f"(the kernel copies 16-byte chunks)")
     kc = fa.shape[1]
     if fb.shape[1] != kc or kc % DEPTH:
         raise ValueError(f"K*C must agree and be a multiple of {DEPTH}: "
@@ -152,10 +170,12 @@ def nn_directed_tables(fa: torch.Tensor, ma: torch.Tensor, fb: torch.Tensor,
 
 def padded_tables(x_norm: torch.Tensor, patch_size: int):
     """[H, W, C] -> the kernel's operands: bf16 patch rows and int32 bit
-    masks, zero-padded to a multiple of TILE rows."""
+    masks, zero-padded to a multiple of TILE rows, the rows zero-padded to
+    a multiple of DEPTH columns.  Zero columns add exact zeros to every dot
+    product and the masks are separate, so the result does not change."""
     f, m = prep_tables(x_norm, patch_size)
     pad = (-f.shape[0]) % TILE
-    f = torch.nn.functional.pad(f, (0, 0, 0, pad))
+    f = torch.nn.functional.pad(f, (0, (-f.shape[1]) % DEPTH, 0, pad))
     bits = torch.nn.functional.pad(mask_bits(m), (0, pad))
     return f.contiguous(), bits.contiguous()
 

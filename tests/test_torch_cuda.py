@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from nct_tpu_torch.ops import cuda_nn
-from nct_tpu_torch.ops.exact_nn import exact_nn_bidir_plain, exact_nn_plain
+from nct_tpu_torch.ops.exact_nn import (
+    exact_nn_bidir_plain, exact_nn_plain, nn_bidir_tables_plain, prep_tables,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -100,6 +102,93 @@ def test_directed_kernel_is_bidir_row_half(card, integer):
     bidir = cuda_nn.nn_bidir_tables(fa, ma, fb, mb)
     torch.testing.assert_close(d_ab, bidir[0], rtol=0, atol=0)
     torch.testing.assert_close(i_ab, bidir[1], rtol=0, atol=0)
+
+
+def _mask01(bits):
+    """int32 bit masks -> the plain version's [N, 9] 0/1 columns."""
+    return ((bits[:, None] >> torch.arange(9, device=bits.device)) & 1).float()
+
+
+def _tables_vs_plain(fa, ma, fb, mb):
+    """Both instances and the plain version on the same padded tables."""
+    got = cuda_nn.nn_bidir_tables(fa, ma, fb, mb)
+    got_dir = cuda_nn.nn_directed_tables(fa, ma, fb, mb)
+    ref = nn_bidir_tables_plain(fa, _mask01(ma), fb, _mask01(mb))
+    return got, got_dir, ref
+
+
+def test_single_tile_bitwise_vs_plain(card):
+    """One 128-row A tile against one 128-column B tile, integer features
+    with (mostly) distinct products: every row's and column's (d, idx)
+    bitwise.  A swizzle, descriptor or fragment-mapping error shows here."""
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(rng.integers(-6, 7, (8, 16, 64)).astype(np.float32))
+    b = torch.from_numpy(rng.integers(-6, 7, (8, 16, 64)).astype(np.float32))
+    fa, ma = cuda_nn.padded_tables(a.to(card), 3)
+    fb, mb = cuda_nn.padded_tables(b.to(card), 3)
+    assert fa.shape == fb.shape == (128, 576)
+    got, got_dir, ref = _tables_vs_plain(fa, ma, fb, mb)
+    assert ref[0].unique().numel() > 32      # products mostly distinct
+    for x, y in zip(got, ref):
+        torch.testing.assert_close(x, y.to(x.dtype), rtol=0, atol=0)
+    for x, y in zip(got_dir, got[:2]):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("c, kc_pad", [(32, 320), (7, 64)])
+def test_depth_padding_bitwise(card, c, kc_pad):
+    """C = 32 gives K*C = 288, zero-padded to 320 columns (C = 7: 63 -> 64,
+    one depth step per tile): bitwise equal to the plain version on the
+    unpadded tables."""
+    rng = np.random.default_rng(c)
+    a = _integer(rng, 17, 19, c, card)
+    b = _integer(rng, 15, 23, c, card)
+    fa, ma = cuda_nn.padded_tables(a, 3)
+    fb, mb = cuda_nn.padded_tables(b, 3)
+    assert fa.shape[1] == fb.shape[1] == kc_pad
+    got, got_dir, _ = _tables_vs_plain(fa, ma, fb, mb)
+    fa0, ma0 = prep_tables(a, 3)
+    fb0, mb0 = prep_tables(b, 3)
+    na, nb = fa0.shape[0], fb0.shape[0]
+    ref = nn_bidir_tables_plain(fa0, ma0, fb0, mb0)
+    for x, y, n in zip(got, ref, (na, na, nb, nb)):
+        torch.testing.assert_close(x[:n], y.to(x.dtype), rtol=0, atol=0)
+    for x, y in zip(got_dir, ref[:2]):
+        torch.testing.assert_close(x[:na], y.to(x.dtype), rtol=0, atol=0)
+
+
+def test_all_zero_masks_give_inf_first_index(card):
+    """Rows whose masks are all 0 see +inf everywhere: key (+inf, 0), as
+    JAX's first match gives; so does every column then."""
+    rng = np.random.default_rng(5)
+    fa, ma = cuda_nn.padded_tables(_integer(rng, 12, 20, 64, card), 3)
+    fb, mb = cuda_nn.padded_tables(_integer(rng, 10, 30, 64, card), 3)
+    ma = torch.zeros_like(ma)
+    got, got_dir, ref = _tables_vs_plain(fa, ma, fb, mb)
+    for d, i in (got[:2], got[2:], got_dir):
+        assert torch.isinf(d).all() and (d > 0).all()
+        assert (i == 0).all()
+    for x, y in zip(got, ref):
+        torch.testing.assert_close(x, y.to(x.dtype), rtol=0, atol=0)
+
+
+def test_zero_patch_distance_is_positive_zero(card):
+    """An all-zero patch has dots = 0 and d = -0.0 wherever cnt > 0; the
+    kernel returns +0.0 (JAX compares the two equal, and the keys order
+    them as one) at the plain version's first match."""
+    rng = np.random.default_rng(6)
+    a = torch.zeros(9, 14, 64, device=card)
+    b = _integer(rng, 11, 12, 64, card)
+    fa, ma = cuda_nn.padded_tables(a, 3)
+    fb, mb = cuda_nn.padded_tables(b, 3)
+    got, got_dir, ref = _tables_vs_plain(fa, ma, fb, mb)
+    na = 9 * 14
+    for d, i, rd, ri in ((got[0], got[1], ref[0], ref[1]),
+                         (got_dir[0], got_dir[1], ref[0], ref[1])):
+        assert (d[:na] == 0).all() and not torch.signbit(d[:na]).any()
+        torch.testing.assert_close(i[:na], ri[:na].to(i.dtype), rtol=0, atol=0)
+    assert not torch.signbit(got[2][got[2] == 0]).any()
+    torch.testing.assert_close(got[3], ref[3].to(got[3].dtype), rtol=0, atol=0)
 
 
 def test_mixed_devices_raise(card):

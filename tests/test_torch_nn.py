@@ -199,6 +199,31 @@ def test_mask_bits():
     assert cuda_nn.mask_bits(m).tolist() == [261, 511, 0]
 
 
+@pytest.mark.parametrize("c", [32, 64])
+def test_padded_tables_pad_depth_without_changing_result(rng, c):
+    """K*C is zero-padded to a multiple of the kernel's depth (9 * 32 = 288
+    -> 320; 9 * 64 = 576 stays): the plain search on the padded tables is
+    bitwise the search on the unpadded ones."""
+    a = torch.from_numpy(_integer(rng, 9, 10, c))
+    b = torch.from_numpy(_integer(rng, 11, 7, c))
+    fa, ma = cuda_nn.padded_tables(a, 3)
+    fb, mb = cuda_nn.padded_tables(b, 3)
+    fa0, ma0 = prep_tables(a, 3)
+    fb0, mb0 = prep_tables(b, 3)
+    kc = 9 * c
+    assert fa.shape == (128, -(-kc // cuda_nn.DEPTH) * cuda_nn.DEPTH)
+    assert fa.shape[1] % cuda_nn.DEPTH == 0 and fb.shape[1] == fa.shape[1]
+    assert not fa[:, kc:].any() and not fa[90:].any()
+    torch.testing.assert_close(fa[:90, :kc], fa0, rtol=0, atol=0)
+    assert torch.equal(ma[:90], cuda_nn.mask_bits(ma0)) and not ma[90:].any()
+    bits = torch.arange(9)
+    padded = nn_bidir_tables_plain(fa, ((ma[:, None] >> bits) & 1).float(),
+                                   fb, ((mb[:, None] >> bits) & 1).float())
+    ref = nn_bidir_tables_plain(fa0, ma0, fb0, mb0)
+    for x, y, n in zip(padded, ref, (90, 90, 77, 77)):
+        torch.testing.assert_close(x[:n], y, rtol=0, atol=0)
+
+
 def _tables(n_a=128, n_b=128, kc=64):
     fa = torch.zeros(n_a, kc, dtype=torch.bfloat16)
     fb = torch.zeros(n_b, kc, dtype=torch.bfloat16)
@@ -216,7 +241,7 @@ def test_kernel_wrapper_raises_instead_of_falling_back():
     with pytest.raises(ValueError, match="contiguous"):
         cuda_nn.nn_bidir_tables(wide[:, ::2], ma, fb, mb)
     bad_kc = _tables(kc=72)
-    with pytest.raises(ValueError, match="multiple of 32"):
+    with pytest.raises(ValueError, match="multiple of 64"):
         cuda_nn.nn_bidir_tables(*bad_kc)
     with pytest.raises(ValueError, match="padded"):
         cuda_nn.nn_bidir_tables(*_tables(n_a=100))
@@ -237,7 +262,7 @@ def test_directed_wrapper_raises_instead_of_falling_back():
     wide = torch.zeros(128, 128, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="contiguous"):
         fn(fa, ma, wide[:, ::2], mb)
-    with pytest.raises(ValueError, match="multiple of 32"):
+    with pytest.raises(ValueError, match="multiple of 64"):
         fn(*_tables(kc=40))
     with pytest.raises(ValueError, match="padded"):
         fn(*_tables(n_b=200))
