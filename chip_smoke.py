@@ -30,7 +30,17 @@ no result, without them.  Phases, each of which raises on failure:
      ``Config(exact_nn_levels=0, fine_strategy="patchmatch")``, whose
      frames 2-3 must start from the previous frame's level-0 fields;
   6. profiler: ``nct_tpu_torch.tools.profile_stages`` at its real shapes,
-     the path of the directed kernel.
+     the path of the directed kernel;
+  7. solver variants: (7a) ``Config.reference_parity()`` on the same pair
+     (PatchMatch at every level, block-Jacobi PCG), one cold and one warm
+     run, no NN kernel launch; (7b) ``Config(knn_memberships=3,
+     nl_transpose="scatter", wls_precond="jacobi")``, one cold and one warm
+     run, 4 ``nn_bidir`` launches per pair; a stage split of one more warm
+     pair of each and of the default Config; (7c) on the captured systems
+     ``tests/fixtures/nl_L{0,1}.npz``: the scatter and tables transposes at
+     an ample ``in_cap`` are one operator, the block-Jacobi and mg solves at
+     ``retune.CONVERGED_ITERS`` give one colour transform, and the residual
+     curve over the default caps falls.
 
 The line before the last holds {"kernels": [...]}, the one before it the
 card's name and power limit; the last line is {"ok": true, "device": ...}.
@@ -436,17 +446,183 @@ def check_profiler(torch) -> int:
     return launches
 
 
+# 7c: relative max difference of A x between the scatter and the tables
+# transpose at an ample in_cap (the same pairs, summed in another order)
+TRANSPOSE_REL_TOL = 1e-5
+# 7c: block-Jacobi against mg, both after retune.CONVERGED_ITERS, compared
+# on the colour a*s+b in unit Lab (a alone is weakly determined where the
+# confidence is low); the mg solve is near the float32 floor by then, the
+# block-Jacobi one is not, so the limits leave room for its distance
+CONVERGED_COLOUR_MAX = 0.05
+CONVERGED_COLOUR_MEAN = 0.005
+RETUNE_CAPS = (4, 6, 8, 10, 12, 16, 24, 32, 48)
+
+
+def _stage_split(torch, label, model, config, cnt, stl) -> None:
+    """One more warm pair with every stage function wrapped in a
+    synchronised host-clock span; prints seconds per stage and the rest."""
+    from nct_tpu_torch import pipeline
+    from nct_tpu_torch.utils.profiling import StageTimer
+
+    timer = StageTimer()
+    hooks = [(pipeline, "_setup"), (pipeline.cuda_nn, "exact_nn_bidir"),
+             (pipeline, "window_refine"), (pipeline, "patchmatch"),
+             (pipeline.bds, "bds_reconstruct_color"),
+             (pipeline.bds, "bds_vote"), (pipeline.knn, "knn_graph"),
+             (pipeline, "solve_nonlocal"), (pipeline, "solve_wls")]
+    saved = [getattr(mod, name) for mod, name in hooks]
+
+    def timed(name, fn):
+        return lambda *a, **k: timer.timed(name, fn, *a, **k)
+
+    for (mod, name), fn in zip(hooks, saved):
+        setattr(mod, name, timed(name, fn))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipeline.transfer_pair(model, cnt, stl, 2.0, config, seed=7)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for (mod, name), fn in zip(hooks, saved):
+            setattr(mod, name, fn)
+    parts = sorted(timer.spans.items(), key=lambda kv: -kv[1])
+    log(f"[{label}] stage split of one warm pair ({total:.3f} s, synchronised "
+        f"after each stage): " + ", ".join(f"{k} {v:.3f} s" for k, v in parts)
+        + f", rest {total - sum(timer.spans.values()):.3f} s")
+
+
+def check_variants(torch) -> None:
+    """Phase 7: the solver-variant configurations and the solver checks."""
+    from nct_tpu_torch import Config
+    from nct_tpu_torch.models import vgg19
+
+    gen = torch.Generator().manual_seed(0)
+    model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
+    cnt, stl = _pair(torch, gen, CONTENT_HW, STYLE_HW, smooth=False)
+    parity = Config.reference_parity()
+    _timed_pairs(torch, "parity", model, parity, cnt, stl, 2,
+                 {"nn_bidir": 0, "nn_directed": 0})
+    _stage_split(torch, "parity", model, parity, cnt, stl)
+    variants = Config(knn_memberships=3, nl_transpose="scatter",
+                      wls_precond="jacobi")
+    _timed_pairs(torch, "variants", model, variants, cnt, stl, 2,
+                 {"nn_bidir": variants.exact_nn_levels, "nn_directed": 0})
+    _stage_split(torch, "variants", model, variants, cnt, stl)
+    _stage_split(torch, "slice", model, Config(), cnt, stl)
+    check_solvers(torch)
+
+
+def check_solvers(torch) -> None:
+    """Phase 7c on the captured nonlocal systems of tests/fixtures."""
+    import os
+
+    import numpy as np
+
+    from nct_tpu_torch import Config
+    from nct_tpu_torch.solve import retune
+    from nct_tpu_torch.solve.nonlocal_solve import make_nonlocal_system
+
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "fixtures")
+    l0 = retune.load_nl_system(os.path.join(fixtures, "nl_L0.npz"))
+    l1 = retune.load_nl_system(os.path.join(fixtures, "nl_L1.npz"))
+
+    # scatter against tables at an ample in_cap, on nl_L1
+    d = {k: torch.from_numpy(np.asarray(v)).cuda() for k, v in l1.items()}
+    args = [d[k] for k in ("src_lab", "ref_lab", "confidence", "nbr_ids",
+                           "nbr_w")]
+    slots = {"candidates": d["candidates"], "nbr_slots": d["nbr_slots"]}
+    g = torch.Generator().manual_seed(1)
+    x = tuple(torch.randn(d["a0"].shape, generator=g).cuda() for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    op_t = make_nonlocal_system(*args, float(d["norm_factor"]), **slots,
+                                in_cap=d["nbr_ids"].numel(),
+                                transpose="tables")[0]
+    op_s = make_nonlocal_system(*args, float(d["norm_factor"]), **slots,
+                                transpose="scatter")[0]
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(op_t(x), op_s(x)))
+    torch.cuda.synchronize()
+    log(f"[solvers] nl_L1 scatter vs tables at in_cap={d['nbr_ids'].numel()}: "
+        f"relative max |A x difference| {rel:.2e} (limit {TRANSPOSE_REL_TOL:g}), "
+        f"{time.perf_counter() - t0:.3f} s")
+    if not rel <= TRANSPOSE_REL_TOL:
+        raise AssertionError("the scatter and tables transposes differ")
+
+    # block-Jacobi against mg, each run to CONVERGED_ITERS
+    cap = retune.CONVERGED_ITERS
+    for name, system in (("nl_L0", l0), ("nl_L1", l1)):
+        out = {}
+        for precond in ("mg", "block_jacobi"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a, b, r2 = retune.nl_solve_at_cap(
+                system, cap, Config(nl_precond=precond))
+            out[precond] = (a * system["src_lab"] + b, r2,
+                            time.perf_counter() - t0)
+        diff = np.abs(out["mg"][0] - out["block_jacobi"][0])
+        log(f"[solvers] {name} at {cap} iterations: mg r2 "
+            f"{out['mg'][1]:.3g} in {out['mg'][2]:.3f} s, block-Jacobi r2 "
+            f"{out['block_jacobi'][1]:.3g} in {out['block_jacobi'][2]:.3f} s; "
+            f"colour a*s+b differs by max {diff.max():.4f} / mean "
+            f"{diff.mean():.5f} (limits {CONVERGED_COLOUR_MAX:g} / "
+            f"{CONVERGED_COLOUR_MEAN:g})")
+        if not (diff.max() <= CONVERGED_COLOUR_MAX
+                and diff.mean() <= CONVERGED_COLOUR_MEAN):
+            raise AssertionError(f"{name}: block-Jacobi and mg disagree")
+
+    # residual curves on nl_L0 over the caps tools/retune_caps.py sweeps,
+    # then the falling check over the default Config's caps
+    cfg = Config()
+    for precond in ("mg", "block_jacobi"):
+        c = Config(nl_precond=precond)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        curve = retune.residual_curve(
+            lambda k: retune.nl_solve_at_cap(l0, k, c), RETUNE_CAPS)
+        log(f"[solvers] nl_L0 {precond} residual curve "
+            f"({time.perf_counter() - t0:.3f} s): r2_init "
+            f"{curve['converged']['r2_init']:.4g}, reduction by cap "
+            + ", ".join(f"{k}: {v['reduction']:.3g}"
+                        for k, v in curve["caps"].items()))
+    default_caps = (4, cfg.cg_iters_final_mg, cfg.cg_iters_mg)
+    curve = retune.residual_curve(
+        lambda k: retune.nl_solve_at_cap(l0, k, cfg), default_caps)
+    r2s = [curve["converged"]["r2_init"]] + [
+        curve["caps"][k]["r2"] for k in default_caps]
+    log(f"[solvers] nl_L0 mg r2 at caps (0, *{default_caps}): "
+        f"{[f'{v:.4g}' for v in r2s]}; recommended cap for a 1e-4 "
+        f"reduction: {retune.recommend_cap(curve, 1e-4)}")
+    if not all(a > b for a, b in zip(r2s, r2s[1:])):
+        raise AssertionError("the residual curve at the default caps does "
+                             "not fall")
+
+
 def main() -> int:
     import torch
 
     import nct_tpu_torch  # noqa: F401  (fails here when run outside the repo)
 
     kind, smi = device_info(torch)
+    t0 = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        log(f"[time] {name} done at {time.perf_counter() - t0:.1f} s")
+
     build_kernels()
+    phase_done("phase 2 (build)")
     bidir, directed = check_kernels(torch)
+    phase_done("phase 3 (kernels)")
     bidir["launches"] = check_slice(torch)
+    phase_done("phase 4 (slice)")
     check_patchmatch(torch)
+    phase_done("phase 5 (PatchMatch)")
     directed["launches"] = check_profiler(torch)
+    phase_done("phase 6 (profiler)")
+    check_variants(torch)
+    phase_done("phase 7 (solver variants)")
     log(json.dumps({"kernels": [bidir, directed]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

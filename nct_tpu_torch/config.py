@@ -4,8 +4,8 @@ The same fields and defaults as ``nct_tpu/config.py`` (whose comments give
 the reason for each default); the port keeps its own copy so that nothing
 it imports belongs to the JAX package.  ``tests/test_torch_pipeline.py``
 holds the two field lists, the defaults and the two methods below equal.
-Fields that select paths the port does not run yet are rejected by
-``pipeline.check_config``.
+``space_mesh``, which needs several cards, is the one field whose paths the
+port does not run yet: ``pipeline.check_config`` rejects it.
 """
 
 from __future__ import annotations
@@ -72,8 +72,7 @@ class Config:
     def reference_parity(cls, **overrides) -> "Config":
         """The reference-shaped configuration: PatchMatch at every level
         with 10 iterations, unhalved CG budgets, tolerance 1e-6 and the
-        block-Jacobi nonlocal preconditioner (which the port does not run
-        yet: ``pipeline.check_config`` rejects it)."""
+        block-Jacobi nonlocal preconditioner."""
         base = dict(
             exact_nn_levels=0, fine_strategy="patchmatch",
             pm_iters=10, pm_iters_fine=10, nl_precond="block_jacobi",

@@ -9,10 +9,12 @@ Per level (conv5_1 -> conv1_1):
      PatchMatch, seeded at level 0 by the scaled identity or a video warm
      start;
   2. BDS colour guidance + BDS feature vote -> matching error;
-  3. semantic k-NN graph on down-res Lab colours;
+  3. semantic k-NN graph on down-res Lab colours (primary cluster, or the
+     merge of ``knn_memberships`` memberships);
   4. patch-moment (a, b) init + confidence;
-  5. nonlocal multigrid-PCG solve at down-res;
-  6. bilinear coefficient upsample + roughness gate + multigrid-PCG WLS;
+  5. nonlocal PCG solve at down-res (``nl_precond``, ``nl_transpose``);
+  6. bilinear coefficient upsample + roughness gate + WLS PCG
+     (``wls_precond``);
   7. apply a*Lab+b at full res, Lab -> BGR;
   8. re-extract the next level's VGG tap from the refined image.
 
@@ -70,25 +72,15 @@ class GeneratorDraws:
 
 
 def check_config(config: Config) -> None:
-    """Raise NotImplementedError for Config values the port does not run."""
-    left_out = "not ported yet (ROADMAP Queue 1 #13)"
+    """Raise for Config values the port does not run: NotImplementedError
+    for ``space_mesh`` (it needs several cards), ValueError for unknown
+    values."""
     if config.fine_strategy not in ("window", "patchmatch"):
         raise ValueError(f"fine_strategy={config.fine_strategy!r}")
-    if config.knn_memberships != 1:
-        raise NotImplementedError(
-            f"knn_memberships={config.knn_memberships}: the multi-membership "
-            f"k-NN merge is {left_out}")
     if config.space_mesh is not None:
         raise NotImplementedError(
-            f"space_mesh: the space-sharded ring search is {left_out}")
-    if config.nl_precond != "mg" or config.wls_precond != "mg":
-        raise NotImplementedError(
-            f"nl_precond={config.nl_precond!r} / wls_precond="
-            f"{config.wls_precond!r}: only the multigrid preconditioner is "
-            f"ported; the Jacobi variants are {left_out}")
-    if config.nl_transpose == "scatter":
-        raise NotImplementedError(
-            f"nl_transpose='scatter' is {left_out}")
+            "space_mesh: the space-sharded ring search is not ported yet "
+            "(ROADMAP Queue 1 #13)")
     if config.feature_dtype not in ("bfloat16", "float32"):
         raise ValueError(f"feature_dtype={config.feature_dtype!r}")
 
@@ -220,7 +212,11 @@ def _level_solve(model, config: Config, l: int, numlayer: int, taps, draws,
     cnt_lab_u8 = bgr_u8_to_lab_u8(down_cnt)
     cnt_lab_d = cnt_lab_u8.float() / 255.0
     stride = 2 ** l
-    pixel_labels = cluster.labels_for_pixels(label_map, ah, aw, stride)
+    if config.knn_memberships > 1:
+        pixel_labels = cluster.multi_labels_for_pixels(
+            label_map, membership, ah, aw, stride, config.knn_memberships)
+    else:
+        pixel_labels = cluster.labels_for_pixels(label_map, ah, aw, stride)
     member_pix = cluster.membership_for_pixels(membership, ah, aw, stride)
     candidates = draws.candidates(l, member_pix, min(2048, ah * aw))
     nbr_ids, nbr_w, nbr_slots = knn.knn_graph(
@@ -242,22 +238,28 @@ def _level_solve(model, config: Config, l: int, numlayer: int, taps, draws,
         a0 = torch.clamp(a0, 0.0, 2.0)
         b0 = tgt - cnt_lab_d * a0
     final = l == numlayer - 1
+    if config.nl_precond == "mg":
+        nl_iters = config.cg_iters_final_mg if final else config.cg_iters_mg
+    else:
+        nl_iters = config.cg_iters_final if final else config.cg_iters
     a_d, b_d, nl_it, nl_r2 = solve_nonlocal(
         a0, b0, cnt_lab_d, guide_lab_d, confidence, nbr_ids, nbr_w,
         float(h * w) / float(ah * aw), config.local_weight, config.wls_alpha,
-        config.nonlocal_weight,
-        iters=config.cg_iters_final_mg if final else config.cg_iters_mg,
-        tol=config.cg_tol, candidates=candidates, nbr_slots=nbr_slots,
-        in_cap=config.nl_in_cap)
+        config.nonlocal_weight, iters=nl_iters, tol=config.cg_tol,
+        candidates=candidates, nbr_slots=nbr_slots,
+        precond_kind=config.nl_precond, in_cap=config.nl_in_cap,
+        transpose=config.nl_transpose)
 
     # full-res WLS, apply, convert, re-extract
-    lam = config.wls_lambda_init * float(h * w) / float(ah * aw)
+    lam = config.wls_lambda_init * (float(h * w) / float(ah * aw))
     if (ah, aw) == (h, w):
         lam = lam * 4.0  # final-level boost (ref :1418-1424)
     a_f, b_f, wls_it, wls_r2 = solve_wls(
         resize.resize_bilinear(a_d, h, w), resize.resize_bilinear(b_d, h, w),
-        cnt_lab_unit, lam, config.wls_alpha, iters=config.wls_cg_iters_mg,
-        tol=config.cg_tol)
+        cnt_lab_unit, lam, config.wls_alpha,
+        iters=(config.wls_cg_iters_mg if config.wls_precond == "mg"
+               else config.wls_cg_iters),
+        tol=config.cg_tol, precond_kind=config.wls_precond)
     refined = unit_lab_to_bgr_u8(apply_transform(a_f, b_f, cnt_lab_unit))
 
     cnt_feat_next = None

@@ -2,7 +2,8 @@
 
 Lloyd k-means with a fixed iteration count (empty clusters keep their
 centre), the 4-neighbour dilated cluster membership, and the expansion of
-the conv5_1 label grid to pixel grids.  The initial centre indices are an
+the conv5_1 label grid to pixel grids (primary cluster, dilated membership,
+or a list of up to P memberships).  The initial centre indices are an
 argument: the JAX package draws them with ``jax.random.choice``, which
 torch cannot reproduce, so callers draw them (``draw_kmeans_init``) or
 inject the JAX package's draw.
@@ -77,3 +78,29 @@ def membership_for_pixels(membership: torch.Tensor, h: int, w: int,
     ys = _cells(h, stride, lh, membership.device)
     xs = _cells(w, stride, lw, membership.device)
     return membership[:, ys[:, None], xs[None, :]]
+
+
+def multi_labels_for_pixels(label_map: torch.Tensor, membership: torch.Tensor,
+                            h: int, w: int, stride: int,
+                            num_memberships: int) -> torch.Tensor:
+    """Per-pixel list of up to P cluster memberships, primary first:
+    int64 [h, w, min(P, K)].
+
+    Cell scores are 2 for the primary cluster, 1 for a dilated member and 0
+    otherwise; the P best are taken stably (equal scores keep the lower
+    cluster first, as ``lax.top_k`` does), and a non-member pick repeats
+    the primary cluster (its duplicate candidates are deduplicated by
+    ``knn_graph``).
+    """
+    k = membership.shape[0]
+    ks = torch.arange(k, device=label_map.device)
+    primary = label_map[None, :, :] == ks[:, None, None]
+    score = (membership.long() + primary.long()).permute(1, 2, 0)
+    order = torch.argsort(score, dim=-1, descending=True,
+                          stable=True)[..., :min(num_memberships, k)]
+    got = torch.gather(score, -1, order)
+    cells = torch.where(got > 0, order, order[..., :1])
+    lh, lw = label_map.shape
+    ys = _cells(h, stride, lh, label_map.device)
+    xs = _cells(w, stride, lw, label_map.device)
+    return cells[ys[:, None], xs[None, :], :]

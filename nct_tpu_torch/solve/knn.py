@@ -1,20 +1,29 @@
 """k-NN graph over Lab colours within semantic clusters (port of
-``nct_tpu/solve/knn.py``, single-membership path).
+``nct_tpu/solve/knn.py``).
 
 For every down-res pixel: the k=8 nearest *other* pixels among its
 cluster's M sampled candidates in unit-Lab colour (squared L2), weighted
-``exp(1 - d / 3)``.  Pixels are grouped by cluster (stable sort), so each
-chunk scores one cluster's candidate table; results land back in pixel
-order with one un-permute.
+``exp(1 - d / 3)``.
 
-As in the JAX package: duplicate candidate ids are masked to their first
-occurrence, the k extractions rank on **bf16** keys (first minimum on
-ties), and the winners' exact f32 distances are recomputed for the weights.
+Single membership ([H, W] labels): pixels are grouped by cluster (stable
+sort), so each chunk scores one cluster's candidate table; results land
+back in pixel order with one un-permute.  As in the JAX package, duplicate
+candidate ids are masked to their first occurrence, the k extractions rank
+on **bf16** keys (first minimum on ties), and the winners' exact f32
+distances are recomputed for the weights.
+
+Several memberships ([H, W, P] labels, P > 1): each pixel scores the union
+of its P clusters' candidate tables and keeps the k best, ranked on the
+**f32** distances (first minimum on ties); every slot holding a selected id
+is masked before the next pick, which deduplicates ids across memberships
+and repeats.
 """
 
 from __future__ import annotations
 
 import torch
+
+from nct_tpu_torch.ops.fmath import dot3_fma
 
 
 def sample_cluster_candidates(membership_pix: torch.Tensor,
@@ -43,16 +52,21 @@ def knn_graph(
     """Build the nonlocal k-NN graph.
 
     lab_unit [H, W, 3] unit-domain Lab; pixel_labels [H, W] primary cluster
-    per pixel; candidates [K, M] flat pixel ids per cluster.  Returns
-    (ids [N, k] int64, weights [N, k] f32, slots [N, k] int64), N = H*W;
-    ``slots`` index the flattened [K*M] candidate table.
+    per pixel, or [H, W, P] memberships (``cluster.multi_labels_for_pixels``);
+    candidates [K, M] flat pixel ids per cluster.  Returns (ids [N, k]
+    int64, weights [N, k] f32, slots [N, k] int64), N = H*W; ``slots`` index
+    the flattened [K*M] candidate table.  ``chunk`` query rows are scored at
+    a time.
     """
     h, w, _ = lab_unit.shape
     n = h * w
     dev = lab_unit.device
     colors = lab_unit.reshape(n, 3).float()
-    labels = pixel_labels.reshape(n).long()
     candidates = candidates.long().to(dev)
+    if pixel_labels.dim() == 3 and pixel_labels.shape[-1] > 1:
+        return _knn_graph_multi(colors, pixel_labels.reshape(n, -1).long(),
+                                candidates, k_num, chunk)
+    labels = pixel_labels.reshape(n).long()
     kc, m = candidates.shape
 
     order = torch.argsort(labels, stable=True)        # groups clusters
@@ -106,4 +120,49 @@ def knn_graph(
             w_o[pid] = torch.where(alive, torch.exp(1.0 - dists / 3.0), 0.0)
             s_o[pid] = c * m + j
         start += cnt
+    return ids_o, w_o, s_o
+
+
+def _knn_graph_multi(colors: torch.Tensor, labels: torch.Tensor,
+                     candidates: torch.Tensor, k_num: int, chunk: int):
+    """Multi-membership graph: colors [N, 3], labels [N, P], candidates
+    [K, M].  Every row is scored on its own, so the result does not depend
+    on ``chunk``."""
+    n, p = labels.shape
+    dev = colors.device
+    m = candidates.shape[1]
+    cand_colors = colors[candidates]                   # [K, M, 3]
+    # the three 3-term sums in XLA's rounding: ties on the f32 distance
+    # then break as in the JAX package
+    cand_sq = dot3_fma(cand_colors, cand_colors)
+    ids_o = torch.empty((n, k_num), dtype=torch.int64, device=dev)
+    w_o = torch.empty((n, k_num), dtype=torch.float32, device=dev)
+    s_o = torch.empty((n, k_num), dtype=torch.int64, device=dev)
+    inf = torch.tensor(float("inf"), device=dev)
+    for s0 in range(0, n, chunk):
+        ql = labels[s0:s0 + chunk]                                 # [B, P]
+        b = ql.shape[0]
+        qi = torch.arange(s0, s0 + b, device=dev)
+        qc = colors[s0:s0 + b]                                     # [B, 3]
+        cand_ids = candidates[ql].reshape(b, p * m)
+        cross = dot3_fma(qc[:, None, :],
+                         cand_colors[ql].reshape(b, p * m, 3))     # [B, P*M]
+        work = torch.clamp(cand_sq[ql].reshape(b, p * m) - 2.0 * cross
+                           + dot3_fma(qc, qc)[:, None], min=0.0)
+        work = torch.where(cand_ids == qi[:, None], inf, work)
+        picks, dists, slots = [], [], []
+        for _ in range(k_num):
+            j = torch.argmin(work, dim=1, keepdim=True)            # first min
+            cid = torch.gather(cand_ids, 1, j)
+            picks.append(cid[:, 0])
+            dists.append(torch.gather(work, 1, j)[:, 0])
+            # slot: the owning membership's cluster * M + offset
+            owner = torch.gather(ql, 1, j // m)[:, 0]
+            slots.append(owner * m + j[:, 0] % m)
+            work = torch.where(cand_ids == cid, inf, work)
+        d = torch.stack(dists, dim=1)
+        ids_o[s0:s0 + b] = torch.stack(picks, dim=1)
+        w_o[s0:s0 + b] = torch.where(torch.isfinite(d),
+                                     torch.exp(1.0 - d / 3.0), 0.0)
+        s_o[s0:s0 + b] = torch.stack(slots, dim=1)
     return ids_o, w_o, s_o

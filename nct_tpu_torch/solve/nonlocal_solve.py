@@ -8,13 +8,16 @@ The normal equations A^T A x = A^T b of the reference's rows
   * nonlocal:  sqrt(w_ij * w_nl / k) * (u_i - u_j) = 0 per directed k-NN pair
 
 are applied matrix-free and solved by PCG with the geometric-multigrid
-V-cycle preconditioner.  The transpose half of the graph term uses
-slot-keyed in-edge tables built once per solve: each candidate slot lists
-its strongest incoming pairs up to a width of 1.5x the mean in-degree
-(raised above ``in_cap`` when needed, so the cap never drops most of the
-graph), and overflow is zeroed on both sides so the operator stays
-symmetric.  Scatter-adds are ``index_put_(accumulate=True)``, deterministic
-on the card.
+V-cycle or the 2x2 block-Jacobi preconditioner.  By default the transpose
+half of the graph term uses in-edge tables built once per solve.  Slot-keyed
+tables (graphs from ``knn_graph``, which gives candidate slots) list each
+candidate slot's strongest incoming pairs up to a width of 1.5x the mean
+in-degree (raised above ``in_cap`` when needed, so the cap never drops most
+of the graph); pixel-keyed tables (graphs without slots) list each pixel's
+first 2k.  Overflow is zeroed on both sides so the operator stays
+symmetric.  ``transpose="scatter"`` applies the exact uncapped transpose by
+a scatter-add instead.  Scatter-adds are ``index_put_(accumulate=True)``,
+deterministic on the card.
 """
 
 from __future__ import annotations
@@ -185,12 +188,58 @@ def in_edge_width(n_pairs: int, n_slots: int, in_cap: int) -> int:
     return min(max(8, headroom), max(in_cap, headroom), n_pairs)
 
 
+# Pair count above which ``transpose="auto"`` picks the scatter transpose:
+# never, as in the JAX package (tables at every real size).
+_TABLES_MAX_PAIRS = 1 << 62
+
+PRECOND_KINDS = ("mg", "block_jacobi")
+TRANSPOSES = ("auto", "tables", "scatter")
+
+
+def nonlocal_apply(u: torch.Tensor, nbr_ids: torch.Tensor,
+                   nbr_w: torch.Tensor) -> torch.Tensor:
+    """k-NN graph Laplacian over directed pairs: u [N, C]; nbr_ids [N, k];
+    nbr_w [N, k] per-pair weight.  Each pair (i -> j) adds w (u_i - u_j) at
+    i and w (u_j - u_i) at j."""
+    n, c = u.shape
+    k = nbr_ids.shape[1]
+    ids = nbr_ids.long()
+    diff = (u[:, None, :] - u[ids]) * nbr_w[..., None]
+    out = torch.sum(diff, dim=1)
+    out.index_put_((ids.reshape(-1),), -diff.reshape(n * k, c),
+                   accumulate=True)
+    return out
+
+
+def nonlocal_degree(nbr_ids: torch.Tensor, nbr_w: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """Diagonal of the directed-pair k-NN Laplacian, [N]."""
+    deg = torch.sum(nbr_w, dim=1)
+    deg.index_put_((nbr_ids.reshape(-1).long(),), nbr_w.reshape(-1),
+                   accumulate=True)
+    return deg
+
+
 def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
                          norm_factor: float, local_weight: float = 0.125,
                          alpha: float = 1.2, nonlocal_weight: float = 2.0,
-                         *, candidates, nbr_slots, in_cap: int = 128):
+                         candidates=None, nbr_slots=None,
+                         precond_kind: str = "mg", in_cap: int = 128,
+                         transpose: str = "auto"):
     """Build (operator, rhs, preconditioner) of the normal equations for
-    the k-NN graph from ``knn_graph`` (candidates [K, M], slots [N, k])."""
+    the k-NN graph (ids [N, k], weights [N, k]).
+
+    precond_kind: "mg" (the multigrid V-cycle) or "block_jacobi" (the exact
+    per-pixel 2x2 inverse of the diagonal blocks).  transpose: "tables"
+    (in-edge tables built once: slot-keyed when ``candidates`` [K, M] and
+    ``nbr_slots`` [N, k] are given, else pixel-keyed with width 2k), or
+    "scatter" (the exact uncapped W^T by a scatter-add every apply), or
+    "auto" ("tables" below ``_TABLES_MAX_PAIRS`` pairs).
+    """
+    if precond_kind not in PRECOND_KINDS:
+        raise ValueError(f"precond_kind={precond_kind!r}")
+    if transpose not in TRANSPOSES:
+        raise ValueError(f"transpose={transpose!r}")
     h, w, _ = src_lab.shape
     n = h * w
     dev = src_lab.device
@@ -205,56 +254,96 @@ def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
     k = nbr_ids.shape[1]
     pair_w = nbr_w.float() * (nonlocal_weight / k)
     nbr_ids = nbr_ids.long()
-    nbr_slots = nbr_slots.long()
-    cand_flat = candidates.reshape(-1).long().to(dev)
-    n_slots = cand_flat.shape[0]
-    in_max = in_edge_width(n * k, n_slots, in_cap)
+    ids_flat = nbr_ids.reshape(-1)
+    if transpose == "auto":
+        transpose = "scatter" if n * k > _TABLES_MAX_PAIRS else "tables"
+    use_slots = candidates is not None and nbr_slots is not None
+    if use_slots:
+        nbr_slots = nbr_slots.long()
+        cand_flat = candidates.reshape(-1).long().to(dev)
 
-    # rank of each pair among its slot's in-edges, strongest first
-    flat_t = nbr_slots.reshape(-1)
-    sort_key = flat_t.float() * 16.0 - torch.clamp(pair_w.reshape(-1), 0.0,
-                                                   15.0)
-    order = torch.argsort(sort_key, stable=True)
-    sorted_t = flat_t[order]
-    pos = torch.arange(n * k, device=dev)
-    is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                          sorted_t[1:] != sorted_t[:-1]])
-    seg_first = torch.cummax(torch.where(is_start, pos, 0), dim=0).values
-    rank = pos - seg_first
-    keep = rank < in_max
-    # in_tab[t, r] = flat pair index or the sentinel n*k
-    in_tab = torch.full((n_slots, in_max), n * k, dtype=torch.int64,
-                        device=dev)
-    in_tab.view(-1).scatter_reduce_(
-        0, torch.where(keep, sorted_t, n_slots - 1) * in_max
-        + torch.where(keep, rank, in_max - 1),
-        torch.where(keep, order, n * k), reduce="amin")
-    # zero overflowed pairs on the out side too (symmetry)
-    keep_by_pair = torch.zeros(n * k, dtype=torch.bool, device=dev)
-    keep_by_pair[order] = keep
-    pair_w = torch.where(keep_by_pair.reshape(n, k), pair_w, 0.0)
-    pair_w_flat = pair_w.reshape(n * k)
+    def out_gather(u):
+        """u_j of every pair, [N, k, C] (through the small candidate table
+        when the graph has slots)."""
+        return u[cand_flat][nbr_slots] if use_slots else u[nbr_ids]
 
-    valid = in_tab < n * k
-    in_tab_c = torch.clamp(in_tab, max=n * k - 1)
-    in_src = torch.where(valid, in_tab_c // k, 0)
-    in_w = torch.where(valid, pair_w_flat[in_tab_c], 0.0)
-    out_deg = torch.sum(pair_w, dim=1)
-    cs_order = torch.argsort(cand_flat, stable=True)
-    cs_ids = cand_flat[cs_order]
-    in_deg = torch.zeros(n, dtype=torch.float32, device=dev)
-    in_deg.index_put_((cs_ids,), torch.sum(in_w, dim=1)[cs_order],
-                      accumulate=True)
-    both_deg = (out_deg + in_deg)[:, None]
+    if transpose == "scatter":
+        in_deg = torch.zeros(n, dtype=torch.float32, device=dev)
+        in_deg.index_put_((ids_flat,), pair_w.reshape(-1), accumulate=True)
+        both_deg = (torch.sum(pair_w, dim=1) + in_deg)[:, None]
 
-    def nl_apply(u):
-        """u [N, C] -> sum_j w_ij (u_i - u_j) over both edge directions."""
-        uj = u[cand_flat][nbr_slots]                       # [N, k, C]
-        out_sum = torch.sum(pair_w[..., None] * uj, dim=1)
-        in_sum_c = torch.sum(in_w[..., None] * u[in_src], dim=1)
-        in_sum = torch.zeros_like(u)
-        in_sum.index_put_((cs_ids,), in_sum_c[cs_order], accumulate=True)
-        return both_deg * u - out_sum - in_sum
+        def nl_apply(u):
+            """u [N, C] -> sum_j w_ij (u_i - u_j) over both edge directions;
+            each pair deposits w u_source at its target."""
+            out_sum = torch.sum(pair_w[..., None] * out_gather(u), dim=1)
+            in_sum = torch.zeros_like(u)
+            in_sum.index_put_(
+                (ids_flat,), (pair_w[..., None] * u[:, None, :]).reshape(
+                    n * k, -1), accumulate=True)
+            return both_deg * u - out_sum - in_sum
+    else:
+        if use_slots:
+            # slot-keyed: each slot keeps its strongest in-edges first
+            n_targets = cand_flat.shape[0]
+            in_max = in_edge_width(n * k, n_targets, in_cap)
+            flat_t = nbr_slots.reshape(-1)
+            sort_key = flat_t.float() * 16.0 - torch.clamp(
+                pair_w.reshape(-1), 0.0, 15.0)
+        else:
+            # pixel-keyed: each target pixel keeps its first 2k in-edges
+            n_targets = n
+            in_max = min(2 * k, n * k)
+            flat_t = ids_flat
+            sort_key = flat_t
+        # rank of each pair among its target's in-edges
+        order = torch.argsort(sort_key, stable=True)
+        sorted_t = flat_t[order]
+        pos = torch.arange(n * k, device=dev)
+        is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                              sorted_t[1:] != sorted_t[:-1]])
+        seg_first = torch.cummax(torch.where(is_start, pos, 0), dim=0).values
+        rank = pos - seg_first
+        # no wider than the largest in-degree: the same pairs are kept, and
+        # an ample in_cap (width n*k) does not allocate [targets, n*k]
+        in_max = min(in_max, int(rank.max()) + 1)
+        keep = rank < in_max
+        # in_tab[t, r] = flat pair index or the sentinel n*k
+        in_tab = torch.full((n_targets, in_max), n * k, dtype=torch.int64,
+                            device=dev)
+        in_tab.view(-1).scatter_reduce_(
+            0, torch.where(keep, sorted_t, n_targets - 1) * in_max
+            + torch.where(keep, rank, in_max - 1),
+            torch.where(keep, order, n * k), reduce="amin")
+        # zero overflowed pairs on the out side too (symmetry)
+        keep_by_pair = torch.zeros(n * k, dtype=torch.bool, device=dev)
+        keep_by_pair[order] = keep
+        pair_w = torch.where(keep_by_pair.reshape(n, k), pair_w, 0.0)
+        pair_w_flat = pair_w.reshape(n * k)
+
+        valid = in_tab < n * k
+        in_tab_c = torch.clamp(in_tab, max=n * k - 1)
+        in_src = torch.where(valid, in_tab_c // k, 0)
+        in_w = torch.where(valid, pair_w_flat[in_tab_c], 0.0)
+        if use_slots:
+            # slot sums land on their pixels through one sorted scatter
+            cs_order = torch.argsort(cand_flat, stable=True)
+            cs_ids = cand_flat[cs_order]
+            in_deg = torch.zeros(n, dtype=torch.float32, device=dev)
+            in_deg.index_put_((cs_ids,), torch.sum(in_w, dim=1)[cs_order],
+                              accumulate=True)
+        else:
+            in_deg = torch.sum(in_w, dim=1)
+        both_deg = (torch.sum(pair_w, dim=1) + in_deg)[:, None]
+
+        def nl_apply(u):
+            """u [N, C] -> sum_j w_ij (u_i - u_j) over both edge directions."""
+            out_sum = torch.sum(pair_w[..., None] * out_gather(u), dim=1)
+            in_sum = torch.sum(in_w[..., None] * u[in_src], dim=1)
+            if use_slots:
+                in_sum_c, in_sum = in_sum, torch.zeros_like(u)
+                in_sum.index_put_((cs_ids,), in_sum_c[cs_order],
+                                  accumulate=True)
+            return both_deg * u - out_sum - in_sum
 
     def operator(x):
         a, b = x
@@ -270,28 +359,44 @@ def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
 
     rhs = (d2 * s * r, d2 * r)
 
-    # multigrid preconditioner: data blocks + k-NN degree on the diagonal,
-    # the doubled local Laplacian as explicit edge weights
-    deg_nl = torch.sum(pair_w, dim=1)
-    deg_nl.index_put_((nbr_ids.reshape(-1),), pair_w.reshape(-1),
-                      accumulate=True)
-    deg_nl = deg_nl.reshape(h, w)[..., None]
-    precond = make_mg_preconditioner(d2 * s * s + deg_nl, d2 * s,
-                                     d2 + deg_nl, 2.0 * gx2, 2.0 * gy2)
-    return operator, rhs, precond
+    # k-NN degree of the operator's (capped, on the tables path) weights
+    deg_nl = nonlocal_degree(nbr_ids, pair_w, n).reshape(h, w)[..., None]
+    if precond_kind == "mg":
+        # data blocks + k-NN degree on the diagonal, the doubled local
+        # Laplacian as explicit edge weights
+        precond = make_mg_preconditioner(d2 * s * s + deg_nl, d2 * s,
+                                         d2 + deg_nl, 2.0 * gx2, 2.0 * gy2)
+        return operator, rhs, precond
+
+    # block Jacobi: the data rows couple (a_i, b_i) as d2 [[s^2, s], [s, 1]]
+    # and both Laplacians add only to the diagonal
+    deg = 2.0 * laplacian_degree(gx2, gy2)[..., None] + deg_nl
+    blk_aa = d2 * s * s + deg
+    blk_bb = d2 + deg
+    blk_ab = d2 * s
+    inv_det = 1.0 / (blk_aa * blk_bb - blk_ab * blk_ab)
+
+    def block_jacobi(res):
+        ra, rb = res
+        return (inv_det * (blk_bb * ra - blk_ab * rb),
+                inv_det * (blk_aa * rb - blk_ab * ra))
+
+    return operator, rhs, block_jacobi
 
 
 def solve_nonlocal(a0, b0, src_lab, ref_lab, confidence, nbr_ids, nbr_w,
                    norm_factor: float, local_weight: float = 0.125,
                    alpha: float = 1.2, nonlocal_weight: float = 2.0,
-                   *, candidates, nbr_slots, iters: int = 100,
-                   tol: float = 1e-6, in_cap: int = 128):
-    """Solve for regularized (a, b) [H, W, 3] at down-res.  Returns
-    (a, b, iterations run, final ||r||^2)."""
+                   iters: int = 100, tol: float = 1e-6, candidates=None,
+                   nbr_slots=None, precond_kind: str = "mg",
+                   in_cap: int = 128, transpose: str = "auto"):
+    """Solve for regularized (a, b) [H, W, 3] at down-res (see
+    ``make_nonlocal_system`` for the options).  Returns (a, b, iterations
+    run, final ||r||^2)."""
     operator, rhs, precond = make_nonlocal_system(
         src_lab, ref_lab, confidence, nbr_ids, nbr_w, norm_factor,
-        local_weight, alpha, nonlocal_weight, candidates=candidates,
-        nbr_slots=nbr_slots, in_cap=in_cap)
+        local_weight, alpha, nonlocal_weight, candidates, nbr_slots,
+        precond_kind, in_cap, transpose)
     (a, b), r2, n_it = cg_solve(operator, rhs, (a0.float(), b0.float()),
                                 iters=iters, tol=tol, preconditioner=precond)
     return a, b, n_it, r2

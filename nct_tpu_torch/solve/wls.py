@@ -3,7 +3,8 @@
 
 Solves (diag(roughness) + L) x = roughness * x_up for a and b, L the
 5-point Laplacian with edge weights lam / (|dL|^alpha + 1e-4), by
-multigrid-PCG started from the upsampled coefficients.
+PCG started from the upsampled coefficients, preconditioned by the
+multigrid V-cycle or by the diagonal (Jacobi).
 """
 
 from __future__ import annotations
@@ -12,8 +13,11 @@ import torch
 
 from nct_tpu_torch.solve.cg import cg_solve
 from nct_tpu_torch.solve.nonlocal_solve import (
-    gradient_weights, laplacian_apply, make_mg_preconditioner,
+    gradient_weights, laplacian_apply, laplacian_degree,
+    make_mg_preconditioner,
 )
+
+PRECOND_KINDS = ("mg", "jacobi")
 
 
 def roughness_gate(a_up: torch.Tensor, b_up: torch.Tensor,
@@ -28,10 +32,14 @@ def roughness_gate(a_up: torch.Tensor, b_up: torch.Tensor,
 
 def solve_wls(a_up: torch.Tensor, b_up: torch.Tensor,
               cnt_lab_unit: torch.Tensor, lam: float, alpha: float = 1.2,
-              iters: int = 400, tol: float = 1e-6):
-    """Smooth (a, b) [H, W, 3] at full resolution with the multigrid
-    preconditioner.  ``lam`` includes the area scaling (and the final-level
-    boost).  Returns (a, b, iterations run, final ||r||^2)."""
+              iters: int = 400, tol: float = 1e-6,
+              precond_kind: str = "mg"):
+    """Smooth (a, b) [H, W, 3] at full resolution.  ``lam`` includes the
+    area scaling (and the final-level boost); ``precond_kind`` is "mg" (the
+    V-cycle with zero cross-blocks) or "jacobi" (the diagonal).  Returns
+    (a, b, iterations run, final ||r||^2)."""
+    if precond_kind not in PRECOND_KINDS:
+        raise ValueError(f"precond_kind={precond_kind!r}")
     rough = roughness_gate(a_up, b_up, cnt_lab_unit)[..., None]
     gx, gy = gradient_weights(cnt_lab_unit[..., 0], 1.0, alpha)
     lam32 = torch.tensor(lam, dtype=torch.float32).to(gx.device)
@@ -44,8 +52,14 @@ def solve_wls(a_up: torch.Tensor, b_up: torch.Tensor,
                 rough * b + laplacian_apply(b, gx2, gy2))
 
     a0, b0 = a_up.float(), b_up.float()
-    precond = make_mg_preconditioner(rough, torch.zeros_like(rough), rough,
-                                     gx2, gy2)
+    if precond_kind == "mg":
+        precond = make_mg_preconditioner(rough, torch.zeros_like(rough),
+                                         rough, gx2, gy2)
+    else:
+        diag = (rough[..., 0] + laplacian_degree(gx2, gy2))[..., None]
+
+        def precond(res):
+            return (res[0] / diag, res[1] / diag)
     (a, b), r2, n_it = cg_solve(operator, (rough * a0, rough * b0), (a0, b0),
                                 iters=iters, tol=tol, preconditioner=precond)
     return a, b, n_it, r2

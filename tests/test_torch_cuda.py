@@ -7,6 +7,8 @@ machine, which has none (tests/conftest.py does import JAX, hence
     python3 -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -195,3 +197,71 @@ def test_mixed_devices_raise(card):
     a = torch.zeros(5, 6, 32, device=card)
     with pytest.raises(ValueError, match="one device"):
         cuda_nn.exact_nn_bidir(a, a.cpu(), 3)
+
+
+# --- solver variants and the multi-membership graph: card against CPU -------
+
+FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
+NL_ARGS = ("a0", "b0", "src_lab", "ref_lab", "confidence", "nbr_ids", "nbr_w")
+
+
+def _nl_l0(device):
+    d = np.load(f"{FIXTURES}/nl_L0.npz")
+    return {k: torch.from_numpy(d[k]).to(device) for k in d.files}
+
+
+@pytest.mark.parametrize("kw", [
+    {"precond_kind": "block_jacobi"},
+    {"precond_kind": "block_jacobi", "transpose": "scatter"},
+    {"precond_kind": "mg", "transpose": "scatter"},
+], ids=["block_jacobi", "bj-scatter", "mg-scatter"])
+def test_nonlocal_solve_variants_card_vs_cpu(card, kw):
+    """Same iterations (tol=0); reductions run in another order on the
+    card: coefficients within 5e-5, as the CPU parity tests allow."""
+    from nct_tpu_torch.solve.nonlocal_solve import solve_nonlocal
+
+    out = []
+    for dev in (card, torch.device("cpu")):
+        d = _nl_l0(dev)
+        a, b, it, _ = solve_nonlocal(
+            *(d[k] for k in NL_ARGS), float(d["norm_factor"]), iters=10,
+            tol=0.0, candidates=d["candidates"], nbr_slots=d["nbr_slots"],
+            **kw)
+        assert it == 10
+        out.append((a.cpu(), b.cpu()))
+    for x, y in zip(*out):
+        torch.testing.assert_close(x, y, rtol=0, atol=5e-5)
+
+
+def test_wls_jacobi_card_vs_cpu(card):
+    from nct_tpu_torch.solve.wls import solve_wls
+
+    out = []
+    for dev in (card, torch.device("cpu")):
+        d = _nl_l0(dev)
+        a, b, it, _ = solve_wls(d["a0"], d["b0"], d["src_lab"], 0.5, 1.2,
+                                iters=20, tol=0.0, precond_kind="jacobi")
+        assert it == 20
+        out.append((a.cpu(), b.cpu()))
+    for x, y in zip(*out):
+        torch.testing.assert_close(x, y, rtol=0, atol=5e-5)
+
+
+def test_multi_membership_graph_card_vs_cpu(card):
+    """P = 2: ids and slots bitwise (float64 steps and first-minimum
+    argmins on both), weights to the exp's ulp."""
+    from nct_tpu_torch.solve import cluster, knn
+
+    d = np.load(f"{FIXTURES}/nl_L1.npz")
+    rng = np.random.default_rng(2)
+    lab = torch.from_numpy(d["src_lab"])
+    h, w, _ = lab.shape
+    lm = torch.from_numpy(rng.integers(0, 10, (h // 8 + 1, w // 8 + 1)))
+    labels = cluster.multi_labels_for_pixels(
+        lm, cluster.cluster_membership(lm, 10), h, w, 8, 2)
+    cand = torch.from_numpy(d["candidates"])
+    ref = knn.knn_graph(lab, labels, cand)
+    got = knn.knn_graph(lab.to(card), labels.to(card), cand.to(card))
+    torch.testing.assert_close(got[0].cpu(), ref[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[2].cpu(), ref[2], rtol=0, atol=0)
+    torch.testing.assert_close(got[1].cpu(), ref[1], rtol=1e-5, atol=0)

@@ -196,14 +196,19 @@ def test_generator_draws_are_seeded():
                              "wls_r2"}
 
 
-@pytest.mark.parametrize("overrides", [
-    {"wls_precond": "jacobi"}, {"knn_memberships": 3},
-    {"knn_memberships": 2}, {"space_mesh": object()},
-    {"nl_precond": "block_jacobi"}, {"nl_transpose": "scatter"},
-])
+@pytest.mark.parametrize("overrides", [{"space_mesh": object()}])
 def test_unported_config_values_raise(overrides):
     with pytest.raises(NotImplementedError, match="ROADMAP|ported"):
         tpipe.check_config(Config(**overrides))
+
+
+@pytest.mark.parametrize("overrides", [
+    {"wls_precond": "jacobi"}, {"knn_memberships": 3},
+    {"knn_memberships": 2}, {"nl_precond": "block_jacobi"},
+    {"nl_transpose": "scatter"},
+])
+def test_solver_variant_config_values_accepted(overrides):
+    tpipe.check_config(Config(**overrides))
 
 
 def _pairs_dir(tmp_path):
@@ -244,6 +249,7 @@ def test_port_never_imports_jax():
         "import nct_tpu_torch, nct_tpu_torch.cli, nct_tpu_torch.io\n"
         "import nct_tpu_torch.utils.profiling\n"
         "import nct_tpu_torch.tools.profile_stages\n"
+        "import nct_tpu_torch.solve.retune, nct_tpu_torch.solve.knn_exact\n"
         "from nct_tpu_torch import pipeline\n"
         "from nct_tpu_torch.models import vgg19\n"
         "from nct_tpu_torch import Config\n"
