@@ -22,8 +22,9 @@ no result, without them.  Phases, each of which raises on failure:
      equal to the bidirectional kernel's row result on the same tables;
   4. slice: ``transfer_pair`` under the default Config on the seeded
      452x680 / 600x960 pair with seeded VGG-19 weights, one cold and three
-     warm runs, 4 kernel launches per pair; plus a small pair run on the
-     card and on the CPU (plain path), which must agree;
+     warm runs, 4 kernel launches per pair, every output bitwise equal to
+     the first; plus a small pair run on the card and on the CPU (plain
+     path), which must agree;
   5. PatchMatch: ``Config(fine_strategy="patchmatch")`` on the same pair
      (exact L0-L3, PatchMatch at L4), one cold and two warm runs with the
      checks of phase 4; then a 3-frame ``transfer_sequence`` under
@@ -32,15 +33,26 @@ no result, without them.  Phases, each of which raises on failure:
   6. profiler: ``nct_tpu_torch.tools.profile_stages`` at its real shapes,
      the path of the directed kernel;
   7. solver variants: (7a) ``Config.reference_parity()`` on the same pair
-     (PatchMatch at every level, block-Jacobi PCG), one cold and one warm
-     run, no NN kernel launch; (7b) ``Config(knn_memberships=3,
-     nl_transpose="scatter", wls_precond="jacobi")``, one cold and one warm
-     run, 4 ``nn_bidir`` launches per pair; a stage split of one more warm
+     (PatchMatch at every level, block-Jacobi PCG), one cold and two warm
+     runs, no NN kernel launch; (7b) ``Config(knn_memberships=3,
+     nl_transpose="scatter", wls_precond="jacobi")``, one cold and two warm
+     runs, 4 ``nn_bidir`` launches per pair (every output of 7a and 7b
+     bitwise equal to the first); a stage split of one more warm
      pair of each and of the default Config; (7c) on the captured systems
      ``tests/fixtures/nl_L{0,1}.npz``: the scatter and tables transposes at
      an ample ``in_cap`` are one operator, the block-Jacobi and mg solves at
      ``retune.CONVERGED_ITERS`` give one colour transform, and the residual
-     curve over the default caps falls.
+     curve over the default caps falls;
+  8. serving: (a) ``python3 -m nct_tpu_torch.cli --device cuda`` in a new
+     process over a pairs.txt of the smooth pair written as PNG (a 3-field
+     line, a 2-field line, a line naming a missing file): the missing pair
+     is skipped, the kernel library is reused, and each output PNG is
+     bitwise equal to an in-process ``transfer_pair``; (b) a scan batch
+     (``parallel.batch``) of 4 seeded pairs, each item bitwise equal to its
+     own ``transfer_pair``, 4 x ``exact_nn_levels`` kernel launches; (c)
+     the analytic FLOP / byte counts of the pair (``utils.flops``) and the
+     MFU and memory-rate share of phase 4's warm median; (d) the SSIM of
+     the card's output against the CPU's on phase 4's small pair (>= 0.98).
 
 The line before the last holds {"kernels": [...]}, the one before it the
 card's name and power limit; the last line is {"ok": true, "device": ...}.
@@ -65,13 +77,12 @@ NN_SHAPES = (
 )
 AGREE_MIN = 0.99      # share of equal indices, kernel vs plain
 DIST_TOL = 1e-3       # distance at the kernel's match vs the plain minimum
-# H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
-PEAK_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
 # card vs CPU on the small pair: values within 2 LSB.  Summation order
 # differs (cuDNN, the kernel, reductions), which moves near-tied matches;
 # the JAX package's own fused-vs-staged test allows 95%.
 SMALL_WITHIN2_MIN = 0.95
+# card vs CPU on the small pair: the contract of nct_tpu/utils/ssim.py
+SMALL_SSIM_MIN = 0.98
 
 
 def log(msg: str) -> None:
@@ -159,12 +170,13 @@ def _gemm_ms(torch, fa, fb) -> float:
     return _time_ms(torch, run, 3)
 
 
-def _bound_ms(na, nb, c, directed: bool) -> float:
+def _bound_ms(na, nb, c, directed: bool, peaks) -> float:
     """Least time for the work on the card: 2 Na Nb (9C + 9) operations at
-    the bf16 rate against the tables read once and the keys written once."""
+    the bf16 rate against the tables read once and the keys written once;
+    ``peaks`` = (FLOP/s, bytes/s) from ``utils.flops.device_peaks``."""
     flops = 2.0 * na * nb * (9 * c + 9)
     nbytes = (na + nb) * (9 * c * 2 + 4) + (na if directed else na + nb) * 8
-    return max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    return max(flops / peaks[0], nbytes / peaks[1]) * 1e3
 
 
 def check_kernels(torch) -> tuple[dict, dict]:
@@ -174,7 +186,9 @@ def check_kernels(torch) -> tuple[dict, dict]:
     from nct_tpu_torch.ops.exact_nn import (
         nn_bidir_tables_plain, nn_tables_plain,
     )
+    from nct_tpu_torch.utils import flops as flops_mod
 
+    peaks = flops_mod.device_peaks()
     torch.backends.cuda.matmul.allow_tf32 = False   # plain version in full f32
     gen = torch.Generator().manual_seed(0)
     rec = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -251,7 +265,7 @@ def check_kernels(torch) -> tuple[dict, dict]:
                      agree_dir, slack_dir, err_dir)):
                 ms = _time_ms(torch, kernel, 3)
                 plain_ms = _time_ms(torch, plain, 3)
-                bound = _bound_ms(na, nb, c, name == "nn_directed")
+                bound = _bound_ms(na, nb, c, name == "nn_directed", peaks)
                 log(f"[{name}] L{lvl} Na={na} Nb={nb} C={c}: agree {agree:.5f}; "
                     f"match slack {slk:.2e}; max |d err| {e:.2e}; kernel "
                     f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
@@ -296,10 +310,10 @@ def _pair(torch, gen, hw_c, hw_s, smooth: bool):
     return out
 
 
-def _check_output(torch, out, trace=None) -> None:
-    """The output checks of phase 4: shape and type, not constant, and a
-    finite per-level trace."""
-    if tuple(out.shape) != (*CONTENT_HW, 3) or out.dtype != torch.uint8:
+def _check_output(torch, out, hw, trace=None) -> None:
+    """The output checks of phase 4: shape [*hw, 3] and type, not constant,
+    and a finite per-level trace."""
+    if tuple(out.shape) != (*hw, 3) or out.dtype != torch.uint8:
         raise AssertionError(f"bad output {tuple(out.shape)} {out.dtype}")
     if int(out.max()) == int(out.min()):
         raise AssertionError("constant output")
@@ -310,14 +324,16 @@ def _check_output(torch, out, trace=None) -> None:
 
 
 def _timed_pairs(torch, label, model, config, cnt, stl, runs: int,
-                 launches: dict) -> dict:
+                 launches: dict) -> tuple[dict, float]:
     """``runs`` checked transfer_pair runs (the first cold); each must make
-    exactly ``launches`` kernel launches.  Prints the times; returns the
-    launch counts read just after the cold run."""
+    exactly ``launches`` kernel launches and give the first run's output
+    bit for bit.  Prints the times; returns the launch counts read just
+    after the cold run and the median warm seconds."""
     from nct_tpu_torch import pipeline
     from nct_tpu_torch.ops import cuda_nn
 
     times = []
+    first = None
     torch.cuda.reset_peak_memory_stats()
     for run in range(runs):
         torch.cuda.synchronize()
@@ -329,12 +345,18 @@ def _timed_pairs(torch, label, model, config, cnt, stl, runs: int,
         times.append(time.perf_counter() - t0)
         log(f"[{label}] run {run} ({'cold' if run == 0 else 'warm'}): "
             f"{times[-1]:.3f} s, kernel launches {cuda_nn.LAUNCHES}")
-        _check_output(torch, out, trace)
+        _check_output(torch, out, CONTENT_HW, trace)
         if cuda_nn.LAUNCHES != launches:
             raise AssertionError(f"kernel launches {cuda_nn.LAUNCHES}, "
                                  f"expected {launches}")
         if run == 0:
             cold_launches = dict(cuda_nn.LAUNCHES)
+            first = out
+        elif not torch.equal(out, first):
+            diff = (out.int() - first.int()).abs()
+            raise AssertionError(
+                f"[{label}] run {run} differs from run 0 at "
+                f"{int((diff > 0).sum())} values (max {int(diff.max())})")
     warm = statistics.median(times[1:])
     mp = CONTENT_HW[0] * CONTENT_HW[1] / 1e6
     log(f"[{label}] 452x680 / 600x960: cold {times[0]:.3f} s, warm "
@@ -342,13 +364,15 @@ def _timed_pairs(torch, label, model, config, cnt, stl, runs: int,
         f"({mp / warm:.4f} MP/s), nl iters "
         f"{[int(t['nl_iters']) for t in trace]}, wls iters "
         f"{[int(t['wls_iters']) for t in trace]}, peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    return cold_launches
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; all "
+        f"{runs} outputs bitwise equal")
+    return cold_launches, warm
 
 
-def check_slice(torch) -> int:
+def check_slice(torch) -> dict:
     """The default-Config slice on the card; returns the nn_bidir launches
-    of the cold run."""
+    of the cold run, the warm median and the small pair's card and CPU
+    outputs."""
     from nct_tpu_torch import Config, pipeline
     from nct_tpu_torch.models import vgg19
 
@@ -357,8 +381,8 @@ def check_slice(torch) -> int:
     config = Config()
     cnt, stl = _pair(torch, gen, CONTENT_HW, STYLE_HW, smooth=False)
     per_pair = {"nn_bidir": config.exact_nn_levels, "nn_directed": 0}
-    launches = _timed_pairs(torch, "slice", model, config, cnt, stl, 4,
-                            per_pair)
+    launches, warm = _timed_pairs(torch, "slice", model, config, cnt, stl, 4,
+                                  per_pair)
 
     # small smooth pair: the card path against the CPU path of the port
     cnt_s, stl_s = _pair(torch, gen, (64, 80), (72, 88), smooth=True)
@@ -373,7 +397,8 @@ def check_slice(torch) -> int:
         f"{within:.4f} of values, mean |diff| {diff.float().mean().item():.4f}")
     if within < SMALL_WITHIN2_MIN:
         raise AssertionError("card and CPU paths disagree on the small pair")
-    return launches["nn_bidir"]
+    return {"launches": launches["nn_bidir"], "warm_s": warm,
+            "small_card": got, "small_cpu": ref}
 
 
 def check_patchmatch(torch) -> None:
@@ -413,7 +438,7 @@ def check_patchmatch(torch) -> None:
                                               seed=7):
             torch.cuda.synchronize()
             outs.append(time.perf_counter() - t0)
-            _check_output(torch, out)
+            _check_output(torch, out, CONTENT_HW)
     finally:
         pipeline.transfer_pair = transfer_pair
     from nct_tpu_torch.ops import cuda_nn
@@ -501,12 +526,12 @@ def check_variants(torch) -> None:
     model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
     cnt, stl = _pair(torch, gen, CONTENT_HW, STYLE_HW, smooth=False)
     parity = Config.reference_parity()
-    _timed_pairs(torch, "parity", model, parity, cnt, stl, 2,
+    _timed_pairs(torch, "parity", model, parity, cnt, stl, 3,
                  {"nn_bidir": 0, "nn_directed": 0})
     _stage_split(torch, "parity", model, parity, cnt, stl)
     variants = Config(knn_memberships=3, nl_transpose="scatter",
                       wls_precond="jacobi")
-    _timed_pairs(torch, "variants", model, variants, cnt, stl, 2,
+    _timed_pairs(torch, "variants", model, variants, cnt, stl, 3,
                  {"nn_bidir": variants.exact_nn_levels, "nn_directed": 0})
     _stage_split(torch, "variants", model, variants, cnt, stl)
     _stage_split(torch, "slice", model, Config(), cnt, stl)
@@ -600,6 +625,129 @@ def check_solvers(torch) -> None:
                              "not fall")
 
 
+def check_serving(torch, slice_info: dict) -> None:
+    """Phase 8: the CLI in a new process, a scan batch, the FLOP counts
+    and the SSIM of the card against the CPU."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from nct_tpu_torch import Config, pipeline
+    from nct_tpu_torch import io as tio
+    from nct_tpu_torch import _build
+    from nct_tpu_torch.models import vgg19
+    from nct_tpu_torch.ops import cuda_nn
+    from nct_tpu_torch.parallel.batch import make_batch_transfer
+    from nct_tpu_torch.utils import flops, ssim
+
+    model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
+    config = Config()
+    repo = os.path.dirname(os.path.abspath(__file__))
+
+    # (a) the CLI in a new process, over PNG files written by the port
+    cnt, stl = _pair(torch, torch.Generator().manual_seed(8), CONTENT_HW,
+                     STYLE_HW, smooth=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        os.makedirs(src)
+        tio.imwrite_bgr(os.path.join(src, "cnt.png"), cnt)
+        tio.imwrite_bgr(os.path.join(src, "stl.png"), stl)
+        with open(os.path.join(src, "pairs.txt"), "w") as f:
+            f.write("cnt.png stl.png 1.5\ncnt.png missing.png 2.0\n"
+                    "cnt.png stl.png\n")
+        built = sorted(os.listdir(_build.BUILD_DIR))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "nct_tpu_torch.cli", "-i", src, "-o", dst,
+             "--device", "cuda"], capture_output=True, text=True, cwd=repo,
+            env=dict(os.environ, PYTHONPATH=repo), timeout=300)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the CLI exited {proc.returncode}:\n"
+                                 f"{proc.stdout}\n{proc.stderr}")
+        per_pair = [float(line.split()[2]) for line in proc.stdout.splitlines()
+                    if line.startswith("**Finished Time:")]
+        skipped = ("error: failed reading pair cnt.png/missing.png; skipping"
+                   in proc.stdout)
+        outs = sorted(os.listdir(dst))
+        rebuilt = sorted(os.listdir(_build.BUILD_DIR)) != built
+        log(f"[serving] CLI in a new process: exit 0 in {wall:.3f} s, "
+            f"per-pair seconds {per_pair} (first cold), missing pair skipped "
+            f"{skipped}, outputs {outs}, kernel rebuilt {rebuilt}")
+        if (not skipped or outs != ["cnt_stl_1.50.png", "cnt_stl_2.00.png"]
+                or rebuilt or len(per_pair) != 2):
+            raise AssertionError("the CLI run is not what pairs.txt asks for")
+        for name, bds in (("cnt_stl_1.50.png", 1.5), ("cnt_stl_2.00.png", 2.0)):
+            got = tio.imread_bgr(os.path.join(dst, name))
+            want = pipeline.transfer_pair(model, cnt, stl, bds, config,
+                                          seed=7).cpu().numpy()
+            same = got.shape == (*CONTENT_HW, 3) and np.array_equal(got, want)
+            log(f"[serving] {name}: {got.shape}, bitwise equal to the "
+                f"in-process transfer_pair: {same}")
+            if not same:
+                raise AssertionError(f"{name} differs from transfer_pair")
+
+    # (b) a scan batch of 4 seeded pairs
+    gen = torch.Generator().manual_seed(9)
+    pairs = [_pair(torch, gen, CONTENT_HW, STYLE_HW, smooth=False)
+             for _ in range(4)]
+    cnt_b = np.stack([c for c, _ in pairs])
+    stl_b = np.stack([s for _, s in pairs])
+    seeds = [0, 1, 2, 3]
+    batch = make_batch_transfer(config, mode="scan")
+    times, outs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        outs.append(batch(model, cnt_b, stl_b, seeds, 2.0))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        want = {"nn_bidir": 4 * config.exact_nn_levels, "nn_directed": 0}
+        if cuda_nn.LAUNCHES != want:
+            raise AssertionError(f"scan batch launches {cuda_nn.LAUNCHES}, "
+                                 f"expected {want}")
+    mp = 4 * CONTENT_HW[0] * CONTENT_HW[1] / 1e6
+    log(f"[serving] scan batch of 4 pairs {CONTENT_HW[0]}x{CONTENT_HW[1]} / "
+        f"{STYLE_HW[0]}x{STYLE_HW[1]}: cold "
+        f"{times[0]:.3f} s, warm {times[1]:.3f} s ({times[1] / 4:.3f} s per "
+        f"pair, {mp / times[1]:.4f} MP/s), kernel launches per batch "
+        f"{cuda_nn.LAUNCHES}")
+    singles = []
+    for i, seed in enumerate(seeds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = pipeline.transfer_pair(model, cnt_b[i], stl_b[i], 2.0, config,
+                                     seed=seed)
+        torch.cuda.synchronize()
+        singles.append(round(time.perf_counter() - t0, 3))
+        if not (torch.equal(outs[0][i], one) and torch.equal(outs[1][i], one)):
+            raise AssertionError(f"batch item {i} differs from its own "
+                                 f"transfer_pair")
+    log(f"[serving] every batch item (cold and warm) is bitwise equal to its "
+        f"own transfer_pair, which took {singles} s")
+
+    # (c) analytic counts, and phase 4's warm median against the ceilings
+    counts = flops.pipeline_counts(*CONTENT_HW, *STYLE_HW, config)
+    total = counts["total"]
+    warm = slice_info["warm_s"]
+    hbm_frac = flops.roofline_fraction(total["flops"], total["bytes"],
+                                       warm)["bandwidth_frac"]
+    log(json.dumps({"flops_pipeline_counts": counts}))
+    log(f"[serving] default pair: {total['flops'] / 1e12:.3f} TFLOP, "
+        f"{total['bytes'] / 1e9:.3f} GB analytic; at phase 4's warm median "
+        f"{warm:.3f} s: mfu {flops.mfu(total['flops'], warm):.4e}, hbm_frac "
+        f"{hbm_frac:.4e}")
+
+    # (d) SSIM of the card's output against the CPU's on the small pair
+    value = ssim.ssim(slice_info["small_card"], slice_info["small_cpu"])
+    log(f"[serving] SSIM card vs CPU on the 64x80 / 72x88 small pair: "
+        f"{value:.6f} (limit {SMALL_SSIM_MIN})")
+    if not value >= SMALL_SSIM_MIN:
+        raise AssertionError("card and CPU outputs differ in SSIM")
+
+
 def main() -> int:
     import torch
 
@@ -615,7 +763,8 @@ def main() -> int:
     phase_done("phase 2 (build)")
     bidir, directed = check_kernels(torch)
     phase_done("phase 3 (kernels)")
-    bidir["launches"] = check_slice(torch)
+    slice_info = check_slice(torch)
+    bidir["launches"] = slice_info["launches"]
     phase_done("phase 4 (slice)")
     check_patchmatch(torch)
     phase_done("phase 5 (PatchMatch)")
@@ -623,6 +772,8 @@ def main() -> int:
     phase_done("phase 6 (profiler)")
     check_variants(torch)
     phase_done("phase 7 (solver variants)")
+    check_serving(torch, slice_info)
+    phase_done("phase 8 (serving)")
     log(json.dumps({"kernels": [bidir, directed]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@
 Reads ``pairs.txt`` (each line ``cntPath stlPath [bdsWeight]``, paths
 relative to the input directory) and writes
 ``<out>/<cntStem>_<stlStem>_<bds%2.2f>.png`` at the content resolution.
-``--device`` defaults to ``cuda`` and fails when no card is present;
-``--device cpu`` runs the plain PyTorch path.
+Images are decoded and capped ahead of the card by ``data.PairLoader``;
+PNG needs no imaging library.  ``--device`` defaults to ``cuda`` and fails
+when no card is present; ``--device cpu`` runs the plain PyTorch path.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from nct_tpu_torch.config import Config
 from nct_tpu_torch import io
+from nct_tpu_torch.data import PairLoader
 from nct_tpu_torch.models import vgg19
 from nct_tpu_torch.pipeline import transfer_pair
 
@@ -88,29 +90,31 @@ def main(argv: list[str] | None = None) -> int:
                           default_bds=args.bds)
     if args.pairs_limit is not None:
         pairs = pairs[: args.pairs_limit]
-    for pair in pairs:
-        try:
-            cnt = io.imread_bgr(os.path.join(args.input, pair.content))
-            stl = io.imread_bgr(os.path.join(args.input, pair.style))
-        except OSError as e:  # the reference continues past unreadable images
-            print(f"error: failed reading pair {pair.content}/{pair.style} "
-                  f"({e}); skipping")
-            continue
-        cnt = io.cap_max_size(cnt, config.max_size)
-        stl = io.cap_max_size(stl, config.max_size)
-        print(f"content: {pair.content} {cnt.shape[1]}x{cnt.shape[0]}, "
-              f"style: {pair.style} {stl.shape[1]}x{stl.shape[0]}, "
-              f"bds: {pair.bds_weight}")
-        start = time.perf_counter()
-        result = transfer_pair(model, cnt, stl, pair.bds_weight, config,
-                               seed=args.seed, device=device)
-        result = result.cpu().numpy()
-        print(f"**Finished Time: {time.perf_counter() - start:.3f} sec.")
-        out_path = os.path.join(
-            args.output,
-            io.output_name(pair.content, pair.style, pair.bds_weight))
-        io.imwrite_bgr(out_path, result)
-        print(f"final output file: {out_path}\n")
+    loader = PairLoader(
+        [(os.path.join(args.input, p.content),
+          os.path.join(args.input, p.style)) for p in pairs],
+        max_size=config.max_size)
+    try:
+        for pair, item in zip(pairs, loader):
+            if item is None:  # the reference continues past unreadable images
+                print(f"error: failed reading pair {pair.content}/"
+                      f"{pair.style}; skipping")
+                continue
+            cnt, stl = item
+            print(f"content: {pair.content} {cnt.shape[1]}x{cnt.shape[0]}, "
+                  f"style: {pair.style} {stl.shape[1]}x{stl.shape[0]}, "
+                  f"bds: {pair.bds_weight}")
+            start = time.perf_counter()
+            result = transfer_pair(model, cnt, stl, pair.bds_weight, config,
+                                   seed=args.seed, device=device)
+            result = result.cpu().numpy()
+            print(f"**Finished Time: {time.perf_counter() - start:.3f} sec.")
+            out_path = os.path.join(args.output, io.output_name(
+                pair.content, pair.style, pair.bds_weight))
+            io.imwrite_bgr(out_path, result)
+            print(f"final output file: {out_path}\n")
+    finally:
+        loader.close()
     return 0
 
 

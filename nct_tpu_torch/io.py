@@ -2,8 +2,10 @@
 
 Images are uint8 BGR numpy arrays [H, W, 3], capped to MAX_SIZE on the
 longer side; results are written as ``<src>_<ref>_<bds%.2f>.png``.
-Pillow is imported only inside the two functions that decode and encode
-files, so the rest of the package runs where Pillow is not installed.
+PNG files are read and written by ``data.png`` (zlib and numpy), so the
+CLI needs no imaging library.  Other formats go through Pillow, imported
+inside the two functions; without it they raise ``OSError`` naming the
+format.
 """
 
 from __future__ import annotations
@@ -14,24 +16,44 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from nct_tpu_torch.data import png
 from nct_tpu_torch.ops.resize import max_size_resize_dims, resize_bilinear
 
 
-def imread_bgr(path: str) -> np.ndarray:
-    """Read an image file as uint8 BGR [H, W, 3]."""
-    from PIL import Image
+def _pillow(path: str, fmt: str):
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise OSError(f"{path}: {fmt} files need Pillow, which is not "
+                      f"installed (PNG needs nothing)") from e
+    return Image
 
-    with Image.open(path) as im:
+
+def imread_bgr(path: str) -> np.ndarray:
+    """Read an image file as uint8 BGR [H, W, 3]: PNG (told by its
+    signature) through ``data.png``, anything else through Pillow."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(png.SIGNATURE):
+        return png.decode(data, path)
+    fmt = ("JPEG" if data[:2] == b"\xff\xd8" else
+           (os.path.splitext(path)[1].lstrip(".").upper() or "unknown-format"))
+    image = _pillow(path, fmt)
+    with image.open(path) as im:
         rgb = np.asarray(im.convert("RGB"), dtype=np.uint8)
     return rgb[..., ::-1].copy()
 
 
 def imwrite_bgr(path: str, bgr: np.ndarray) -> None:
-    """Write a uint8 BGR [H, W, 3] array as PNG."""
-    from PIL import Image
-
+    """Write a uint8 BGR [H, W, 3] array: ``.png`` through ``data.png``,
+    other extensions through Pillow."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".png":
+        png.write(path, np.asarray(bgr, dtype=np.uint8))
+        return
+    image = _pillow(path, ext.lstrip(".").upper() or "extensionless")
     rgb = np.asarray(bgr, dtype=np.uint8)[..., ::-1]
-    Image.fromarray(rgb).save(path)
+    image.fromarray(rgb).save(path)
 
 
 def cap_max_size(img: np.ndarray, max_size: int) -> np.ndarray:

@@ -40,9 +40,8 @@ from nct_tpu_torch.solve import cluster, knn, stats
 from nct_tpu_torch.solve.nonlocal_solve import solve_nonlocal
 from nct_tpu_torch.solve.wls import apply_transform, solve_wls
 
-# Level-pixel count above which the window refine ranks stage 1 on
-# Config.window_stage1_channels_maxsize channels when
-# Config.window_stage1_channels is 0 (the JAX package's MAX_SIZE path).
+# Level-pixel count above which the window refine may rank stage 1 on
+# Config.window_stage1_channels_maxsize channels (see stage1_channels).
 STAGE1_SUBSET_PIXELS = 320_000
 
 
@@ -80,7 +79,7 @@ def check_config(config: Config) -> None:
     if config.space_mesh is not None:
         raise NotImplementedError(
             "space_mesh: the space-sharded ring search is not ported yet "
-            "(ROADMAP Queue 1 #13)")
+            "(ROADMAP Queue 1: ring_nn / mesh / space_mesh)")
     if config.feature_dtype not in ("bfloat16", "float32"):
         raise ValueError(f"feature_dtype={config.feature_dtype!r}")
 
@@ -140,8 +139,26 @@ def _setup(model, cnt, stl, draws, config: Config, taps):
             membership)
 
 
-def _stage1_channels(config: Config, pixels: int) -> int:
-    if config.window_stage1_channels == 0 and pixels > STAGE1_SUBSET_PIXELS:
+def stage1_channels(config: Config, content_pixels: int, own_pixels: int,
+                    threshold: int | None = None) -> int:
+    """Stage-1 ranking channels of one window-refine direction.
+
+    With ``config.window_stage1_channels == 0`` the subset
+    ``window_stage1_channels_maxsize`` applies only when the content level
+    has more than ``threshold`` pixels (default ``STAGE1_SUBSET_PIXELS``)
+    and so has the direction's own query level; otherwise
+    ``window_stage1_channels`` passes through.  The JAX package ranks on
+    the subset only on its staged sub-split path, which the JAX CLI and
+    ``bench.py`` take exactly when the content exceeds 320k pixels
+    (``nct_tpu/pipeline.py:748``, then ``:253-255`` per direction), and
+    its fused path passes the Config value through.  The port has no
+    fused/staged split, but keeps this rule so each geometry ranks on the
+    channels the JAX package ranks on there.
+    """
+    if threshold is None:
+        threshold = STAGE1_SUBSET_PIXELS
+    if (config.window_stage1_channels == 0 and content_pixels > threshold
+            and own_pixels > threshold):
         return config.window_stage1_channels_maxsize
     return config.window_stage1_channels
 
@@ -165,10 +182,10 @@ def _level_match(config: Config, l: int, rs: int, draws, bds_weight: float,
         bnn0 = nnf.upsample(bnn_prev, bh, bw, ah, aw)
         ann, _ = window_refine(
             fc_n, fs_n, ann0, config.window_radius, config.window_shortlist,
-            ps, _stage1_channels(config, ah * aw))
+            ps, stage1_channels(config, ah * aw, ah * aw))
         bnn, _ = window_refine(
             fs_n, fc_n, bnn0, config.window_radius, config.window_shortlist,
-            ps, _stage1_channels(config, bh * bw))
+            ps, stage1_channels(config, ah * aw, bh * bw))
     else:
         dev = fc_n.device
         if l > 0:

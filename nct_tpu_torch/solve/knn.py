@@ -17,13 +17,17 @@ of its P clusters' candidate tables and keeps the k best, ranked on the
 **f32** distances (first minimum on ties); every slot holding a selected id
 is masked before the next pick, which deduplicates ids across memberships
 and repeats.
+
+Both paths round every 3-term sum, the weights' distances and
+``exp(1 - d / 3)`` as XLA's CPU backend does (``ops/fmath``), so the graph
+is bitwise the JAX package's, and the card's is bitwise the CPU's.
 """
 
 from __future__ import annotations
 
 import torch
 
-from nct_tpu_torch.ops.fmath import dot3_fma
+from nct_tpu_torch.ops.fmath import dot3_fma, knn_weight
 
 
 def sample_cluster_candidates(membership_pix: torch.Tensor,
@@ -73,7 +77,7 @@ def knn_graph(
     counts = torch.bincount(labels, minlength=kc).tolist()
 
     cand_colors = colors[candidates]                   # [K, M, 3]
-    cand_sq = torch.sum(cand_colors * cand_colors, dim=-1)
+    cand_sq = dot3_fma(cand_colors, cand_colors)
 
     # first occurrence of each candidate id within its cluster row
     cid_ord = torch.argsort(candidates, dim=1, stable=True)
@@ -95,11 +99,9 @@ def knn_graph(
         for s0 in range(start, start + cnt, chunk):
             pid = order[s0:min(s0 + chunk, start + cnt)]
             qc = colors[pid]                                       # [B, 3]
-            cross = (qc[:, 0:1] * cc[:, 0] + qc[:, 1:2] * cc[:, 1]
-                     + qc[:, 2:3] * cc[:, 2])                      # [B, M]
-            q_sq = torch.sum(qc * qc, dim=-1)
-            d = torch.clamp(csq[None, :] - 2.0 * cross + q_sq[:, None],
-                            min=0.0)
+            cross = dot3_fma(qc[:, None, :], cc[None, :, :])       # [B, M]
+            d = torch.clamp(csq[None, :] - 2.0 * cross
+                            + dot3_fma(qc, qc)[:, None], min=0.0)
             d = torch.where(cand_ids[None, :] == pid[:, None], inf, d)
             d = torch.where(first_mask[c][None, :], d, inf)
             nfin = torch.sum(torch.isfinite(d), dim=1)
@@ -112,12 +114,11 @@ def knn_graph(
                                    float("inf"), work)
             j = torch.stack(picks, dim=1)                          # [B, k]
             ids = cand_ids[j]
-            ncol = colors[ids]                                     # [B, k, 3]
-            dists = torch.clamp(
-                torch.sum((qc[:, None, :] - ncol) ** 2, dim=-1), min=0.0)
+            diff = qc[:, None, :] - colors[ids]                    # [B, k, 3]
+            dists = torch.clamp(dot3_fma(diff, diff), min=0.0)
             alive = torch.arange(k_num, device=dev)[None, :] < nfin[:, None]
             ids_o[pid] = ids
-            w_o[pid] = torch.where(alive, torch.exp(1.0 - dists / 3.0), 0.0)
+            w_o[pid] = torch.where(alive, knn_weight(dists), 0.0)
             s_o[pid] = c * m + j
         start += cnt
     return ids_o, w_o, s_o
@@ -132,8 +133,6 @@ def _knn_graph_multi(colors: torch.Tensor, labels: torch.Tensor,
     dev = colors.device
     m = candidates.shape[1]
     cand_colors = colors[candidates]                   # [K, M, 3]
-    # the three 3-term sums in XLA's rounding: ties on the f32 distance
-    # then break as in the JAX package
     cand_sq = dot3_fma(cand_colors, cand_colors)
     ids_o = torch.empty((n, k_num), dtype=torch.int64, device=dev)
     w_o = torch.empty((n, k_num), dtype=torch.float32, device=dev)
@@ -162,7 +161,6 @@ def _knn_graph_multi(colors: torch.Tensor, labels: torch.Tensor,
             work = torch.where(cand_ids == cid, inf, work)
         d = torch.stack(dists, dim=1)
         ids_o[s0:s0 + b] = torch.stack(picks, dim=1)
-        w_o[s0:s0 + b] = torch.where(torch.isfinite(d),
-                                     torch.exp(1.0 - d / 3.0), 0.0)
+        w_o[s0:s0 + b] = torch.where(torch.isfinite(d), knn_weight(d), 0.0)
         s_o[s0:s0 + b] = torch.stack(slots, dim=1)
     return ids_o, w_o, s_o

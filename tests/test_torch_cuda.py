@@ -248,8 +248,8 @@ def test_wls_jacobi_card_vs_cpu(card):
 
 
 def test_multi_membership_graph_card_vs_cpu(card):
-    """P = 2: ids and slots bitwise (float64 steps and first-minimum
-    argmins on both), weights to the exp's ulp."""
+    """P = 2: ids, weights and slots bitwise (float64 steps, the same exp
+    polynomial and first-minimum argmins on both)."""
     from nct_tpu_torch.solve import cluster, knn
 
     d = np.load(f"{FIXTURES}/nl_L1.npz")
@@ -262,6 +262,64 @@ def test_multi_membership_graph_card_vs_cpu(card):
     cand = torch.from_numpy(d["candidates"])
     ref = knn.knn_graph(lab, labels, cand)
     got = knn.knn_graph(lab.to(card), labels.to(card), cand.to(card))
-    torch.testing.assert_close(got[0].cpu(), ref[0], rtol=0, atol=0)
-    torch.testing.assert_close(got[2].cpu(), ref[2], rtol=0, atol=0)
-    torch.testing.assert_close(got[1].cpu(), ref[1], rtol=1e-5, atol=0)
+    for x, y in zip(got, ref):
+        torch.testing.assert_close(x.cpu(), y, rtol=0, atol=0)
+
+
+def test_single_membership_graph_card_vs_cpu(card):
+    """P = 1 with unquantised colours: bitwise, ids, weights and slots."""
+    from nct_tpu_torch.solve import knn
+
+    d = np.load(f"{FIXTURES}/nl_L1.npz")
+    rng = np.random.default_rng(3)
+    lab = torch.from_numpy(d["src_lab"])
+    labels = torch.from_numpy(rng.integers(0, 10, lab.shape[:2]))
+    cand = torch.from_numpy(d["candidates"])
+    ref = knn.knn_graph(lab, labels, cand)
+    got = knn.knn_graph(lab.to(card), labels.to(card), cand.to(card))
+    for x, y in zip(got, ref):
+        torch.testing.assert_close(x.cpu(), y, rtol=0, atol=0)
+
+
+# --- determinism, the PNG codec and SSIM on the card ------------------------
+
+def test_transfer_pair_warm_runs_bitwise(card):
+    """Two warm runs of the same pair give the same bits (sorted scatters,
+    no atomics on floats)."""
+    from nct_tpu_torch import Config, pipeline
+    from nct_tpu_torch.models import vgg19
+
+    rng = np.random.default_rng(7)
+    cnt = rng.integers(0, 256, (64, 80, 3)).astype(np.uint8)
+    stl = rng.integers(0, 256, (72, 88, 3)).astype(np.uint8)
+    model = vgg19.init_params().to(card)
+    outs = [pipeline.transfer_pair(model, cnt, stl, 2.0, Config(), seed=3)
+            for _ in range(3)]
+    for out in outs[1:]:
+        torch.testing.assert_close(out, outs[1], rtol=0, atol=0)
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
+
+
+def test_png_round_trip_needs_no_pillow(tmp_path, monkeypatch):
+    """Runs on any machine: PNG through the port's codec, with ``PIL``
+    unimportable."""
+    import sys
+
+    from nct_tpu_torch import io as tio
+
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    rng = np.random.default_rng(1)
+    img = rng.integers(0, 256, (37, 53, 3)).astype(np.uint8)
+    tio.imwrite_bgr(str(tmp_path / "x.png"), img)
+    np.testing.assert_array_equal(tio.imread_bgr(str(tmp_path / "x.png")), img)
+
+
+def test_ssim_card_vs_cpu(card):
+    from nct_tpu_torch.utils.ssim import ssim
+
+    rng = np.random.default_rng(2)
+    a = rng.integers(0, 256, (60, 70, 3)).astype(np.uint8)
+    b = np.clip(a.astype(int) + rng.integers(-25, 26, a.shape), 0,
+                255).astype(np.uint8)
+    on_card = ssim(torch.from_numpy(a).to(card), torch.from_numpy(b).to(card))
+    assert abs(on_card - ssim(a, b)) <= 1e-5

@@ -250,6 +250,11 @@ def test_port_never_imports_jax():
         "import nct_tpu_torch.utils.profiling\n"
         "import nct_tpu_torch.tools.profile_stages\n"
         "import nct_tpu_torch.solve.retune, nct_tpu_torch.solve.knn_exact\n"
+        "import nct_tpu_torch.data, nct_tpu_torch.parallel.batch\n"
+        "import nct_tpu_torch.parallel.bucket, nct_tpu_torch.utils.flops\n"
+        "import nct_tpu_torch.utils.ssim, nct_tpu_torch.utils.vis\n"
+        "import nct_tpu_torch.utils.glog, nct_tpu_torch.models.caffe_io\n"
+        "import nct_tpu_torch.tools.convert_vgg19\n"
         "from nct_tpu_torch import pipeline\n"
         "from nct_tpu_torch.models import vgg19\n"
         "from nct_tpu_torch import Config\n"

@@ -116,28 +116,18 @@ def test_knn_graph_quantised_equal(rng):
     _, (ri, rw, rs), (gi, gw, gs) = _knn_case(rng, quantised=True)
     np.testing.assert_array_equal(gi, ri)
     np.testing.assert_array_equal(gs, rs)
-    # exp(1 - d/3): torch's and XLA's exp differ by an ulp
-    np.testing.assert_allclose(gw, rw, rtol=1e-5, atol=0)
+    np.testing.assert_array_equal(gw, rw)
 
 
 def test_knn_graph_random_tie_equivalent(rng):
-    """With unquantised colours XLA's fused distance differs from the
-    port's by an ulp, which can move a value across a bf16 rounding
-    boundary and reorder candidates whose keys tie; every pixel must still
-    pick the same multiset of bf16 distance keys, and equal picks carry
-    equal weights."""
-    lab, (ri, rw, rs), (gi, gw, gs) = _knn_case(rng, quantised=False)
-    col = torch.from_numpy(lab.reshape(-1, 3))
-
-    def keys(ids):
-        d = ((col[:, None, :] - col[torch.tensor(ids)]) ** 2).sum(-1)
-        return np.sort(d.to(torch.bfloat16).float().numpy(), axis=1)
-
-    np.testing.assert_array_equal(keys(gi), keys(ri))
-    same = gi == ri
-    assert same.mean() >= 0.9
-    np.testing.assert_allclose(gw[same], rw[same], rtol=1e-5, atol=0)
-    np.testing.assert_array_equal(gs[same], rs[same])
+    """With unquantised colours the ranking keys depend on how each 3-term
+    sum is rounded; the port rounds them as XLA's CPU backend does (fused
+    multiply-add chains, and XLA's exp for the weights), so ids, weights
+    and slots are bitwise the JAX package's."""
+    _, (ri, rw, rs), (gi, gw, gs) = _knn_case(rng, quantised=False)
+    np.testing.assert_array_equal(gi, ri)
+    np.testing.assert_array_equal(gw, rw)
+    np.testing.assert_array_equal(gs, rs)
 
 
 # --- patch statistics -------------------------------------------------------
