@@ -52,7 +52,21 @@ no result, without them.  Phases, each of which raises on failure:
      own ``transfer_pair``, 4 x ``exact_nn_levels`` kernel launches; (c)
      the analytic FLOP / byte counts of the pair (``utils.flops``) and the
      MFU and memory-rate share of phase 4's warm median; (d) the SSIM of
-     the card's output against the CPU's on phase 4's small pair (>= 0.98).
+     the card's output against the CPU's on phase 4's small pair (>= 0.98);
+  9. vmap batch: (a) both NN kernel instances launched once over a batch
+     of 4 items at each L0-L3 shape, each item bitwise equal to its own
+     single launch on random and on integer features, with CUDA-event
+     times against 4 single launches, the bound (4 x the single bound)
+     and a cuBLAS batched GEMM (``torch.bmm``) over the same tables;
+     (b) ``make_batch_transfer(Config(), mode="vmap")`` on phase 8b's 4
+     pairs, one cold and two warm runs plus one traced run, every output
+     bitwise equal to the first, 4 ``nn_bidir`` launches of 16 items per
+     bucket, a stage split of one more bucket, and each item against 8b's
+     scan item: the same solver
+     iteration counts per level, within 2 LSB at >= 95% of values and a
+     mean difference <= 0.5 (the JAX package's batch contract), with the
+     seconds per pair of both; (c) ``nct_tpu_torch.tools.
+     profile_batch_stages`` at its real shapes, b = 1 and b = 4.
 
 The line before the last holds {"kernels": [...]}, the one before it the
 card's name and power limit; the last line is {"ok": true, "device": ...}.
@@ -83,6 +97,14 @@ DIST_TOL = 1e-3       # distance at the kernel's match vs the plain minimum
 SMALL_WITHIN2_MIN = 0.95
 # card vs CPU on the small pair: the contract of nct_tpu/utils/ssim.py
 SMALL_SSIM_MIN = 0.98
+# phase 9: batch of the kernel check, and the JAX package's batch contract
+# (tests/test_parallel_batch.py) of a vmap item against its scan item
+NN_BATCH = 4
+# rows of one item's table whose masks phase 9a zeroes
+TILE_ROWS_MASKED = 200
+BATCH_LSB = 2
+BATCH_WITHIN_MIN = 0.95
+BATCH_MEAN_MAX = 0.5
 
 
 def log(msg: str) -> None:
@@ -153,6 +175,7 @@ def reset_counts() -> None:
 
     for name in cuda_nn.LAUNCHES:
         cuda_nn.LAUNCHES[name] = 0
+        cuda_nn.LAUNCH_ITEMS[name] = 0
 
 
 def _gemm_ms(torch, fa, fb) -> float:
@@ -483,9 +506,10 @@ CONVERGED_COLOUR_MEAN = 0.005
 RETUNE_CAPS = (4, 6, 8, 10, 12, 16, 24, 32, 48)
 
 
-def _stage_split(torch, label, model, config, cnt, stl) -> None:
-    """One more warm pair with every stage function wrapped in a
-    synchronised host-clock span; prints seconds per stage and the rest."""
+def _stage_split(torch, label, model, config, cnt, stl, run=None) -> None:
+    """One more warm pair (or ``run()``) with every stage function wrapped
+    in a synchronised host-clock span; prints seconds per stage and the
+    rest."""
     from nct_tpu_torch import pipeline
     from nct_tpu_torch.utils.profiling import StageTimer
 
@@ -505,15 +529,18 @@ def _stage_split(torch, label, model, config, cnt, stl) -> None:
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pipeline.transfer_pair(model, cnt, stl, 2.0, config, seed=7)
+        if run is None:
+            pipeline.transfer_pair(model, cnt, stl, 2.0, config, seed=7)
+        else:
+            run()
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
         for (mod, name), fn in zip(hooks, saved):
             setattr(mod, name, fn)
     parts = sorted(timer.spans.items(), key=lambda kv: -kv[1])
-    log(f"[{label}] stage split of one warm pair ({total:.3f} s, synchronised "
-        f"after each stage): " + ", ".join(f"{k} {v:.3f} s" for k, v in parts)
+    log(f"[{label}] stage split of one warm {'pair' if run is None else 'run'} "
+        f"({total:.3f} s, synchronised after each stage): " + ", ".join(f"{k} {v:.3f} s" for k, v in parts)
         + f", rest {total - sum(timer.spans.values()):.3f} s")
 
 
@@ -714,14 +741,16 @@ def check_serving(torch, slice_info: dict) -> None:
         f"{times[0]:.3f} s, warm {times[1]:.3f} s ({times[1] / 4:.3f} s per "
         f"pair, {mp / times[1]:.4f} MP/s), kernel launches per batch "
         f"{cuda_nn.LAUNCHES}")
-    singles = []
+    singles, traces = [], []
     for i, seed in enumerate(seeds):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        one = pipeline.transfer_pair(model, cnt_b[i], stl_b[i], 2.0, config,
-                                     seed=seed)
+        one, trace = pipeline.transfer_pair(model, cnt_b[i], stl_b[i], 2.0,
+                                            config, seed=seed,
+                                            return_intermediates="stats")
         torch.cuda.synchronize()
         singles.append(round(time.perf_counter() - t0, 3))
+        traces.append(trace)
         if not (torch.equal(outs[0][i], one) and torch.equal(outs[1][i], one)):
             raise AssertionError(f"batch item {i} differs from its own "
                                  f"transfer_pair")
@@ -746,6 +775,183 @@ def check_serving(torch, slice_info: dict) -> None:
         f"{value:.6f} (limit {SMALL_SSIM_MIN})")
     if not value >= SMALL_SSIM_MIN:
         raise AssertionError("card and CPU outputs differ in SSIM")
+    return {"cnt_b": cnt_b, "stl_b": stl_b, "seeds": seeds, "outs": outs[0],
+            "traces": traces, "warm_s": times[1]}
+
+
+def _bmm_ms(torch, fa, fb) -> float:
+    """CUDA-event time of the batched bf16 products alone: one cuBLAS
+    ``torch.bmm`` per chunk of A rows, chunked so that the output fits
+    2 GiB."""
+    bsz, nb = fb.shape[0], fb.shape[1]
+    rows = max(128, (2 ** 30 // (bsz * nb * 2)) // 128 * 128)
+    out = torch.empty((bsz, rows, nb), dtype=torch.bfloat16, device="cuda")
+    fbt = fb.transpose(1, 2)
+
+    def run():
+        for a0 in range(0, fa.shape[1], rows):
+            chunk = fa[:, a0:a0 + rows]
+            torch.bmm(chunk, fbt, out=out[:, :chunk.shape[1]])
+    return _time_ms(torch, run, 3)
+
+
+def check_batched_kernels(torch, bidir: dict, directed: dict) -> None:
+    """Phase 9a: each instance over a batch grid axis of NN_BATCH items at
+    the L0-L3 shapes, every item bitwise equal to its own single launch;
+    adds the batched launch's times and bounds to the kernel records."""
+    from nct_tpu_torch.ops import cuda_nn
+    from nct_tpu_torch.utils import flops as flops_mod
+
+    peaks = flops_mod.device_peaks()
+    gen = torch.Generator().manual_seed(1)
+    for rec in (bidir, directed):
+        rec.update({"batch": NN_BATCH, "batched_ms_by_level": [],
+                    "batched_single_launches_ms_by_level": [],
+                    "batched_bound_ms_by_level": [],
+                    "batched_bmm_ms_by_level": []})
+    for lvl, (ha, wa, hb, wb, c) in enumerate(NN_SHAPES):
+        na, nb = ha * wa, hb * wb
+        for integer in (True, False):
+            a = torch.stack([_features(torch, gen, ha, wa, c, integer)
+                             for _ in range(NN_BATCH)])
+            b = torch.stack([_features(torch, gen, hb, wb, c, integer)
+                             for _ in range(NN_BATCH)])
+            fa, ma = cuda_nn.padded_tables(a, 3)
+            fb, mb = cuda_nn.padded_tables(b, 3)
+            # items with different zero-mask rows: item 1 loses its first
+            # A rows, item 2 its first B rows
+            ma[1, :TILE_ROWS_MASKED] = 0
+            mb[2, :TILE_ROWS_MASKED] = 0
+            launches = dict(cuda_nn.LAUNCHES)
+            got = cuda_nn.nn_bidir_tables(fa, ma, fb, mb)
+            got_dir = cuda_nn.nn_directed_tables(fa, ma, fb, mb)
+            if {k: cuda_nn.LAUNCHES[k] - launches[k] for k in launches} != {
+                    "nn_bidir": 1, "nn_directed": 1}:
+                raise AssertionError("a batched call made more than one "
+                                     "launch per instance")
+            same = True
+            for i in range(NN_BATCH):
+                one = cuda_nn.nn_bidir_tables(fa[i], ma[i], fb[i], mb[i])
+                one_dir = cuda_nn.nn_directed_tables(fa[i], ma[i], fb[i],
+                                                     mb[i])
+                same &= all(torch.equal(x[i], y) for x, y in zip(got, one))
+                same &= all(torch.equal(x[i], y)
+                            for x, y in zip(got_dir, one_dir))
+            torch.cuda.synchronize()
+            kind = "integer" if integer else "random"
+            log(f"[batched] L{lvl} {kind} case, {NN_BATCH} items: every item "
+                f"bitwise equal to its own single launch (both instances): "
+                f"{same}")
+            if not same:
+                raise AssertionError(f"L{lvl}: a batched item differs from "
+                                     f"its single launch")
+            if integer:
+                continue
+            bmm = _bmm_ms(torch, fa, fb)
+            for name, rec, launch in (
+                    ("nn_bidir", bidir, cuda_nn.nn_bidir_tables),
+                    ("nn_directed", directed, cuda_nn.nn_directed_tables)):
+                ms = _time_ms(torch, lambda: launch(fa, ma, fb, mb), 3)
+                singles = _time_ms(torch, lambda: [
+                    launch(fa[i], ma[i], fb[i], mb[i])
+                    for i in range(NN_BATCH)], 3)
+                bound = NN_BATCH * _bound_ms(na, nb, c, name == "nn_directed",
+                                             peaks)
+                log(f"[batched] {name} L{lvl} B={NN_BATCH}: one launch "
+                    f"{ms:.3f} ms against {NN_BATCH} single launches "
+                    f"{singles:.3f} ms ({singles / ms:.2f}x); bound "
+                    f"{bound:.3f} ms ({bound / ms:.3f} of it); cuBLAS bmm "
+                    f"{bmm:.3f} ms")
+                rec["batched_ms_by_level"].append(ms)
+                rec["batched_single_launches_ms_by_level"].append(singles)
+                rec["batched_bound_ms_by_level"].append(bound)
+                rec["batched_bmm_ms_by_level"].append(bmm)
+
+
+def check_vmap_bucket(torch, scan: dict) -> dict:
+    """Phase 9b: the vmap bucket of phase 8b's pairs against 8b's scan
+    items; returns the bucket's launch and item counts."""
+    import numpy as np
+
+    from nct_tpu_torch import Config, pipeline
+    from nct_tpu_torch.models import vgg19
+    from nct_tpu_torch.ops import cuda_nn
+    from nct_tpu_torch.parallel.batch import make_batch_transfer
+
+    model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
+    config = Config()
+    cnt_b, stl_b, seeds = scan["cnt_b"], scan["stl_b"], scan["seeds"]
+    bsz = len(seeds)
+    want = {"nn_bidir": config.exact_nn_levels, "nn_directed": 0}
+    want_items = {"nn_bidir": bsz * config.exact_nn_levels, "nn_directed": 0}
+    batch = make_batch_transfer(config, mode="vmap")
+    torch.cuda.reset_peak_memory_stats()
+    times, outs = [], []
+    for run in range(3):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        outs.append(batch(model, cnt_b, stl_b, seeds, 2.0))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = (dict(cuda_nn.LAUNCHES), dict(cuda_nn.LAUNCH_ITEMS))
+        log(f"[vmap] bucket run {run} ({'cold' if run == 0 else 'warm'}): "
+            f"{times[-1]:.3f} s, kernel launches {counts[0]}, items "
+            f"{counts[1]}")
+        if counts != (want, want_items):
+            raise AssertionError(f"vmap bucket launches {counts}, expected "
+                                 f"{(want, want_items)}")
+        if run and not torch.equal(outs[run], outs[0]):
+            raise AssertionError(f"vmap run {run} differs from run 0")
+    out, traces = pipeline.transfer_batch(
+        model, cnt_b, stl_b, 2.0, config, seeds=seeds,
+        return_intermediates="stats")
+    if not torch.equal(out, outs[0]):
+        raise AssertionError("the traced vmap run differs from run 0")
+    _stage_split(torch, "vmap", model, config, cnt_b, stl_b,
+                 run=lambda: batch(model, cnt_b, stl_b, seeds, 2.0))
+    broken = []
+    for i in range(bsz):
+        got = outs[0][i].cpu().numpy().astype(int)
+        ref = scan["outs"][i].cpu().numpy().astype(int)
+        diff = np.abs(got - ref)
+        within = float((diff <= BATCH_LSB).mean())
+        its = [(t["nl_iters"], t["wls_iters"]) for t in traces[i]]
+        ref_its = [(int(t["nl_iters"]), int(t["wls_iters"]))
+                   for t in scan["traces"][i]]
+        log(f"[vmap] item {i} (seed {seeds[i]}) against its scan item: "
+            f"bitwise equal at {float((diff == 0).mean()):.4f} of values, "
+            f"<= {BATCH_LSB} LSB at {within:.4f}, mean |diff| "
+            f"{diff.mean():.4f}, max {diff.max()}; (nl, wls) iterations per "
+            f"level {its}, scan {ref_its}")
+        if (within < BATCH_WITHIN_MIN or diff.mean() > BATCH_MEAN_MAX
+                or its != ref_its):
+            broken.append(i)
+    if broken:
+        raise AssertionError(f"vmap items {broken} break the batch contract")
+    mp = bsz * CONTENT_HW[0] * CONTENT_HW[1] / 1e6
+    warm = statistics.median(times[1:])
+    log(f"[vmap] bucket of {bsz} pairs {CONTENT_HW[0]}x{CONTENT_HW[1]} / "
+        f"{STYLE_HW[0]}x{STYLE_HW[1]}: cold {times[0]:.3f} s "
+        f"({times[0] / bsz:.3f} s per pair), warm "
+        f"{[round(t, 3) for t in times[1:]]} s ({warm / bsz:.3f} s per "
+        f"pair, {mp / warm:.4f} MP/s); scan batch of phase 8b warm "
+        f"{scan['warm_s']:.3f} s ({scan['warm_s'] / bsz:.3f} s per pair, "
+        f"{mp / scan['warm_s']:.4f} MP/s); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return {"launches": want["nn_bidir"], "items": want_items["nn_bidir"]}
+
+
+def check_batch_profiler(torch) -> None:
+    """Phase 9c: the per-stage batch profiler at its real shapes."""
+    from nct_tpu_torch.tools import profile_batch_stages
+
+    stages = profile_batch_stages.run("cuda", batch=NN_BATCH, reps=3)
+    log(json.dumps({"profile_batch_stages": stages}))
+    bad = [k for k, v in stages.items()
+           if not (v["b1_ms"] > 0.0 and v["bB_ms"] > 0.0)]
+    if bad:
+        raise AssertionError(f"batch profiler: stages {bad} not timed")
 
 
 def main() -> int:
@@ -772,8 +978,14 @@ def main() -> int:
     phase_done("phase 6 (profiler)")
     check_variants(torch)
     phase_done("phase 7 (solver variants)")
-    check_serving(torch, slice_info)
+    scan = check_serving(torch, slice_info)
     phase_done("phase 8 (serving)")
+    check_batched_kernels(torch, bidir, directed)
+    bucket = check_vmap_bucket(torch, scan)
+    bidir["vmap_bucket_launches"] = bucket["launches"]
+    bidir["vmap_bucket_items"] = bucket["items"]
+    check_batch_profiler(torch)
+    phase_done("phase 9 (vmap batch)")
     log(json.dumps({"kernels": [bidir, directed]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

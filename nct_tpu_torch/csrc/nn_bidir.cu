@@ -61,6 +61,13 @@
 //      16 rows, a [8 warps][128] table in shared memory, and one atomicMin
 //      per column per tile.  The [Na, Nb] tile never touches shared memory.
 //
+//   5. Batch.  A bucket of pairs that share a geometry runs as one launch:
+//      grid z is the item, and each z slice reads its own Fa, Ma, Fb and Mb
+//      and writes its own row and column keys at a fixed stride (every item
+//      pads to the same na_pad and nb_pad).  Indices stay item-local, so an
+//      item's keys are those of its own launch.  This is the batch grid
+//      axis that jax.vmap prepends to the Pallas grid.
+//
 // Division is IEEE (-dots / fmaxf(cnt, 1)); do not build with fast math, and
 // do not swap it for a reciprocal (x * (1/3) is not x / 3 bitwise).  Left for
 // later work: TMA copies with tensor maps, warp-specialised producer and
@@ -242,6 +249,19 @@ nn_kernel(const __nv_bfloat16* __restrict__ fa, const int* __restrict__ ma,
   unsigned long long* col_table = reinterpret_cast<unsigned long long*>(
       smem_raw + pad + RING_BYTES + MASK_RING_BYTES);  // [8 warps][TB]
 
+  // this z slice's item of the batch: its tables and keys at fixed strides
+  {
+    const size_t item = blockIdx.z;
+    const size_t na_pad = static_cast<size_t>(gridDim.y) * TA;
+    const size_t nb_pad = static_cast<size_t>(nb_tiles) * TB;
+    fa += item * na_pad * kc;
+    ma += item * na_pad;
+    fb += item * nb_pad * kc;
+    mb += item * nb_pad;
+    row_keys += item * na_pad;
+    if constexpr (kColumns) col_keys += item * nb_pad;
+  }
+
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int a0 = blockIdx.y * TA;
@@ -388,17 +408,19 @@ cudaError_t occupancy(int* blocks_per_sm, int* smem) {
 template <bool kColumns>
 cudaError_t launch(const void* fa, const void* ma, const void* fb,
                    const void* mb, int na_pad, int nb_pad, int kc,
-                   int tiles_per_split, void* row_keys, void* col_keys,
-                   void* stream) {
+                   int tiles_per_split, int batch, void* row_keys,
+                   void* col_keys, void* stream) {
   if (na_pad <= 0 || nb_pad <= 0 || na_pad % TA || nb_pad % TB || kc <= 0 ||
-      kc % TK || tiles_per_split <= 0 || na_pad / TA > 65535)
+      kc % TK || tiles_per_split <= 0 || na_pad / TA > 65535 || batch <= 0 ||
+      batch > 65535)
     return cudaErrorInvalidValue;
   cudaError_t err = prepare<kColumns>();
   if (err != cudaSuccess) return err;
   // B split fastest: the blocks resident at once cover a few A tiles times
   // all splits, whose operands fit the 50 MB L2 together
   const int nb_tiles = nb_pad / TB;
-  dim3 grid((nb_tiles + tiles_per_split - 1) / tiles_per_split, na_pad / TA);
+  dim3 grid((nb_tiles + tiles_per_split - 1) / tiles_per_split, na_pad / TA,
+            batch);
   nn_kernel<kColumns><<<grid, NTHREADS, smem_bytes<kColumns>(),
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(fa), static_cast<const int*>(ma),
@@ -416,25 +438,28 @@ extern "C" {
 int nn_bidir_tile_rows() { return TA; }
 int nn_bidir_tile_depth() { return TK; }
 
-// fa/fb: bf16 [na_pad, kc] / [nb_pad, kc]; ma/mb: int32 9-bit validity masks;
-// row_keys [na_pad] / col_keys [nb_pad]: uint64, initialised by the caller to
-// the key of (+inf, 0).  Launches on `stream` and returns cudaGetLastError().
+// fa/fb: bf16 [batch, na_pad, kc] / [batch, nb_pad, kc]; ma/mb: int32 9-bit
+// validity masks [batch, na_pad] / [batch, nb_pad]; row_keys [batch, na_pad] /
+// col_keys [batch, nb_pad]: uint64, initialised by the caller to the key of
+// (+inf, 0).  batch = 1 is one pair.  Launches on `stream` and returns
+// cudaGetLastError().
 int nn_bidir_launch(const void* fa, const void* ma, const void* fb,
                     const void* mb, int na_pad, int nb_pad, int kc,
-                    int tiles_per_split, void* row_keys, void* col_keys,
-                    void* stream) {
+                    int tiles_per_split, int batch, void* row_keys,
+                    void* col_keys, void* stream) {
   return static_cast<int>(launch<true>(fa, ma, fb, mb, na_pad, nb_pad, kc,
-                                       tiles_per_split, row_keys, col_keys,
-                                       stream));
+                                       tiles_per_split, batch, row_keys,
+                                       col_keys, stream));
 }
 
 // The directed search: as nn_bidir_launch without the column keys.
 int nn_directed_launch(const void* fa, const void* ma, const void* fb,
                        const void* mb, int na_pad, int nb_pad, int kc,
-                       int tiles_per_split, void* row_keys, void* stream) {
+                       int tiles_per_split, int batch, void* row_keys,
+                       void* stream) {
   return static_cast<int>(launch<false>(fa, ma, fb, mb, na_pad, nb_pad, kc,
-                                        tiles_per_split, row_keys, nullptr,
-                                        stream));
+                                        tiles_per_split, batch, row_keys,
+                                        nullptr, stream));
 }
 
 // Resident blocks per SM and dynamic shared memory of one instance

@@ -96,7 +96,16 @@ class VGG19(nn.Module):
                 taps: tuple[str, ...] = PIPELINE_TAPS,
                 compute_dtype: torch.dtype = torch.float32
                 ) -> dict[str, torch.Tensor]:
-        """uint8 BGR [H, W, 3] -> {tap: [H', W', C] float32}."""
+        """uint8 BGR [H, W, 3] -> {tap: [H', W', C] float32}.
+
+        A batch [B, H, W, 3] gives [B, H', W', C] taps, each item's
+        convolutions run on their own: a batched convolution sums in
+        another order, every later stage of a pair reads these taps, and
+        so each item keeps its own pair's bits.  The body is
+        compute-bound; the batch would save little there."""
+        if bgr_u8.dim() == 4:
+            items = [self(x, taps, compute_dtype) for x in bgr_u8]
+            return {k: torch.stack([t[k] for t in items]) for k in items[0]}
         bf16 = compute_dtype == torch.bfloat16
 
         def rnd(t):

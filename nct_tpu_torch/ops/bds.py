@@ -38,10 +38,14 @@ def bds_vote(
 
     payload_b: [Hb, Wb, P] values on B's grid; ann [Ha, Wa, 2] (a->b);
     bnn [Hb, Wb, 2] (b->a).  Returns (voted [Ha, Wa, P] f32, total weight
-    [Ha, Wa] f32).
+    [Ha, Wa] f32).  Batched (a leading axis B on all three): the gather
+    and the scatter run once over the bucket through per-item offsets
+    into one table, the scatter still sorted, so each item's sums add in
+    the order of its own vote.
     """
-    hb, wb, p = payload_b.shape
-    ha, wa = ann.shape[0], ann.shape[1]
+    hb, wb, p = payload_b.shape[-3:]
+    ha, wa = ann.shape[-3], ann.shape[-2]
+    lead = tuple(payload_b.shape[:-3])
     dev = payload_b.device
     offsets = patch_offsets(patch_size)
     k = len(offsets)
@@ -55,24 +59,29 @@ def bds_vote(
     bxs, bys = _coord_grids(hb, wb, dev)
     annx, anny = ann[..., 0].long(), ann[..., 1].long()
     bnnx, bnny = bnn[..., 0].long(), bnn[..., 1].long()
+    if lead:
+        boff = torch.arange(lead[0], device=dev)[:, None, None]
 
     # --- direction A: pixel p collects payload_b[ann[p+o] - o] for every o
     cat_a = torch.cat(
-        [torch.roll(payload, shifts=(dy, dx), dims=(0, 1))
+        [torch.roll(payload, shifts=(dy, dx), dims=(-3, -2))
          for dx, dy in offsets], dim=-1,
-    ).reshape(hb * wb, k * p)
-    g_cat = cat_a[anny * wb + annx]                        # [Ha, Wa, K*P]
+    ).reshape(-1, k * p)
+    flat_a = anny * wb + annx
+    if lead:
+        flat_a = flat_a + boff * (hb * wb)
+    g_cat = cat_a[flat_a]                                  # [Ha, Wa, K*P]
 
-    acc = torch.zeros((ha, wa, p), dtype=torch.float32, device=dev)
-    wacc = torch.zeros((ha, wa), dtype=torch.float32, device=dev)
+    acc = torch.zeros(lead + (ha, wa, p), dtype=torch.float32, device=dev)
+    wacc = torch.zeros(lead + (ha, wa), dtype=torch.float32, device=dev)
     for j, (dx, dy) in enumerate(offsets):
         m_b = ((annx - dx >= 0) & (annx - dx < wb)
                & (anny - dy >= 0) & (anny - dy < hb))
         valid_a = ((axs + dx >= 0) & (axs + dx < wa)
                    & (ays + dy >= 0) & (ays + dy < ha))
-        valid = valid_a & torch.roll(m_b, shifts=(-dy, -dx), dims=(0, 1))
+        valid = valid_a & torch.roll(m_b, shifts=(-dy, -dx), dims=(-2, -1))
         g = torch.roll(g_cat[..., j * p:(j + 1) * p], shifts=(-dy, -dx),
-                       dims=(0, 1))
+                       dims=(-3, -2))
         vw = valid.float() * wa_w
         acc = acc + g * vw[..., None]
         wacc = wacc + vw
@@ -80,7 +89,7 @@ def bds_vote(
     # --- direction B: pixel b pushes payload_b[b+o] onto a-target bnn[b]+o
     vals = []
     for dx, dy in offsets:
-        src = torch.roll(payload, shifts=(-dy, -dx), dims=(0, 1))
+        src = torch.roll(payload, shifts=(-dy, -dx), dims=(-3, -2))
         valid_b = ((bxs + dx >= 0) & (bxs + dx < wb)
                    & (bys + dy >= 0) & (bys + dy < hb))
         tx = bnnx + dx
@@ -88,15 +97,20 @@ def bds_vote(
         valid = valid_b & (tx >= 0) & (tx < wa) & (ty >= 0) & (ty < ha)
         vw = valid.float() * wb_w                           # [Hb, Wb]
         vals.append(torch.cat([src * vw[..., None], vw[..., None]], dim=-1))
-    val_cat = torch.cat(vals, dim=-1).reshape(hb * wb, k * (p + 1))
+    val_cat = torch.cat(vals, dim=-1).reshape(-1, k * (p + 1))
 
-    bnn_flat = (bnny * wa + bnnx).reshape(-1)
+    bnn_flat = bnny * wa + bnnx
+    if lead:
+        bnn_flat = bnn_flat + boff * (ha * wa)
+    bnn_flat = bnn_flat.reshape(-1)
     order = torch.argsort(bnn_flat, stable=True)
-    tab = torch.zeros((ha * wa, k * (p + 1)), dtype=torch.float32, device=dev)
+    n_items = lead[0] if lead else 1
+    tab = torch.zeros((n_items * ha * wa, k * (p + 1)), dtype=torch.float32,
+                      device=dev)
     tab.index_put_((bnn_flat[order],), val_cat[order], accumulate=True)
-    tab = tab.reshape(ha, wa, k, p + 1)
+    tab = tab.reshape(lead + (ha, wa, k, p + 1))
     for j, (dx, dy) in enumerate(offsets):
-        blk = torch.roll(tab[..., j, :], shifts=(dy, dx), dims=(0, 1))
+        blk = torch.roll(tab[..., j, :], shifts=(dy, dx), dims=(-3, -2))
         acc = acc + blk[..., :p]
         wacc = wacc + blk[..., p]
 
@@ -113,8 +127,9 @@ def bds_reconstruct_color(
     w_complete: float = 2.0,
     patch_size: int = 3,
 ) -> torch.Tensor:
-    """Guidance image on A's grid from B's colours: uint8 [Ha, Wa, 3],
-    floored (the reference truncates the weighted mean into uchar)."""
+    """Guidance image on A's grid from B's colours: uint8 [Ha, Wa, 3] (or
+    a batch), floored (the reference truncates the weighted mean into
+    uchar)."""
     voted, _ = bds_vote(b_img_u8.float(), ann, bnn, w_cohere, w_complete,
                         patch_size)
     return torch.clamp(torch.floor(voted), 0, 255).to(torch.uint8)

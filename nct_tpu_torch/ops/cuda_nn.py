@@ -11,7 +11,10 @@ fallback: on a CUDA tensor a failed build or launch raises.
 The kernel returns, per row (and per column), a 64-bit key
 ``ordered_bits(d) << 32 | index`` reduced with atomicMin (see the source
 note in ``nn_bidir.cu``); ``decode_keys`` turns keys back into
-(distance, index).  ``LAUNCHES`` counts kernel launches per instance.
+(distance, index).  A batch ([B, H, W, C] operands, items of one geometry)
+is one launch over a batch grid axis, each item's indices its own.
+``LAUNCHES`` counts kernel launches per instance, ``LAUNCH_ITEMS`` the
+items (pairs) they searched.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from nct_tpu_torch.ops.exact_nn import (
 )
 
 LAUNCHES = {"nn_bidir": 0, "nn_directed": 0}
+LAUNCH_ITEMS = {"nn_bidir": 0, "nn_directed": 0}
 
 TILE = 128   # rows of A per block and columns of B per tile (nn_bidir.cu TA/TB)
 DEPTH = 64   # K*C is zero-padded to a multiple of the stage depth (TK)
@@ -39,9 +43,9 @@ _BLOCKS_PER_SM = 64
 def _lib() -> ctypes.CDLL:
     lib = _build.load("nn_bidir")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.nn_bidir_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p]
+    lib.nn_bidir_launch.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p]
     lib.nn_bidir_launch.restype = i
-    lib.nn_directed_launch.argtypes = [p, p, p, p, i, i, i, i, p, p]
+    lib.nn_directed_launch.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
     lib.nn_directed_launch.restype = i
     lib.nn_kernel_occupancy.argtypes = [i, p, p]
     lib.nn_kernel_occupancy.restype = i
@@ -91,26 +95,30 @@ def mask_bits(m: torch.Tensor) -> torch.Tensor:
 
 
 def _check_tables(fa, ma, fb, mb) -> None:
-    """Raise on operands the kernel does not take."""
+    """Raise on operands the kernel does not take: 2-D tables and 1-D masks
+    (one pair), or all four with one leading batch axis of equal size."""
+    lead = fa.dim() - 2
     for name, t in (("fa", fa), ("fb", fb)):
-        if t.dtype != torch.bfloat16 or t.dim() != 2:
-            raise ValueError(f"{name}: expected a 2-D bfloat16 table, got "
-                             f"{t.dtype} {tuple(t.shape)}")
+        if t.dtype != torch.bfloat16 or t.dim() != lead + 2 or lead > 1:
+            raise ValueError(f"{name}: expected a bfloat16 table [N, KC] or "
+                             f"[B, N, KC], got {t.dtype} {tuple(t.shape)}")
     for name, t in (("ma", ma), ("mb", mb)):
-        if t.dtype != torch.int32 or t.dim() != 1:
-            raise ValueError(f"{name}: expected 1-D int32 bit masks, got "
-                             f"{t.dtype} {tuple(t.shape)}")
+        if t.dtype != torch.int32 or t.dim() != lead + 1:
+            raise ValueError(f"{name}: expected int32 bit masks [N] or [B, "
+                             f"N], got {t.dtype} {tuple(t.shape)}")
+    if lead and not fa.shape[0] == ma.shape[0] == fb.shape[0] == mb.shape[0]:
+        raise ValueError("the batch sizes of the tables and masks differ")
     for name, t in (("fa", fa), ("ma", ma), ("fb", fb), ("mb", mb)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned "
                              f"(the kernel copies 16-byte chunks)")
-    kc = fa.shape[1]
-    if fb.shape[1] != kc or kc % DEPTH:
+    kc = fa.shape[-1]
+    if fb.shape[-1] != kc or kc % DEPTH:
         raise ValueError(f"K*C must agree and be a multiple of {DEPTH}: "
-                         f"{kc}, {fb.shape[1]}")
-    na_pad, nb_pad = fa.shape[0], fb.shape[0]
-    if (na_pad % TILE or nb_pad % TILE or ma.shape[0] != na_pad
-            or mb.shape[0] != nb_pad):
+                         f"{kc}, {fb.shape[-1]}")
+    na_pad, nb_pad = fa.shape[-2], fb.shape[-2]
+    if (na_pad % TILE or nb_pad % TILE or ma.shape[-1] != na_pad
+            or mb.shape[-1] != nb_pad):
         raise ValueError(f"rows must be padded to a multiple of {TILE}")
     dev = fa.device
     if dev.type != "cuda" or any(t.device != dev for t in (ma, fb, mb)):
@@ -118,22 +126,26 @@ def _check_tables(fa, ma, fb, mb) -> None:
 
 
 def _launch(kind: str, fa, ma, fb, mb):
-    """Launch one instance on checked tables; returns its key tensors."""
+    """Launch one instance on checked tables (one pair, or a batch over the
+    grid's z axis); returns its key tensors, [B, ...] for a batch."""
     lib = _lib()
     dev = fa.device
-    na_pad, nb_pad, kc = fa.shape[0], fb.shape[0], fa.shape[1]
+    lead = tuple(fa.shape[:-2])
+    batch = lead[0] if lead else 1
+    na_pad, nb_pad, kc = fa.shape[-2], fb.shape[-2], fa.shape[-1]
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     ni, nb_tiles = na_pad // TILE, nb_pad // TILE
-    n_split = min(nb_tiles, -(-_BLOCKS_PER_SM * n_sm // ni))
+    # the batch's blocks count towards the ~64 per SM
+    n_split = min(nb_tiles, -(-_BLOCKS_PER_SM * n_sm // (ni * batch)))
     tiles_per_split = -(-nb_tiles // n_split)
     inf_key = encode_keys(torch.tensor([float("inf")], device=dev),
                           torch.zeros(1, dtype=torch.int64, device=dev))
-    row_keys = inf_key.expand(na_pad).contiguous()
+    row_keys = inf_key.expand(lead + (na_pad,)).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (fa.data_ptr(), ma.data_ptr(), fb.data_ptr(), mb.data_ptr(),
-            na_pad, nb_pad, kc, tiles_per_split, row_keys.data_ptr())
+            na_pad, nb_pad, kc, tiles_per_split, batch, row_keys.data_ptr())
     if kind == "nn_bidir":
-        col_keys = inf_key.expand(nb_pad).contiguous()
+        col_keys = inf_key.expand(lead + (nb_pad,)).contiguous()
         err = lib.nn_bidir_launch(*args, col_keys.data_ptr(), stream)
         keys = (row_keys, col_keys)
     else:
@@ -143,6 +155,7 @@ def _launch(kind: str, fa, ma, fb, mb):
         raise RuntimeError(f"{kind} kernel launch failed: "
                            + lib.nn_bidir_error_string(err).decode())
     LAUNCHES[kind] += 1
+    LAUNCH_ITEMS[kind] += batch
     return keys
 
 
@@ -153,6 +166,8 @@ def nn_bidir_tables(fa: torch.Tensor, ma: torch.Tensor, fb: torch.Tensor,
     fa/fb: bf16 [Na_pad, KC] / [Nb_pad, KC], rows a multiple of TILE, KC a
     multiple of DEPTH; ma/mb: int32 [Na_pad] / [Nb_pad] bit masks (0 on
     padded rows).  Returns (d_ab, i_ab, d_ba, i_ba) over the padded rows.
+    With a leading batch axis on all four, one launch searches every item
+    and returns [B, ...] results.
     """
     _check_tables(fa, ma, fb, mb)
     row_keys, col_keys = _launch("nn_bidir", fa, ma, fb, mb)
@@ -172,11 +187,14 @@ def padded_tables(x_norm: torch.Tensor, patch_size: int):
     """[H, W, C] -> the kernel's operands: bf16 patch rows and int32 bit
     masks, zero-padded to a multiple of TILE rows, the rows zero-padded to
     a multiple of DEPTH columns.  Zero columns add exact zeros to every dot
-    product and the masks are separate, so the result does not change."""
+    product and the masks are separate, so the result does not change.  A
+    batch [B, H, W, C] gives [B, N_pad, KC] tables and [B, N_pad] masks."""
     f, m = prep_tables(x_norm, patch_size)
-    pad = (-f.shape[0]) % TILE
-    f = torch.nn.functional.pad(f, (0, (-f.shape[1]) % DEPTH, 0, pad))
+    pad = (-f.shape[-2]) % TILE
+    f = torch.nn.functional.pad(f, (0, (-f.shape[-1]) % DEPTH, 0, pad))
     bits = torch.nn.functional.pad(mask_bits(m), (0, pad))
+    if f.dim() == 3:
+        bits = bits.expand(f.shape[0], -1)
     return f.contiguous(), bits.contiguous()
 
 
@@ -186,20 +204,23 @@ def exact_nn_bidir(a_norm: torch.Tensor, b_norm: torch.Tensor,
 
     Returns (nnf_ab [Ha,Wa,2] int32, annd_ab [Ha,Wa] f32, nnf_ba [Hb,Wb,2]
     int32, annd_ba [Hb,Wb] f32), first match on ties.  CUDA tensors go
-    through the kernel; CPU tensors through the plain version.
+    through the kernel; CPU tensors through the plain version.  A batch
+    [B, Ha, Wa, C] / [B, Hb, Wb, C] is one launch, with [B, ...] results.
     """
     if a_norm.device != b_norm.device:
         raise ValueError("a_norm and b_norm must be on one device")
     if a_norm.device.type == "cpu":
         return exact_nn_bidir_plain(a_norm, b_norm, patch_size)
-    ha, wa, _ = a_norm.shape
-    hb, wb, _ = b_norm.shape
+    (ha, wa), (hb, wb) = a_norm.shape[-3:-1], b_norm.shape[-3:-1]
+    lead = tuple(a_norm.shape[:-3])
     na, nb = ha * wa, hb * wb
     fa, ma = padded_tables(a_norm, patch_size)
     fb, mb = padded_tables(b_norm, patch_size)
     d_ab, i_ab, d_ba, i_ba = nn_bidir_tables(fa, ma, fb, mb)
-    return (unpack_nnf(i_ab[:na], nb, ha, wa, wb), d_ab[:na].reshape(ha, wa),
-            unpack_nnf(i_ba[:nb], na, hb, wb, wa), d_ba[:nb].reshape(hb, wb))
+    return (unpack_nnf(i_ab[..., :na], nb, ha, wa, wb),
+            d_ab[..., :na].reshape(lead + (ha, wa)),
+            unpack_nnf(i_ba[..., :nb], na, hb, wb, wa),
+            d_ba[..., :nb].reshape(lead + (hb, wb)))
 
 
 def exact_nn(a_norm: torch.Tensor, b_norm: torch.Tensor, patch_size: int = 3):
@@ -207,16 +228,17 @@ def exact_nn(a_norm: torch.Tensor, b_norm: torch.Tensor, patch_size: int = 3):
 
     Returns (nnf [Ha,Wa,2] int32, annd [Ha,Wa] f32), first match on ties.
     CUDA tensors go through the directed kernel; CPU tensors through the
-    plain version.
+    plain version.  A batch [B, ...] is one launch, with [B, ...] results.
     """
     if a_norm.device != b_norm.device:
         raise ValueError("a_norm and b_norm must be on one device")
     if a_norm.device.type == "cpu":
         return exact_nn_plain(a_norm, b_norm, patch_size)
-    ha, wa, _ = a_norm.shape
-    hb, wb, _ = b_norm.shape
+    (ha, wa), (hb, wb) = a_norm.shape[-3:-1], b_norm.shape[-3:-1]
+    lead = tuple(a_norm.shape[:-3])
     na = ha * wa
     fa, ma = padded_tables(a_norm, patch_size)
     fb, mb = padded_tables(b_norm, patch_size)
     d_ab, i_ab = nn_directed_tables(fa, ma, fb, mb)
-    return unpack_nnf(i_ab[:na], hb * wb, ha, wa, wb), d_ab[:na].reshape(ha, wa)
+    return (unpack_nnf(i_ab[..., :na], hb * wb, ha, wa, wb),
+            d_ab[..., :na].reshape(lead + (ha, wa)))

@@ -8,7 +8,9 @@ The masked cosine patch distance between patch p of A and q of B is
 over patchified features rounded to bfloat16 (``prep_tables``).  One sweep
 over A chunks x B tiles folds the row argmin (a -> b) and, for the
 bidirectional search, the column argmin (b -> a), first match on ties, so
-the [Na, Nb] matrix is never stored.  The directed search is the same sweep
+the [Na, Nb] matrix is never stored.  A batch (a leading axis on both
+operands) runs item by item: this is the oracle of the kernel's batched
+launch, which must give each item's own result.  The directed search is the same sweep
 without the column fold (``nn_tables_plain``, ``exact_nn_plain``: the
 counterparts of ``nct_tpu/ops/exact_nn.py::exact_nn`` and of the Pallas
 ``exact_nn_pallas``).  This is the CPU path and the card-side oracle of the
@@ -30,20 +32,22 @@ from nct_tpu_torch.ops.patchmatch import patchify
 
 
 def prep_tables(x_norm: torch.Tensor, patch_size: int):
-    """[H, W, C] -> (F [N, K*C] bf16 patch rows, M [N, K] 0/1 validity)."""
-    h, w, _ = x_norm.shape
+    """[..., H, W, C] -> (F [..., N, K*C] bf16 patch rows, M [N, K] 0/1
+    validity, the same for every item of a batch)."""
+    h, w = x_norm.shape[-3], x_norm.shape[-2]
     p, pm = patchify(x_norm.float(), patch_size)
-    k, c = p.shape[2], p.shape[3]
-    return (p.reshape(h * w, k * c).to(torch.bfloat16),
+    k, c = p.shape[-2], p.shape[-1]
+    return (p.reshape(p.shape[:-4] + (h * w, k * c)).to(torch.bfloat16),
             pm.reshape(h * w, k))
 
 
 def unpack_nnf(best_i: torch.Tensor, n_other: int, h: int, w: int,
                w_other: int) -> torch.Tensor:
-    """Flat target indices [h*w] -> NNF [h, w, 2] int32 (x, y)."""
+    """Flat target indices [..., h*w] -> NNF [..., h, w, 2] int32 (x, y)."""
     best_i = torch.clamp(best_i.long(), max=n_other - 1)
     return torch.stack([best_i % w_other, best_i // w_other],
-                       dim=-1).to(torch.int32).reshape(h, w, 2)
+                       dim=-1).to(torch.int32).reshape(
+                           best_i.shape[:-1] + (h, w, 2))
 
 
 def _first_min(d: torch.Tensor, dim: int):
@@ -89,16 +93,29 @@ def _sweep(fa, ma, fb, mb, a_chunk: int, b_tile: int, columns: bool):
     return d_ab, i_ab, d_ba, i_ba
 
 
+def _per_item(fn, *args):
+    """fn over the items of a batch (a leading axis on every argument),
+    its outputs stacked."""
+    return tuple(torch.stack(t) for t in zip(*(fn(*a) for a in zip(*args))))
+
+
 def nn_bidir_tables_plain(fa, ma, fb, mb, a_chunk: int = 4096,
                           b_tile: int = 4096):
     """Row and column (min, first argmin) of the masked distance between
-    patch tables.  Returns (d_ab [Na], i_ab [Na], d_ba [Nb], i_ba [Nb])."""
+    patch tables.  Returns (d_ab [Na], i_ab [Na], d_ba [Nb], i_ba [Nb]);
+    batched tables ([B, Na, KC], masks [B, Na, K]) give [B, ...]."""
+    if fa.dim() == 3:
+        return _per_item(lambda *t: nn_bidir_tables_plain(*t, a_chunk, b_tile),
+                         fa, ma, fb, mb)
     return _sweep(fa, ma, fb, mb, a_chunk, b_tile, columns=True)
 
 
 def nn_tables_plain(fa, ma, fb, mb, a_chunk: int = 4096, b_tile: int = 4096):
     """Row (min, first argmin) only: the directed a -> b search.  Returns
-    (d_ab [Na], i_ab [Na])."""
+    (d_ab [Na], i_ab [Na]), or [B, Na] for batched tables."""
+    if fa.dim() == 3:
+        return _per_item(lambda *t: nn_tables_plain(*t, a_chunk, b_tile),
+                         fa, ma, fb, mb)
     return _sweep(fa, ma, fb, mb, a_chunk, b_tile, columns=False)[:2]
 
 
@@ -106,7 +123,11 @@ def exact_nn_bidir_plain(a_norm: torch.Tensor, b_norm: torch.Tensor,
                          patch_size: int = 3):
     """Exhaustive NN in both directions.  a_norm [Ha,Wa,C], b_norm
     [Hb,Wb,C] L2-normalized.  Returns (nnf_ab [Ha,Wa,2] int32, annd_ab
-    [Ha,Wa] f32, nnf_ba [Hb,Wb,2] int32, annd_ba [Hb,Wb] f32)."""
+    [Ha,Wa] f32, nnf_ba [Hb,Wb,2] int32, annd_ba [Hb,Wb] f32); a batch
+    [B, ...] of both gives [B, ...] results."""
+    if a_norm.dim() == 4:
+        return _per_item(lambda a, b: exact_nn_bidir_plain(a, b, patch_size),
+                         a_norm, b_norm)
     ha, wa, _ = a_norm.shape
     hb, wb, _ = b_norm.shape
     fa, ma = prep_tables(a_norm, patch_size)
@@ -119,7 +140,11 @@ def exact_nn_bidir_plain(a_norm: torch.Tensor, b_norm: torch.Tensor,
 def exact_nn_plain(a_norm: torch.Tensor, b_norm: torch.Tensor,
                    patch_size: int = 3):
     """Exhaustive NN a -> b.  a_norm [Ha,Wa,C], b_norm [Hb,Wb,C]
-    L2-normalized.  Returns (nnf [Ha,Wa,2] int32, annd [Ha,Wa] f32)."""
+    L2-normalized.  Returns (nnf [Ha,Wa,2] int32, annd [Ha,Wa] f32); a
+    batch [B, ...] of both gives [B, ...] results."""
+    if a_norm.dim() == 4:
+        return _per_item(lambda a, b: exact_nn_plain(a, b, patch_size),
+                         a_norm, b_norm)
     ha, wa, _ = a_norm.shape
     hb, wb, _ = b_norm.shape
     fa, ma = prep_tables(a_norm, patch_size)

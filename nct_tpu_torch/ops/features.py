@@ -1,5 +1,6 @@
 """Feature normalization for correspondence search (port of
-``nct_tpu/ops/features.py``).  Features are [H, W, C]."""
+``nct_tpu/ops/features.py``).  Features are [H, W, C], or [B, H, W, C]
+for a batch."""
 
 from __future__ import annotations
 
@@ -12,12 +13,13 @@ def l2_normalize(feat: torch.Tensor, eps: float = 1e-12):
     """Per-pixel channel L2 normalization.
 
     Returns (normalized [H,W,C] in feat's dtype, response [H,W]) where
-    response is the min-max normalized L2 magnitude.
+    response is the min-max normalized L2 magnitude (per item of a batch).
     """
     f32 = feat.float()
     mag = sqrt32(torch.sum(f32 * f32, dim=-1))
     normalized = (f32 / torch.clamp(mag, min=eps)[..., None]).to(feat.dtype)
-    lo, hi = torch.min(mag), torch.max(mag)
+    lo = torch.amin(mag, dim=(-2, -1), keepdim=True)
+    hi = torch.amax(mag, dim=(-2, -1), keepdim=True)
     response = (mag - lo) / torch.clamp(hi - lo, min=eps)
     return normalized, response
 

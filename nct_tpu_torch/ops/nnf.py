@@ -1,5 +1,6 @@
 """Nearest-neighbour-field init and coarse-to-fine upsampling (port of
-``nct_tpu/ops/nnf.py``).  An NNF is int32 [H, W, 2] of (x, y) targets."""
+``nct_tpu/ops/nnf.py``).  An NNF is int32 [H, W, 2] of (x, y) targets, or
+[B, H, W, 2] for a batch."""
 
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ def upsample(nnf_half: torch.Tensor, ah: int, aw: int, bh: int,
              bw: int) -> torch.Tensor:
     """Coarse-to-fine NNF upsampling preserving match offsets scaled by the
     resolution ratio."""
-    ah_half, aw_half = nnf_half.shape[0], nnf_half.shape[1]
+    ah_half, aw_half = nnf_half.shape[-3], nnf_half.shape[-2]
     aw_ratio = aw / aw_half
     ah_ratio = ah / ah_half
 
@@ -41,7 +42,7 @@ def upsample(nnf_half: torch.Tensor, ah: int, aw: int, bh: int,
     ax_half = torch.clamp(((xf + 0.5) / aw_ratio).int(), 0, aw_half - 1)
     ay_half = torch.clamp(((yf + 0.5) / ah_ratio).int(), 0, ah_half - 1)
 
-    coarse = nnf_half[ay_half.long(), ax_half.long()]     # [ah, aw, 2]
+    coarse = nnf_half[..., ay_half.long(), ax_half.long(), :]  # [ah, aw, 2]
     bx_half = coarse[..., 0].float()
     by_half = coarse[..., 1].float()
 

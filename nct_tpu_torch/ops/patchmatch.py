@@ -38,17 +38,19 @@ _JUMPS = (8, 4, 2, 1)
 
 
 def patchify(feat: torch.Tensor, patch_size: int):
-    """[H,W,C] -> ([H,W,K,C] zero-padded patch stack, [H,W,K] validity)."""
-    h, w, c = feat.shape
+    """[..., H,W,C] -> ([..., H,W,K,C] zero-padded patch stack, [H,W,K]
+    validity); leading axes are a batch."""
+    h, w = feat.shape[-3], feat.shape[-2]
     half = patch_size // 2
     padded = F.pad(feat, (0, 0, half, half, half, half))
     mask = F.pad(torch.ones((h, w), dtype=feat.dtype, device=feat.device),
                  (half, half, half, half))
     stack, mstack = [], []
     for dx, dy in patch_offsets(patch_size):
-        stack.append(padded[half + dy:half + dy + h, half + dx:half + dx + w])
+        stack.append(padded[..., half + dy:half + dy + h,
+                            half + dx:half + dx + w, :])
         mstack.append(mask[half + dy:half + dy + h, half + dx:half + dx + w])
-    return torch.stack(stack, dim=2), torch.stack(mstack, dim=2)
+    return torch.stack(stack, dim=-2), torch.stack(mstack, dim=2)
 
 
 def random_search_mags(rs_max: int, bh: int, bw: int) -> list[int]:

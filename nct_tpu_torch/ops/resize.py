@@ -27,7 +27,8 @@ def _axis_weights(dst_n: int, src_n: int, device):
 
 
 def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """Resize [H, W, C] (or [H, W]) to [out_h, out_w, C].
+    """Resize [H, W, C] (or [H, W], or a batch [B, H, W, C]) to [out_h,
+    out_w, C].
 
     Returns float32 unless the input was uint8 (then rounds back to uint8
     like OpenCV's saturate_cast).
@@ -35,15 +36,17 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     squeeze = img.dim() == 2
     if squeeze:
         img = img[..., None]
-    src_h, src_w = img.shape[0], img.shape[1]
+    src_h, src_w = img.shape[-3], img.shape[-2]
     x = img.float()
 
     if src_h != out_h:
         lo, hi, f = _axis_weights(out_h, src_h, img.device)
-        x = x[lo] * (1.0 - f)[:, None, None] + x[hi] * f[:, None, None]
+        x = (x[..., lo, :, :] * (1.0 - f)[:, None, None]
+             + x[..., hi, :, :] * f[:, None, None])
     if src_w != out_w:
         lo, hi, f = _axis_weights(out_w, src_w, img.device)
-        x = x[:, lo] * (1.0 - f)[None, :, None] + x[:, hi] * f[None, :, None]
+        x = (x[..., lo, :] * (1.0 - f)[None, :, None]
+             + x[..., hi, :] * f[None, :, None])
 
     if img.dtype == torch.uint8:
         x = torch.clamp(torch.round(x), 0, 255).to(torch.uint8)

@@ -13,8 +13,11 @@
 The arithmetic follows the JAX package as written: stage 1 multiplies bf16
 by bf16 IN bf16 and sums the products in f32, while the stage-3 rescore
 takes f32 products of the bf16 values (``preferred_element_type``).
-The JAX package's batch fold and its box-sum lowering switch are TPU
-lowerings of the same box sum and are not ported.
+A batch (a leading axis on every operand) folds into the rows of the strip
+and patch tables, as the JAX package's ``_window_refine_folded`` does:
+each item's gathers read its own rows through a per-item offset.  The
+JAX package's box-sum lowering switch is a TPU lowering of the same box
+sum and is not ported.
 """
 
 from __future__ import annotations
@@ -64,14 +67,22 @@ def window_refine(
 ):
     """Refine nnf0 (a->b) within a +-radius window.
 
-    a_norm [Ha,Wa,C], b_norm [Hb,Wb,C]; nnf0 [Ha,Wa,2] int32 (x, y).
-    ``stage1_channels`` > 0 ranks stage 1 on the first that many channels.
-    Returns (nnf [Ha,Wa,2] int32, annd [Ha,Wa] f32 full patch metric).
+    a_norm [Ha,Wa,C], b_norm [Hb,Wb,C]; nnf0 [Ha,Wa,2] int32 (x, y), or
+    each with a leading batch axis.  ``stage1_channels`` > 0 ranks stage 1
+    on the first that many channels.  Returns (nnf [Ha,Wa,2] int32, annd
+    [Ha,Wa] f32 full patch metric).
     """
-    ha, wa, c = a_norm.shape
-    hb, wb, _ = b_norm.shape
+    ha, wa, c = a_norm.shape[-3:]
+    hb, wb = b_norm.shape[-3], b_norm.shape[-2]
+    lead = tuple(a_norm.shape[:-3])
     nb = hb * wb
     dev = a_norm.device
+    if lead:
+        boff = torch.arange(lead[0], device=dev)[:, None, None] * nb
+
+    def rows(idx):
+        """Item-local B pixel ids -> rows of the (batch-folded) tables."""
+        return idx + boff if lead else idx
 
     a16 = a_norm.to(torch.bfloat16)
     b16 = b_norm.to(torch.bfloat16)
@@ -90,21 +101,23 @@ def window_refine(
     a1 = a16[..., :cs]
     b1 = b16[..., :cs]
     idx0 = by0 * wb + bx0
-    strip = torch.cat([torch.roll(b1, shifts=-dx, dims=1) for dx in dxs],
-                      dim=-1).reshape(nb, nd * cs)
+    strip = torch.cat([torch.roll(b1, shifts=-dx, dims=-2) for dx in dxs],
+                      dim=-1).reshape(-1, nd * cs)
     d_rows = []
     for dy in dxs:
-        idx = torch.clamp(idx0 + dy * wb, 0, nb - 1)
-        g = strip[idx.reshape(-1)].reshape(ha, wa, nd, cs)
-        d = -torch.sum(a1[:, :, None, :] * g, dim=-1, dtype=torch.float32)
-        d_rows.append(d.permute(2, 0, 1))                   # [nd, Ha, Wa]
+        idx = rows(torch.clamp(idx0 + dy * wb, 0, nb - 1))
+        g = strip[idx.reshape(-1)].reshape(lead + (ha, wa, nd, cs))
+        d = -torch.sum(a1[..., None, :] * g, dim=-1, dtype=torch.float32)
+        d_rows.append(d.movedim(-1, 0))                     # [nd, Ha, Wa]
     ring_idx = torch.stack(
-        [torch.clamp(idx0 + dy * wb + dx, 0, nb - 1) for dx, dy in rings])
-    gr = b1.reshape(nb, cs)[ring_idx]                       # [R, Ha, Wa, Cs]
+        [rows(torch.clamp(idx0 + dy * wb + dx, 0, nb - 1))
+         for dx, dy in rings])
+    gr = b1.reshape(-1, cs)[ring_idx]                       # [R, Ha, Wa, Cs]
     d_rows.append(-torch.sum(a1[None] * gr, dim=-1, dtype=torch.float32))
     d_center = torch.cat(d_rows, dim=0)                     # [S2, Ha, Wa]
-    sdx = shifts[:, 0][:, None, None]
-    sdy = shifts[:, 1][:, None, None]
+    grid = (1,) * bx0.dim()
+    sdx = shifts[:, 0].reshape((-1,) + grid)
+    sdy = shifts[:, 1].reshape((-1,) + grid)
     valid = ((bx0[None] + sdx >= 0) & (bx0[None] + sdx < wb)
              & (by0[None] + sdy >= 0) & (by0[None] + sdy < hb))
     inf = torch.tensor(float("inf"), device=dev)
@@ -119,7 +132,7 @@ def window_refine(
     # ---- shortlist: S best shifts per pixel (first minimum on ties)
     work = d_patch
     picks = []
-    shift_ids = torch.arange(n_shifts, device=dev)[:, None, None]
+    shift_ids = torch.arange(n_shifts, device=dev).reshape((-1,) + grid)
     for _ in range(min(shortlist, n_shifts)):
         j = torch.argmin(work, dim=0)                       # [Ha, Wa]
         picks.append(j)
@@ -128,15 +141,15 @@ def window_refine(
     # ---- stage 3: full patch metric on the shortlist (+ incumbent)
     pa, pam = patchify(a16, patch_size)
     pb, pbm = patchify(b16, patch_size)
-    k = pa.shape[2]
-    pa_f = pa.reshape(ha, wa, k * c).float()
-    pb_flat = pb.reshape(nb, k * c)
+    k = pa.shape[-2]
+    pa_f = pa.reshape(lead + (ha, wa, k * c)).float()
+    pb_flat = pb.reshape(-1, k * c)
     pam_f = pam.float()
     pbm_flat = pbm.reshape(nb, k)
 
     def full_eval(cand_x, cand_y):
         flat = torch.clamp(cand_y * wb + cand_x, 0, nb - 1)
-        g = pb_flat[flat].float()                           # [Ha, Wa, K*C]
+        g = pb_flat[rows(flat)].float()                     # [Ha, Wa, K*C]
         gm = pbm_flat[flat].float()                         # [Ha, Wa, K]
         num = -torch.sum(pa_f * g, dim=-1)
         cnt = torch.sum(pam_f * gm, dim=-1)

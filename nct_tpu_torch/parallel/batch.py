@@ -3,11 +3,18 @@
 
 The reference processes pairs.txt serially on one GPU (main.cu:471).  A
 bucket of pairs that share (H, W), (Hs, Ws) and a BDS weight
-(``parallel.bucket.group_pairs``) runs here as one call.  The scan mode is
-the JAX package's ``lax.map``: the single-pair pipeline run over the
-bucket in turn, each pair with its own seed, intermediates freed between
-pairs.  The vmapped mode (batched stages) and the mesh (the ring-scheduled
-matcher) are not ported yet.
+(``parallel.bucket.group_pairs``) runs here as one call:
+
+  * ``mode="scan"`` is the JAX package's ``lax.map``: the single-pair
+    pipeline over the bucket in turn, each pair with its own seed,
+    intermediates freed between pairs.  It runs every Config.
+  * ``mode="vmap"`` is its ``jax.vmap``: one batched pass of the pipeline
+    (``pipeline.transfer_batch``), every stage over [B, ...] tensors, so
+    the bucket pays about one pair's kernel launches and host syncs.  It
+    runs the default Config family (``pipeline.check_batch_config``).
+
+``mode="auto"`` is scan, as in the JAX package without a mesh.  A mesh (the
+ring-scheduled matcher over several cards) is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,19 +34,23 @@ def make_batch_transfer(config: Config, mesh=None, mode: str = "auto",
     bds_weight) -> [B,H,W,3] u8 on ``device`` (default ``cuda``; raises
     here without a card unless ``device="cpu"``).  Item i is
     ``pipeline.transfer_pair(model, cnt_b[i], stl_b[i], bds_weight, config,
-    seed=seeds[i])``.
+    seed=seeds[i])``: bitwise in the scan mode, up to summation order (with
+    the same solver iteration counts) in the vmap mode.
 
-    ``mode``: ``"scan"`` (and ``"auto"`` without a mesh) runs the pairs in
-    turn; ``"vmap"`` or a mesh raises NotImplementedError.
+    ``mode``: ``"scan"`` (and ``"auto"``) runs the pairs in turn; ``"vmap"``
+    runs them as one batched pass and raises NotImplementedError here for
+    the Config values it does not batch yet.  A mesh raises
+    NotImplementedError.
     """
-    if mesh is not None or mode == "vmap":
+    if mesh is not None:
         raise NotImplementedError(
-            "batch transfer with mode='vmap' or a mesh needs the batched "
-            "stages and the ring-scheduled matcher, which are not ported yet "
-            "(ROADMAP Queue 1: 'Batched stages', then 'ring_nn / mesh / "
+            "batch transfer over a mesh needs the ring-scheduled matcher, "
+            "which is not ported yet (ROADMAP Queue 1: 'ring_nn / mesh / "
             "space_mesh')")
-    if mode not in ("auto", "scan"):
+    if mode not in ("auto", "scan", "vmap"):
         raise ValueError(f"mode={mode!r}")
+    if mode == "vmap":
+        pipeline.check_batch_config(config)
     device = pipeline._resolve_device(device)
 
     def scan(model, cnt_b, stl_b, seeds, bds_weight: float) -> torch.Tensor:
@@ -53,4 +64,8 @@ def make_batch_transfer(config: Config, mesh=None, mode: str = "auto",
                                    config, seed=int(seeds[i]), device=device)
             for i in range(len(seeds))])
 
-    return scan
+    def vmap(model, cnt_b, stl_b, seeds, bds_weight: float) -> torch.Tensor:
+        return pipeline.transfer_batch(model, cnt_b, stl_b, bds_weight,
+                                       config, seeds, device=device)
+
+    return vmap if mode == "vmap" else scan

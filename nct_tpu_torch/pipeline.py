@@ -23,6 +23,13 @@ PatchMatch level's random-search uniforms and each level's cluster
 candidates); by default a ``torch.Generator`` seeded from ``seed`` supplies
 them.  ``transfer_pair`` and ``transfer_sequence`` run on ``cuda`` unless
 the caller passes ``device="cpu"``.
+
+``transfer_batch`` runs a bucket of pairs of one geometry through the same
+level loop with a leading batch axis on every tensor (the counterpart of
+``jax.vmap`` over ``transfer_pair``): each stage runs once over the bucket,
+so a bucket costs about one pair's launches.  Item i draws what
+``transfer_pair(seed=seeds[i])`` draws, in the same order, and its solves
+run their own iterations (``cg_solve_grouped``).
 """
 
 from __future__ import annotations
@@ -62,11 +69,36 @@ class GeneratorDraws:
         "ab", then "ba", at each PatchMatch level."""
         return torch.rand(shape, generator=self.generator)
 
+    def candidate_scores(self, level: int, k: int, n: int) -> torch.Tensor:
+        """Uniform scores [k, n] of one level's candidate draw."""
+        return torch.rand((k, n), generator=self.generator)
+
     def candidates(self, level: int, membership_pix: torch.Tensor,
                    m: int) -> torch.Tensor:
         k = membership_pix.shape[0]
         n = membership_pix.shape[1] * membership_pix.shape[2]
-        scores = torch.rand((k, n), generator=self.generator)
+        scores = self.candidate_scores(level, k, n)
+        return knn.sample_cluster_candidates(membership_pix, scores, m)
+
+
+class BatchDraws:
+    """The draws of a bucket: item i draws from ``GeneratorDraws(seeds[i])``
+    in the order ``transfer_pair`` draws, results stacked on a leading
+    batch axis."""
+
+    def __init__(self, seeds):
+        self.items = [GeneratorDraws(int(s)) for s in seeds]
+
+    def kmeans_init(self, n: int, num_clusters: int) -> torch.Tensor:
+        return torch.stack([d.kmeans_init(n, num_clusters)
+                            for d in self.items])
+
+    def candidates(self, level: int, membership_pix: torch.Tensor,
+                   m: int) -> torch.Tensor:
+        k = membership_pix.shape[-3]
+        n = membership_pix.shape[-2] * membership_pix.shape[-1]
+        scores = torch.stack([d.candidate_scores(level, k, n)
+                              for d in self.items])
         return knn.sample_cluster_candidates(membership_pix, scores, m)
 
 
@@ -82,6 +114,25 @@ def check_config(config: Config) -> None:
             "(ROADMAP Queue 1: ring_nn / mesh / space_mesh)")
     if config.feature_dtype not in ("bfloat16", "float32"):
         raise ValueError(f"feature_dtype={config.feature_dtype!r}")
+
+
+def check_batch_config(config: Config) -> None:
+    """Raise NotImplementedError for Config values ``transfer_batch`` does
+    not batch yet (the scan mode runs them)."""
+    excluded = [name for name, hit in (
+        ("fine_strategy='patchmatch'", config.fine_strategy == "patchmatch"),
+        ("exact_nn_levels=0", config.exact_nn_levels == 0),
+        (f"knn_memberships={config.knn_memberships}",
+         config.knn_memberships > 1),
+        ("nl_precond='block_jacobi'", config.nl_precond == "block_jacobi"),
+        ("wls_precond='jacobi'", config.wls_precond == "jacobi"),
+        ("nl_transpose='scatter'", config.nl_transpose == "scatter"),
+    ) if hit]
+    if excluded:
+        raise NotImplementedError(
+            f"the batched (vmap) pipeline does not run {', '.join(excluded)} "
+            f"yet; use mode='scan' (ROADMAP Queue 1: 'vmap for the "
+            f"remaining Configs')")
 
 
 def _resolve_device(device) -> torch.device:
@@ -101,7 +152,7 @@ def image_pyramid(img_u8: torch.Tensor,
     n = len(dims)
     out: list = [None] * n
     h, w = dims[n - 1]
-    out[n - 1] = (img_u8 if tuple(img_u8.shape[:2]) == (h, w)
+    out[n - 1] = (img_u8 if tuple(img_u8.shape[-3:-1]) == (h, w)
                   else resize.resize_bilinear(img_u8, h, w))
     for l in range(n - 2, -1, -1):
         h, w = dims[l]
@@ -114,9 +165,11 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def _setup(model, cnt, stl, draws, config: Config, taps):
-    """Feature extraction, pyramids, content Lab and semantic clusters."""
-    h, w = cnt.shape[0], cnt.shape[1]
-    hs, ws = stl.shape[0], stl.shape[1]
+    """Feature extraction, pyramids, content Lab and semantic clusters (of
+    one pair, or of a bucket with a leading batch axis)."""
+    h, w = cnt.shape[-3], cnt.shape[-2]
+    hs, ws = stl.shape[-3], stl.shape[-2]
+    lead = tuple(cnt.shape[:-3])
     cnt_dims = [vgg19.feature_dims(h, w)[t] for t in taps]
     stl_dims = [vgg19.feature_dims(hs, ws)[t] for t in taps]
 
@@ -131,9 +184,9 @@ def _setup(model, cnt, stl, draws, config: Config, taps):
     f0n, _ = features.l2_normalize(cnt_feats[taps[0]].float())
     init_idx = draws.kmeans_init(lh * lw, config.cluster_num)
     label_map, _ = cluster.kmeans(
-        f0n.reshape(lh * lw, -1), init_idx,
+        f0n.reshape(lead + (lh * lw, -1)), init_idx,
         num_clusters=config.cluster_num, iters=config.kmeans_iters)
-    label_map = label_map.reshape(lh, lw)
+    label_map = label_map.reshape(lead + (lh, lw))
     membership = cluster.cluster_membership(label_map, config.cluster_num)
     return (cnt_feats, stl_feats, cnt_pyr, stl_pyr, cnt_lab_unit, label_map,
             membership)
@@ -168,8 +221,8 @@ def _level_match(config: Config, l: int, rs: int, draws, bds_weight: float,
     """Correspondence search + BDS guidance.  ``ann_prev``/``bnn_prev``:
     the previous level's fields, or at level 0 the warm start (or None).
     Returns (ann, bnn, guide_bgr, bds_err)."""
-    ah, aw = cnt_feat_l.shape[0], cnt_feat_l.shape[1]
-    bh, bw = down_stl.shape[0], down_stl.shape[1]
+    ah, aw = cnt_feat_l.shape[-3], cnt_feat_l.shape[-2]
+    bh, bw = down_stl.shape[-3], down_stl.shape[-2]
     fdt = _dtype(config.feature_dtype)
     ps = config.patch_size
     fs = stl_feat_l.float()
@@ -221,8 +274,8 @@ def _level_solve(model, config: Config, l: int, numlayer: int, taps, draws,
     """k-NN graph, patch moments, nonlocal + WLS solves, apply, and the next
     level's feature re-extraction.  Returns (refined, cnt_feat_next, a_d,
     b_d, a_f, b_f, (nl_iters, nl_r2), (wls_iters, wls_r2))."""
-    h, w = cnt_lab_unit.shape[0], cnt_lab_unit.shape[1]
-    ah, aw = down_cnt.shape[0], down_cnt.shape[1]
+    h, w = cnt_lab_unit.shape[-3], cnt_lab_unit.shape[-2]
+    ah, aw = down_cnt.shape[-3], down_cnt.shape[-2]
     ps = config.patch_size
 
     # k-NN graph on down-res Lab + patch-moment init + confidence
@@ -293,6 +346,44 @@ def _as_image(x, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x, dtype=np.uint8)).to(device)
 
 
+def _run_levels(model, config: Config, taps, draws, bds_weight: float, cnt,
+                stl, ann, bnn, record):
+    """The coarse-to-fine loop over one pair or a bucket (a leading batch
+    axis on ``cnt`` and ``stl``).  ``ann``/``bnn``: the level-0 warm start
+    or None.  Returns (refined, per-level trace if ``record``, level-0
+    {"ann", "bnn"})."""
+    numlayer = len(taps)
+    ranges = config.pm_search_radii(max(*cnt.shape[-3:-1], *stl.shape[-3:-1]))
+    (cnt_feats, stl_feats, cnt_pyr, stl_pyr, cnt_lab_unit, label_map,
+     membership) = _setup(model, cnt, stl, draws, config, taps)
+
+    refined = cnt
+    cnt_feat_l = cnt_feats[taps[0]]
+    trace: list[dict] = []
+    prev_ab = None
+    coarse_state = None
+    for l in range(numlayer):
+        ann, bnn, guide_bgr, bds_err = _level_match(
+            config, l, max(int(ranges[l]), 1), draws, bds_weight, ann, bnn,
+            cnt_feat_l, stl_feats[taps[l]], stl_pyr[l])
+        (refined, cnt_feat_l, a_d, b_d, a_f, b_f, nl_info,
+         wls_info) = _level_solve(
+            model, config, l, numlayer, taps, draws, guide_bgr, bds_err,
+            prev_ab, cnt_pyr[l], cnt_lab_unit, label_map, membership)
+        prev_ab = (a_d, b_d)
+        if l == 0:
+            coarse_state = {"ann": ann, "bnn": bnn}
+        if record:
+            tr = {"level": l, "nl_iters": nl_info[0], "nl_r2": nl_info[1],
+                  "wls_iters": wls_info[0], "wls_r2": wls_info[1]}
+            if record != "stats":
+                tr.update({"ann": ann, "bnn": bnn, "guide": guide_bgr,
+                           "a": a_f, "b": b_f, "bds_err": bds_err,
+                           "refined": refined})
+            trace.append(tr)
+    return refined, trace, coarse_state
+
+
 def transfer_pair(
     model: vgg19.VGG19,
     cnt_bgr_u8,
@@ -328,42 +419,15 @@ def transfer_pair(
     if draws is None:
         draws = GeneratorDraws(seed)
     taps = tuple(config.vgg_layers())
-    numlayer = len(taps)
     cnt = _as_image(cnt_bgr_u8, device)
     stl = _as_image(stl_bgr_u8, device)
-    ranges = config.pm_search_radii(max(*cnt.shape[:2], *stl.shape[:2]))
-
-    (cnt_feats, stl_feats, cnt_pyr, stl_pyr, cnt_lab_unit, label_map,
-     membership) = _setup(model, cnt, stl, draws, config, taps)
-
     ann = bnn = None
     if warm_start is not None:
         ann = torch.as_tensor(warm_start["ann"], device=device)
         bnn = torch.as_tensor(warm_start["bnn"], device=device)
-    refined = cnt
-    cnt_feat_l = cnt_feats[taps[0]]
-    trace: list[dict] = []
-    prev_ab = None
-    coarse_state = None
-    for l in range(numlayer):
-        ann, bnn, guide_bgr, bds_err = _level_match(
-            config, l, max(int(ranges[l]), 1), draws, bds_weight, ann, bnn,
-            cnt_feat_l, stl_feats[taps[l]], stl_pyr[l])
-        (refined, cnt_feat_l, a_d, b_d, a_f, b_f, nl_info,
-         wls_info) = _level_solve(
-            model, config, l, numlayer, taps, draws, guide_bgr, bds_err,
-            prev_ab, cnt_pyr[l], cnt_lab_unit, label_map, membership)
-        prev_ab = (a_d, b_d)
-        if l == 0:
-            coarse_state = {"ann": ann, "bnn": bnn}
-        if return_intermediates:
-            tr = {"level": l, "nl_iters": nl_info[0], "nl_r2": nl_info[1],
-                  "wls_iters": wls_info[0], "wls_r2": wls_info[1]}
-            if return_intermediates != "stats":
-                tr.update({"ann": ann, "bnn": bnn, "guide": guide_bgr,
-                           "a": a_f, "b": b_f, "bds_err": bds_err,
-                           "refined": refined})
-            trace.append(tr)
+    refined, trace, coarse_state = _run_levels(
+        model, config, taps, draws, bds_weight, cnt, stl, ann, bnn,
+        return_intermediates)
 
     outs = [refined]
     if return_intermediates:
@@ -371,6 +435,60 @@ def transfer_pair(
     if return_state:
         outs.append(coarse_state)
     return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def transfer_batch(
+    model: vgg19.VGG19,
+    cnt_b,
+    stl_b,
+    bds_weight: float,
+    config: Config,
+    seeds,
+    device: torch.device | str | None = None,
+    return_intermediates: bool | str = False,
+):
+    """Run a bucket of pairs of one geometry as one batched pass.
+
+    cnt_b [B, H, W, 3] / stl_b [B, Hs, Ws, 3]: uint8 BGR arrays or tensors;
+    ``seeds`` [B]: item i draws what ``transfer_pair(..., seed=seeds[i])``
+    draws.  Every stage runs once over the bucket with a leading batch axis
+    (the NN kernel over its batch grid axis, the solves as grouped PCG), so
+    item i matches its own ``transfer_pair`` up to summation order, with
+    the same solver iteration counts.  ``device`` defaults to ``cuda`` and
+    raises without a card; ``device="cpu"`` runs the plain path.  Config
+    values outside ``check_batch_config`` raise NotImplementedError.
+
+    Returns the uint8 BGR results [B, H, W, 3] on ``device``; with
+    ``return_intermediates`` also one trace list per item, as
+    ``transfer_pair`` gives it.
+    """
+    check_config(config)
+    check_batch_config(config)
+    device = _resolve_device(device)
+    model = model.to(device)
+    cnt = _as_image(cnt_b, device)
+    stl = _as_image(stl_b, device)
+    seeds = [int(s) for s in np.asarray(
+        seeds.cpu() if isinstance(seeds, torch.Tensor) else seeds).reshape(-1)]
+    if cnt.dim() != 4 or stl.dim() != 4 or not (
+            cnt.shape[0] == stl.shape[0] == len(seeds)):
+        raise ValueError(f"expected [B, H, W, 3] content and style and B "
+                         f"seeds, got {tuple(cnt.shape)}, {tuple(stl.shape)} "
+                         f"and {len(seeds)} seeds")
+    taps = tuple(config.vgg_layers())
+    refined, trace, _ = _run_levels(
+        model, config, taps, BatchDraws(seeds), bds_weight, cnt, stl, None,
+        None, return_intermediates)
+    if not return_intermediates:
+        return refined
+    items = [[] for _ in seeds]
+    for tr in trace:
+        iters = {k: tr.pop(k).tolist() for k in ("nl_iters", "wls_iters")}
+        level = tr.pop("level")
+        for i, item in enumerate(items):
+            item.append({"level": level, **{k: v[i] for k, v in tr.items()},
+                         **{k: v[i] for k, v in iters.items()}})
+    return refined, items
 
 
 def transfer_sequence(

@@ -26,35 +26,42 @@ def draw_kmeans_init(n: int, num_clusters: int,
 def kmeans(points: torch.Tensor, init_idx: torch.Tensor,
            num_clusters: int = 10, iters: int = 11):
     """Lloyd k-means.  points [N, C]; init_idx [num_clusters] point indices.
-    Returns (labels [N] int64, centers [K, C] float32)."""
+    Returns (labels [N] int64, centers [K, C] float32).  Batched: points
+    [B, N, C] and init_idx [B, K], each item clustered on its own through
+    batched products."""
     pts = points.float()
-    centers = pts[init_idx.to(pts.device)]
-    pts_sq = torch.sum(pts * pts, dim=1)
+    init_idx = init_idx.to(pts.device)
+    if pts.dim() == 3:
+        centers = torch.gather(
+            pts, 1, init_idx[..., None].expand(-1, -1, pts.shape[-1]))
+    else:
+        centers = pts[init_idx]
+    pts_sq = torch.sum(pts * pts, dim=-1)
 
     def assign(centers):
-        d = (pts_sq[:, None] - 2.0 * (pts @ centers.T)
-             + torch.sum(centers * centers, dim=1))
-        return torch.argmin(d, dim=1)
+        d = (pts_sq[..., None] - 2.0 * (pts @ centers.transpose(-1, -2))
+             + torch.sum(centers * centers, dim=-1)[..., None, :])
+        return torch.argmin(d, dim=-1)
 
     for _ in range(iters):
         onehot = F.one_hot(assign(centers), num_clusters).float()
-        sums = onehot.T @ pts                      # [K, C]
-        counts = torch.sum(onehot, dim=0)          # [K]
+        sums = onehot.transpose(-1, -2) @ pts      # [K, C]
+        counts = torch.sum(onehot, dim=-2)         # [K]
         centers = torch.where(
-            counts[:, None] > 0,
-            sums / torch.clamp(counts, min=1.0)[:, None], centers)
+            counts[..., None] > 0,
+            sums / torch.clamp(counts, min=1.0)[..., None], centers)
     return assign(centers), centers
 
 
 def cluster_membership(label_map: torch.Tensor,
                        num_clusters: int) -> torch.Tensor:
     """Per-cluster cell membership with 4-neighbour boundary dilation.
-    label_map [lh, lw] -> bool [K, lh, lw]."""
+    label_map [..., lh, lw] -> bool [..., K, lh, lw]."""
     ks = torch.arange(num_clusters, device=label_map.device)
-    m = label_map[None, :, :] == ks[:, None, None]
+    m = label_map[..., None, :, :] == ks[:, None, None]
     p = F.pad(m, (1, 1, 1, 1))
-    return (m | p[:, :-2, 1:-1] | p[:, 2:, 1:-1]
-            | p[:, 1:-1, :-2] | p[:, 1:-1, 2:])
+    return (m | p[..., :-2, 1:-1] | p[..., 2:, 1:-1]
+            | p[..., 1:-1, :-2] | p[..., 1:-1, 2:])
 
 
 def _cells(n: int, stride: int, cells: int, device) -> torch.Tensor:
@@ -63,21 +70,23 @@ def _cells(n: int, stride: int, cells: int, device) -> torch.Tensor:
 
 def labels_for_pixels(label_map: torch.Tensor, h: int, w: int,
                       stride: int) -> torch.Tensor:
-    """Expand the conv5_1-resolution label grid to an [h, w] label map:
-    pixel (x, y) falls in cell (x // stride, y // stride), clipped."""
-    lh, lw = label_map.shape
+    """Expand the conv5_1-resolution label grid [..., lh, lw] to an [...,
+    h, w] label map: pixel (x, y) falls in cell (x // stride, y // stride),
+    clipped."""
+    lh, lw = label_map.shape[-2], label_map.shape[-1]
     ys = _cells(h, stride, lh, label_map.device)
     xs = _cells(w, stride, lw, label_map.device)
-    return label_map[ys[:, None], xs[None, :]]
+    return label_map[..., ys[:, None], xs[None, :]]
 
 
 def membership_for_pixels(membership: torch.Tensor, h: int, w: int,
                           stride: int) -> torch.Tensor:
-    """Expand [K, lh, lw] cell membership to [K, h, w] pixel membership."""
-    _, lh, lw = membership.shape
+    """Expand [..., K, lh, lw] cell membership to [..., K, h, w] pixel
+    membership."""
+    lh, lw = membership.shape[-2], membership.shape[-1]
     ys = _cells(h, stride, lh, membership.device)
     xs = _cells(w, stride, lw, membership.device)
-    return membership[:, ys[:, None], xs[None, :]]
+    return membership[..., ys[:, None], xs[None, :]]
 
 
 def multi_labels_for_pixels(label_map: torch.Tensor, membership: torch.Tensor,

@@ -37,13 +37,12 @@ def sample_cluster_candidates(membership_pix: torch.Tensor,
 
     membership_pix: bool [K, H, W]; scores: [K, H*W] in [0, 1) (uniform
     draws).  Returns int64 [K, M] flat pixel ids; clusters with fewer than
-    M members repeat their first member.
+    M members repeat their first member.  Leading batch axes pass through.
     """
-    k = membership_pix.shape[0]
-    m = membership_pix.reshape(k, -1)
+    m = membership_pix.reshape(membership_pix.shape[:-2] + (-1,))
     score = torch.where(m, scores.to(m.device), -1.0)
-    top, idx = torch.topk(score, max_candidates, dim=1)
-    return torch.where(top >= 0.0, idx, idx[:, :1])
+    top, idx = torch.topk(score, max_candidates, dim=-1)
+    return torch.where(top >= 0.0, idx, idx[..., :1])
 
 
 def knn_graph(
@@ -61,16 +60,34 @@ def knn_graph(
     int64, weights [N, k] f32, slots [N, k] int64), N = H*W; ``slots`` index
     the flattened [K*M] candidate table.  ``chunk`` query rows are scored at
     a time.
+
+    Batched (lab_unit [B, H, W, 3], pixel_labels [B, H, W], candidates [B,
+    K, M]; single membership only): the bucket folds into the row axis as
+    one graph whose clusters are disjoint across items (labels offset by
+    i*K, candidate ids by i*N), so each item's rows, chunks and picks are
+    its own and the result, [B, N, k] with item-local ids and slots, is
+    bitwise each item's own graph; one host sync for the whole bucket.
     """
+    if lab_unit.dim() == 4:
+        return _knn_graph_folded(lab_unit, pixel_labels, candidates, k_num,
+                                 chunk)
     h, w, _ = lab_unit.shape
     n = h * w
-    dev = lab_unit.device
     colors = lab_unit.reshape(n, 3).float()
-    candidates = candidates.long().to(dev)
+    candidates = candidates.long().to(lab_unit.device)
     if pixel_labels.dim() == 3 and pixel_labels.shape[-1] > 1:
         return _knn_graph_multi(colors, pixel_labels.reshape(n, -1).long(),
                                 candidates, k_num, chunk)
-    labels = pixel_labels.reshape(n).long()
+    return _knn_graph_sorted(colors, pixel_labels.reshape(n).long(),
+                             candidates, k_num, chunk)
+
+
+def _knn_graph_sorted(colors: torch.Tensor, labels: torch.Tensor,
+                      candidates: torch.Tensor, k_num: int, chunk: int):
+    """Single-membership graph: colors [N, 3], labels [N], candidates [K,
+    M] int64; pixels grouped by cluster, one chunk per cluster slice."""
+    n = colors.shape[0]
+    dev = colors.device
     kc, m = candidates.shape
 
     order = torch.argsort(labels, stable=True)        # groups clusters
@@ -122,6 +139,29 @@ def knn_graph(
             s_o[pid] = c * m + j
         start += cnt
     return ids_o, w_o, s_o
+
+
+def _knn_graph_folded(lab_unit: torch.Tensor, pixel_labels: torch.Tensor,
+                      candidates: torch.Tensor, k_num: int, chunk: int):
+    """The batch folded into rows (counterpart of the JAX package's
+    ``_knn_custom_vmap`` rule, ``nct_tpu/solve/knn.py:180-213``)."""
+    b, h, w, _ = lab_unit.shape
+    if pixel_labels.dim() == 4 and pixel_labels.shape[-1] > 1:
+        raise NotImplementedError(
+            "the batched k-NN graph takes one membership per pixel "
+            "(ROADMAP: 'vmap for the remaining Configs')")
+    n = h * w
+    dev = lab_unit.device
+    kc, m = candidates.shape[-2], candidates.shape[-1]
+    boff = torch.arange(b, device=dev)[:, None]
+    labels = pixel_labels.reshape(b, n).long() + boff * kc
+    cands = candidates.long().to(dev) + boff[..., None] * n
+    ids, wts, slots = _knn_graph_sorted(
+        lab_unit.reshape(b * n, 3).float(), labels.reshape(-1),
+        cands.reshape(b * kc, m), k_num, chunk)
+    return (ids.reshape(b, n, k_num) - boff[..., None] * n,
+            wts.reshape(b, n, k_num),
+            slots.reshape(b, n, k_num) - boff[..., None] * (kc * m))
 
 
 def _knn_graph_multi(colors: torch.Tensor, labels: torch.Tensor,

@@ -26,62 +26,63 @@ import torch
 import torch.nn.functional as F
 
 from nct_tpu_torch.ops.fmath import pow32, sqrt32
-from nct_tpu_torch.solve.cg import cg_solve
+from nct_tpu_torch.solve.cg import cg_solve, cg_solve_grouped
 
 
 def gradient_weights(lab_unit_l: torch.Tensor, lam: float, alpha: float):
     """Edge weights g = sqrt(lam / (|dL|^alpha + 1e-4)).
 
-    lab_unit_l [H, W] luminance in [0, 1].  Returns (gx, gy) [H, W]: gx
-    weighs edge (x,y)-(x+1,y) (zero on the last column), gy edge
+    lab_unit_l [..., H, W] luminance in [0, 1].  Returns (gx, gy) [..., H,
+    W]: gx weighs edge (x,y)-(x+1,y) (zero on the last column), gy edge
     (x,y)-(x,y+1) (zero on the last row).
     """
     l = lab_unit_l.float()
-    dx = torch.abs(l[:, 1:] - l[:, :-1])
-    dy = torch.abs(l[1:, :] - l[:-1, :])
+    dx = torch.abs(l[..., :, 1:] - l[..., :, :-1])
+    dy = torch.abs(l[..., 1:, :] - l[..., :-1, :])
     gx = sqrt32(lam / (pow32(dx, alpha) + 1e-4))
     gy = sqrt32(lam / (pow32(dy, alpha) + 1e-4))
     return F.pad(gx, (0, 1)), F.pad(gy, (0, 0, 0, 1))
 
 
 def laplacian_apply(u: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor):
-    """sum_j w_ij (u_i - u_j) on the 4-neighbour grid; u [H, W, C], wx/wy
-    [H, W] edge weights (to x+1 / y+1)."""
-    wx3, wy3 = wx[:, :, None], wy[:, :, None]
+    """sum_j w_ij (u_i - u_j) on the 4-neighbour grid; u [..., H, W, C],
+    wx/wy [..., H, W] edge weights (to x+1 / y+1)."""
+    wx3, wy3 = wx[..., None], wy[..., None]
     out = torch.zeros_like(u)
-    dxe = (u[:, :-1] - u[:, 1:]) * wx3[:, :-1]
-    out[:, :-1] += dxe
-    out[:, 1:] += -dxe
-    dye = (u[:-1, :] - u[1:, :]) * wy3[:-1, :]
-    out[:-1, :] += dye
-    out[1:, :] += -dye
+    dxe = (u[..., :, :-1, :] - u[..., :, 1:, :]) * wx3[..., :, :-1, :]
+    out[..., :, :-1, :] += dxe
+    out[..., :, 1:, :] += -dxe
+    dye = (u[..., :-1, :, :] - u[..., 1:, :, :]) * wy3[..., :-1, :, :]
+    out[..., :-1, :, :] += dye
+    out[..., 1:, :, :] += -dye
     return out
 
 
 def laplacian_degree(wx: torch.Tensor, wy: torch.Tensor):
     """Diagonal of the grid Laplacian: sum of incident edge weights."""
     deg = torch.zeros_like(wx)
-    deg[:, :-1] += wx[:, :-1]
-    deg[:, 1:] += wx[:, :-1]
-    deg[:-1, :] += wy[:-1, :]
-    deg[1:, :] += wy[:-1, :]
+    deg[..., :, :-1] += wx[..., :, :-1]
+    deg[..., :, 1:] += wx[..., :, :-1]
+    deg[..., :-1, :] += wy[..., :-1, :]
+    deg[..., 1:, :] += wy[..., :-1, :]
     return deg
 
 
 def _coarsen_cellsum(x: torch.Tensor) -> torch.Tensor:
-    """2x2 cell sum with zero padding to even dims."""
-    h, w = x.shape[0], x.shape[1]
+    """2x2 cell sum of x [..., H, W, C] with zero padding to even dims."""
+    h, w = x.shape[-3], x.shape[-2]
     ph, pw = (-h) % 2, (-w) % 2
-    x = F.pad(x, (0, 0) * (x.dim() - 2) + (0, pw, 0, ph))
+    x = F.pad(x, (0, 0, 0, pw, 0, ph))
     h2, w2 = (h + ph) // 2, (w + pw) // 2
-    return x.reshape((h2, 2, w2, 2) + x.shape[2:]).sum(dim=(1, 3))
+    return x.reshape(x.shape[:-3] + (h2, 2, w2, 2, x.shape[-1])).sum(
+        dim=(-4, -2))
 
 
 def _prolong_const(xc: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Piecewise-constant prolongation (adjoint of _coarsen_cellsum)."""
-    x = torch.repeat_interleave(torch.repeat_interleave(xc, 2, dim=0), 2,
-                                dim=1)
-    return x[:h, :w]
+    x = torch.repeat_interleave(torch.repeat_interleave(xc, 2, dim=-3), 2,
+                                dim=-2)
+    return x[..., :h, :w, :]
 
 
 # V-cycle shape: coarsen until the grid's short side is <= _COARSEST or
@@ -93,8 +94,9 @@ _MAX_LEVELS = 8
 
 def make_mg_preconditioner(blk_aa, blk_ab, blk_bb, wx2, wy2):
     """Geometric-multigrid V-cycle approximating the inverse of
-    [[blk_aa, blk_ab], [blk_ab, blk_bb]] ([H, W, 3] per-pixel blocks) plus
-    the grid Laplacian with edge weights wx2/wy2 on a and b.
+    [[blk_aa, blk_ab], [blk_ab, blk_bb]] ([..., H, W, 3] per-pixel blocks)
+    plus the grid Laplacian with edge weights wx2/wy2 [..., H, W] on a and
+    b.  Leading axes are independent systems (a batch).
 
     Piecewise-constant prolongation P, restriction P^T / 4, Galerkin coarse
     coefficients, red-black block Gauss-Seidel smoothing, symmetric pre- and
@@ -104,8 +106,8 @@ def make_mg_preconditioner(blk_aa, blk_ab, blk_bb, wx2, wy2):
     caa, cab, cbb = blk_aa, blk_ab, blk_bb
     cwx, cwy = wx2, wy2
     while True:
-        h, w = caa.shape[0], caa.shape[1]
-        deg = laplacian_degree(cwx, cwy)[:, :, None]
+        h, w = caa.shape[-3], caa.shape[-2]
+        deg = laplacian_degree(cwx, cwy)[..., None]
         daa = caa + deg
         dbb = cbb + deg
         inv_det = 1.0 / (daa * dbb - cab * cab)
@@ -119,15 +121,16 @@ def make_mg_preconditioner(blk_aa, blk_ab, blk_bb, wx2, wy2):
         # two fine rows feeding one coarse row pair-sum along y (and vice
         # versa for y-edges)
         ph, pw = (-h) % 2, (-w) % 2
-        fx = F.pad(cwx, (0, pw, 0, ph))[:, 1::2]
-        cwx = 0.25 * fx.reshape(((h + ph) // 2, 2) + fx.shape[1:]).sum(dim=1)
-        fy = F.pad(cwy, (0, pw, 0, ph))[1::2, :]
+        fx = F.pad(cwx, (0, pw, 0, ph))[..., :, 1::2]
+        cwx = 0.25 * fx.reshape(
+            fx.shape[:-2] + ((h + ph) // 2, 2, fx.shape[-1])).sum(dim=-2)
+        fy = F.pad(cwy, (0, pw, 0, ph))[..., 1::2, :]
         cwy = 0.25 * fy.reshape(
-            (fy.shape[0], (w + pw) // 2, 2) + fy.shape[2:]).sum(dim=2)
+            fy.shape[:-1] + ((w + pw) // 2, 2)).sum(dim=-1)
 
     masks = []
     for lev in levels:
-        h, w = lev[0].shape[0], lev[0].shape[1]
+        h, w = lev[0].shape[-3], lev[0].shape[-2]
         yy = torch.arange(h, device=lev[0].device)[:, None]
         xx = torch.arange(w, device=lev[0].device)[None, :]
         masks.append((((yy + xx) % 2 == 0).float())[..., None])
@@ -166,7 +169,7 @@ def make_mg_preconditioner(blk_aa, blk_ab, blk_bb, wx2, wy2):
         ma, mb = level_apply(lev, xa, xb)
         ea, eb = vcycle(lev + 1, 0.25 * _coarsen_cellsum(fa - ma),
                         0.25 * _coarsen_cellsum(fb - mb))
-        h, w = fa.shape[0], fa.shape[1]
+        h, w = fa.shape[-3], fa.shape[-2]
         xa = xa + _prolong_const(ea, h, w)
         xb = xb + _prolong_const(eb, h, w)
         return smooth(lev, xa, xb, fa, fb, reverse=True)
@@ -220,6 +223,22 @@ def nonlocal_degree(nbr_ids: torch.Tensor, nbr_w: torch.Tensor,
     return deg
 
 
+def _rank_in_targets(flat_t: torch.Tensor, sort_key: torch.Tensor):
+    """Sort each row's pairs by ``sort_key`` (stable) and rank them among
+    the pairs of the same target.  flat_t, sort_key [G, L]: G independent
+    graphs (the batch) of L pairs.  Returns (order, sorted targets, rank),
+    each [G, L], row-local."""
+    g, l = flat_t.shape
+    dev = flat_t.device
+    order = torch.argsort(sort_key, dim=1, stable=True)
+    sorted_t = torch.gather(flat_t, 1, order)
+    pos = torch.arange(l, device=dev).expand(g, l)
+    is_start = torch.cat([torch.ones((g, 1), dtype=torch.bool, device=dev),
+                          sorted_t[:, 1:] != sorted_t[:, :-1]], dim=1)
+    seg_first = torch.cummax(torch.where(is_start, pos, 0), dim=1).values
+    return order, sorted_t, pos - seg_first
+
+
 def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
                          norm_factor: float, local_weight: float = 0.125,
                          alpha: float = 1.2, nonlocal_weight: float = 2.0,
@@ -235,13 +254,24 @@ def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
     ``nbr_slots`` [N, k] are given, else pixel-keyed with width 2k), or
     "scatter" (the exact uncapped W^T by a scatter-add every apply), or
     "auto" ("tables" below ``_TABLES_MAX_PAIRS`` pairs).
+
+    Batched: every operand gains a leading batch axis (src_lab [B, H, W,
+    3], ids [B, N, k], candidates [B, K, M], ...) and the B systems are
+    solved as one.  The grid terms and the V-cycle take the batch as a
+    leading axis; the graph folds into the row axis (ids offset by i*N,
+    slots by i*K*M), each item's in-edges ranked on its own keys and capped
+    at its own width, so the table keeps each item's own pairs (the table
+    is as wide as the widest item's).  Only the mg V-cycle with slot-keyed
+    tables is batched.
     """
     if precond_kind not in PRECOND_KINDS:
         raise ValueError(f"precond_kind={precond_kind!r}")
     if transpose not in TRANSPOSES:
         raise ValueError(f"transpose={transpose!r}")
-    h, w, _ = src_lab.shape
-    n = h * w
+    h, w = src_lab.shape[-3], src_lab.shape[-2]
+    batched = src_lab.dim() == 4
+    g = src_lab.shape[0] if batched else 1
+    n = h * w                          # pixels per item
     dev = src_lab.device
     s = src_lab.float()
     r = ref_lab.float()
@@ -251,16 +281,34 @@ def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
     gx, gy = gradient_weights(s[..., 0], local_weight, alpha)
     gx2, gy2 = gx * gx, gy * gy
 
-    k = nbr_ids.shape[1]
-    pair_w = nbr_w.float() * (nonlocal_weight / k)
-    nbr_ids = nbr_ids.long()
-    ids_flat = nbr_ids.reshape(-1)
+    k = nbr_ids.shape[-1]
+    use_slots = candidates is not None and nbr_slots is not None
     if transpose == "auto":
         transpose = "scatter" if n * k > _TABLES_MAX_PAIRS else "tables"
-    use_slots = candidates is not None and nbr_slots is not None
+    if batched and not (use_slots and transpose == "tables"
+                        and precond_kind == "mg"):
+        raise NotImplementedError(
+            "the batched nonlocal system runs the mg preconditioner with "
+            "slot-keyed tables only (ROADMAP: 'vmap for the remaining "
+            "Configs')")
+    # every item's graph folded into rows: pixel p of item i is row i*N + p
+    goff = torch.arange(g, device=dev)[:, None]
+    pair_w = (nbr_w.float() * (nonlocal_weight / k)).reshape(g * n, k)
+    nbr_ids = nbr_ids.long()
+    if batched:
+        nbr_ids = nbr_ids + goff[..., None] * n
+    nbr_ids = nbr_ids.reshape(g * n, k)
+    ids_flat = nbr_ids.reshape(-1)
     if use_slots:
-        nbr_slots = nbr_slots.long()
-        cand_flat = candidates.reshape(-1).long().to(dev)
+        n_slots = candidates.shape[-2] * candidates.shape[-1]   # per item
+        slots_local = nbr_slots.long().reshape(g, n * k)
+        cand_flat = candidates.long().to(dev)
+        if batched:
+            nbr_slots = slots_local + goff * n_slots
+            cand_flat = cand_flat + goff[..., None] * n
+        nbr_slots = nbr_slots.long().reshape(g * n, k)
+        cand_flat = cand_flat.reshape(-1)
+    n, n_pairs = g * n, g * n * k      # folded rows and pairs
 
     def out_gather(u):
         """u_j of every pair, [N, k, C] (through the small candidate table
@@ -284,29 +332,31 @@ def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
     else:
         if use_slots:
             # slot-keyed: each slot keeps its strongest in-edges first
-            n_targets = cand_flat.shape[0]
-            in_max = in_edge_width(n * k, n_targets, in_cap)
-            flat_t = nbr_slots.reshape(-1)
+            n_targets = n_slots
+            in_max = in_edge_width(n_pairs // g, n_targets, in_cap)
+            flat_t = slots_local
             sort_key = flat_t.float() * 16.0 - torch.clamp(
-                pair_w.reshape(-1), 0.0, 15.0)
+                pair_w.reshape(g, -1), 0.0, 15.0)
         else:
             # pixel-keyed: each target pixel keeps its first 2k in-edges
             n_targets = n
-            in_max = min(2 * k, n * k)
-            flat_t = ids_flat
+            in_max = min(2 * k, n_pairs)
+            flat_t = ids_flat.reshape(1, -1)
             sort_key = flat_t
-        # rank of each pair among its target's in-edges
-        order = torch.argsort(sort_key, stable=True)
-        sorted_t = flat_t[order]
-        pos = torch.arange(n * k, device=dev)
-        is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                              sorted_t[1:] != sorted_t[:-1]])
-        seg_first = torch.cummax(torch.where(is_start, pos, 0), dim=0).values
-        rank = pos - seg_first
+        # rank of each pair among its item's in-edges of the same target
+        order, sorted_t, rank = _rank_in_targets(flat_t, sort_key)
         # no wider than the largest in-degree: the same pairs are kept, and
-        # an ample in_cap (width n*k) does not allocate [targets, n*k]
-        in_max = min(in_max, int(rank.max()) + 1)
+        # an ample in_cap (width n*k) does not allocate [targets, n*k]; one
+        # host read gives every item's own width
+        widths = [min(in_max, r + 1) for r in rank.amax(dim=1).tolist()]
+        in_max = max(widths)
         keep = rank < in_max
+        # back to folded target and pair numbers
+        per, item_targets = flat_t.shape[1], n_targets
+        sorted_t = (sorted_t + goff * n_targets).reshape(-1)
+        order = (order + goff * per).reshape(-1)
+        keep, rank = keep.reshape(-1), rank.reshape(-1)
+        n_targets = g * n_targets
         # in_tab[t, r] = flat pair index or the sentinel n*k
         in_tab = torch.full((n_targets, in_max), n * k, dtype=torch.int64,
                             device=dev)
@@ -325,11 +375,18 @@ def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
         in_src = torch.where(valid, in_tab_c // k, 0)
         in_w = torch.where(valid, pair_w_flat[in_tab_c], 0.0)
         if use_slots:
-            # slot sums land on their pixels through one sorted scatter
+            # each item's slot sums over a table of its own width, as its
+            # own solve sums them (the card's row sum peels rows by their
+            # alignment); they land on their pixels through one sorted
+            # scatter
+            slot_sums = torch.cat([
+                torch.sum(in_w[i * item_targets:(i + 1) * item_targets,
+                               :wi].contiguous(), dim=1)
+                for i, wi in enumerate(widths)])
             cs_order = torch.argsort(cand_flat, stable=True)
             cs_ids = cand_flat[cs_order]
             in_deg = torch.zeros(n, dtype=torch.float32, device=dev)
-            in_deg.index_put_((cs_ids,), torch.sum(in_w, dim=1)[cs_order],
+            in_deg.index_put_((cs_ids,), slot_sums[cs_order],
                               accumulate=True)
         else:
             in_deg = torch.sum(in_w, dim=1)
@@ -354,13 +411,14 @@ def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
         loc_a = 2.0 * laplacian_apply(a, gx2, gy2)
         loc_b = 2.0 * laplacian_apply(b, gx2, gy2)
         nl = nl_apply(torch.cat([a.reshape(n, 3), b.reshape(n, 3)], dim=1))
-        return (data_a + loc_a + nl[:, :3].reshape(h, w, 3),
-                data_b + loc_b + nl[:, 3:].reshape(h, w, 3))
+        return (data_a + loc_a + nl[:, :3].reshape(a.shape),
+                data_b + loc_b + nl[:, 3:].reshape(b.shape))
 
     rhs = (d2 * s * r, d2 * r)
 
     # k-NN degree of the operator's (capped, on the tables path) weights
-    deg_nl = nonlocal_degree(nbr_ids, pair_w, n).reshape(h, w)[..., None]
+    deg_nl = nonlocal_degree(nbr_ids, pair_w, n).reshape(
+        s.shape[:-1])[..., None]
     if precond_kind == "mg":
         # data blocks + k-NN degree on the diagonal, the doubled local
         # Laplacian as explicit edge weights
@@ -392,11 +450,14 @@ def solve_nonlocal(a0, b0, src_lab, ref_lab, confidence, nbr_ids, nbr_w,
                    in_cap: int = 128, transpose: str = "auto"):
     """Solve for regularized (a, b) [H, W, 3] at down-res (see
     ``make_nonlocal_system`` for the options).  Returns (a, b, iterations
-    run, final ||r||^2)."""
+    run, final ||r||^2).  With a leading batch axis on every operand the
+    B systems run as one through ``cg_solve_grouped``: iterations and
+    ||r||^2 are then [B] tensors, each item's own."""
     operator, rhs, precond = make_nonlocal_system(
         src_lab, ref_lab, confidence, nbr_ids, nbr_w, norm_factor,
         local_weight, alpha, nonlocal_weight, candidates, nbr_slots,
         precond_kind, in_cap, transpose)
-    (a, b), r2, n_it = cg_solve(operator, rhs, (a0.float(), b0.float()),
-                                iters=iters, tol=tol, preconditioner=precond)
+    solve = cg_solve_grouped if src_lab.dim() == 4 else cg_solve
+    (a, b), r2, n_it = solve(operator, rhs, (a0.float(), b0.float()),
+                             iters=iters, tol=tol, preconditioner=precond)
     return a, b, n_it, r2

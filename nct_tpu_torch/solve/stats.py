@@ -54,16 +54,17 @@ def _cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def _integral(img: torch.Tensor) -> torch.Tensor:
-    """Zero-padded 2-D integral image: I[y, x] = sum img[:y, :x]."""
-    s = _cumsum(_cumsum(img.float(), 0), 1)
-    pad = (0, 0) * (img.dim() - 2) + (1, 0, 1, 0)
-    return F.pad(s, pad)
+    """Zero-padded 2-D integral image of img [..., H, W, C]: I[y, x] = sum
+    img[:y, :x]."""
+    s = _cumsum(_cumsum(img.float(), -3), -2)
+    return F.pad(s, (0, 0, 1, 0, 1, 0))
 
 
 def window_sums(img: torch.Tensor, patch_size: int):
-    """Clipped-window sums and counts for every pixel of img [H, W, C].
-    Returns (sums [H, W, C] f32, counts [H, W] f32)."""
-    h, w = img.shape[0], img.shape[1]
+    """Clipped-window sums and counts for every pixel of img [..., H, W,
+    C] (leading axes are a batch).  Returns (sums [..., H, W, C] f32,
+    counts [H, W] f32)."""
+    h, w = img.shape[-3], img.shape[-2]
     half = patch_size // 2
     left = -half
     right = patch_size + left
@@ -77,10 +78,10 @@ def window_sums(img: torch.Tensor, patch_size: int):
     sx = torch.clamp(xs + left, min=0)
     ex = torch.clamp(xs + right, max=w)
 
-    a = integ[ey[:, None], ex[None, :]]
-    b = integ[ey[:, None], sx[None, :]]
-    c = integ[sy[:, None], ex[None, :]]
-    d = integ[sy[:, None], sx[None, :]]
+    a = integ[..., ey[:, None], ex[None, :], :]
+    b = integ[..., ey[:, None], sx[None, :], :]
+    c = integ[..., sy[:, None], ex[None, :], :]
+    d = integ[..., sy[:, None], sx[None, :], :]
     sums = a - b - c + d
     counts = (ey - sy).float()[:, None] * (ex - sx).float()[None, :]
     return sums, counts
@@ -99,7 +100,8 @@ def patch_moments(img_u8: torch.Tensor, patch_size: int):
 def init_ab(cnt_lab_u8: torch.Tensor, guide_lab_u8: torch.Tensor,
             patch_size: int = 3, var_epsilon: float = 0.6):
     """Initial (a [H,W,3], b [H,W,3]) from patch moments of the content and
-    the BDS guidance (uint8-scale Lab on the same grid)."""
+    the BDS guidance (uint8-scale Lab on the same grid; a leading batch
+    axis passes through)."""
     mu_s, sd_s = patch_moments(cnt_lab_u8, patch_size)
     mu_r, sd_r = patch_moments(guide_lab_u8, patch_size)
     a = sd_r / (sd_s + var_epsilon)
@@ -108,8 +110,9 @@ def init_ab(cnt_lab_u8: torch.Tensor, guide_lab_u8: torch.Tensor,
 
 
 def error_confidence(err: torch.Tensor) -> torch.Tensor:
-    """BDS feature error -> data-term confidence max(1 - minmax(err), 1e-6)."""
-    lo = torch.min(err)
-    hi = torch.max(err)
+    """BDS feature error [..., H, W] -> data-term confidence
+    max(1 - minmax(err), 1e-6), the min and max taken per item."""
+    lo = torch.amin(err, dim=(-2, -1), keepdim=True)
+    hi = torch.amax(err, dim=(-2, -1), keepdim=True)
     e = (err - lo) / torch.clamp(hi - lo, min=1e-30)
     return torch.clamp(1.0 - e, min=1e-6)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from nct_tpu_torch.solve.cg import cg_solve
+from nct_tpu_torch.solve.cg import cg_solve, cg_solve_grouped
 from nct_tpu_torch.solve.nonlocal_solve import (
     gradient_weights, laplacian_apply, laplacian_degree,
     make_mg_preconditioner,
@@ -37,7 +37,13 @@ def solve_wls(a_up: torch.Tensor, b_up: torch.Tensor,
     """Smooth (a, b) [H, W, 3] at full resolution.  ``lam`` includes the
     area scaling (and the final-level boost); ``precond_kind`` is "mg" (the
     V-cycle with zero cross-blocks) or "jacobi" (the diagonal).  Returns
-    (a, b, iterations run, final ||r||^2)."""
+    (a, b, iterations run, final ||r||^2).
+
+    With a leading batch axis ([B, H, W, 3] operands; the counterpart of
+    the JAX package's batch fold ``_solve_wls_folded``) every stencil and
+    V-cycle op runs once over the bucket, each pair with its own roughness
+    gate and gradient weights, and ``cg_solve_grouped`` keeps each pair's
+    step sizes: iterations and ||r||^2 are then [B] tensors."""
     if precond_kind not in PRECOND_KINDS:
         raise ValueError(f"precond_kind={precond_kind!r}")
     rough = roughness_gate(a_up, b_up, cnt_lab_unit)[..., None]
@@ -60,8 +66,9 @@ def solve_wls(a_up: torch.Tensor, b_up: torch.Tensor,
 
         def precond(res):
             return (res[0] / diag, res[1] / diag)
-    (a, b), r2, n_it = cg_solve(operator, (rough * a0, rough * b0), (a0, b0),
-                                iters=iters, tol=tol, preconditioner=precond)
+    solve = cg_solve_grouped if a_up.dim() == 4 else cg_solve
+    (a, b), r2, n_it = solve(operator, (rough * a0, rough * b0), (a0, b0),
+                             iters=iters, tol=tol, preconditioner=precond)
     return a, b, n_it, r2
 
 

@@ -193,6 +193,90 @@ def test_zero_patch_distance_is_positive_zero(card):
     torch.testing.assert_close(got[3], ref[3].to(got[3].dtype), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("integer", [True, False])
+def test_batched_launch_bitwise_per_item(card, integer):
+    """One launch over the batch grid axis gives every item the keys of its
+    own single launch, both instances, including items whose masks zero
+    different rows."""
+    rng = np.random.default_rng(12)
+    if integer:
+        a = _integer(rng, 3 * 20, 30, 32, card).reshape(3, 20, 30, 32)
+        b = _integer(rng, 3 * 25, 21, 32, card).reshape(3, 25, 21, 32)
+    else:
+        a = torch.relu(torch.from_numpy(rng.standard_normal(
+            (3, 20, 30, 32)).astype(np.float32))).to(card)
+        b = torch.relu(torch.from_numpy(rng.standard_normal(
+            (3, 25, 21, 32)).astype(np.float32))).to(card)
+    fa, ma = cuda_nn.padded_tables(a, 3)
+    fb, mb = cuda_nn.padded_tables(b, 3)
+    ma[1, :150] = 0
+    mb[2, 100:300] = 0
+    before = dict(cuda_nn.LAUNCHES), dict(cuda_nn.LAUNCH_ITEMS)
+    got = cuda_nn.nn_bidir_tables(fa, ma, fb, mb)
+    got_dir = cuda_nn.nn_directed_tables(fa, ma, fb, mb)
+    for name in ("nn_bidir", "nn_directed"):
+        assert cuda_nn.LAUNCHES[name] == before[0][name] + 1
+        assert cuda_nn.LAUNCH_ITEMS[name] == before[1][name] + 3
+    for i in range(3):
+        one = cuda_nn.nn_bidir_tables(fa[i], ma[i], fb[i], mb[i])
+        one_dir = cuda_nn.nn_directed_tables(fa[i], ma[i], fb[i], mb[i])
+        for x, y in zip(got, one):
+            torch.testing.assert_close(x[i], y, rtol=0, atol=0)
+        for x, y in zip(got_dir, one_dir):
+            torch.testing.assert_close(x[i], y, rtol=0, atol=0)
+    # the masked rows see +inf everywhere: key (+inf, 0)
+    assert torch.isinf(got[0][1, :150]).all() and (got[1][1, :150] == 0).all()
+    if integer:     # and the plain batched version agrees bitwise
+        ref = nn_bidir_tables_plain(fa, _mask01(ma.reshape(-1)).reshape(
+            3, -1, 9), fb, _mask01(mb.reshape(-1)).reshape(3, -1, 9))
+        for x, y in zip(got, ref):
+            torch.testing.assert_close(x, y.to(x.dtype), rtol=0, atol=0)
+
+
+def test_batched_wrappers_match_single_calls(card):
+    rng = np.random.default_rng(13)
+    a = _integer(rng, 2 * 9, 14, 64, card).reshape(2, 9, 14, 64)
+    b = _integer(rng, 2 * 11, 12, 64, card).reshape(2, 11, 12, 64)
+    got = cuda_nn.exact_nn_bidir(a, b, 3)
+    got_dir = cuda_nn.exact_nn(a, b, 3)
+    for i in range(2):
+        for x, y in zip(got, cuda_nn.exact_nn_bidir(a[i], b[i], 3)):
+            torch.testing.assert_close(x[i], y, rtol=0, atol=0)
+        for x, y in zip(got_dir, cuda_nn.exact_nn(a[i], b[i], 3)):
+            torch.testing.assert_close(x[i], y, rtol=0, atol=0)
+
+
+def test_vmap_bucket_matches_scan(card):
+    """The vmap mode on the card: 2 small pairs, one nn_bidir launch of 2
+    items per exact level, each item within the JAX package's batch
+    contract of its scan item and with its iteration counts."""
+    from nct_tpu_torch import Config, pipeline
+    from nct_tpu_torch.models import vgg19
+    from nct_tpu_torch.parallel.batch import make_batch_transfer
+
+    rng = np.random.default_rng(8)
+    cnt = rng.integers(0, 256, (2, 64, 80, 3)).astype(np.uint8)
+    stl = rng.integers(0, 256, (2, 72, 88, 3)).astype(np.uint8)
+    model = vgg19.init_params().to(card)
+    config = Config()
+    before = dict(cuda_nn.LAUNCHES), dict(cuda_nn.LAUNCH_ITEMS)
+    got = make_batch_transfer(config, mode="vmap")(model, cnt, stl, [3, 4],
+                                                   2.0)
+    assert cuda_nn.LAUNCHES["nn_bidir"] == before[0]["nn_bidir"] + 4
+    assert cuda_nn.LAUNCH_ITEMS["nn_bidir"] == before[1]["nn_bidir"] + 8
+    _, traces = pipeline.transfer_batch(model, cnt, stl, 2.0, config,
+                                        seeds=[3, 4],
+                                        return_intermediates="stats")
+    for i, seed in enumerate([3, 4]):
+        ref, trace = pipeline.transfer_pair(model, cnt[i], stl[i], 2.0,
+                                            config, seed=seed,
+                                            return_intermediates="stats")
+        diff = (got[i].int() - ref.int()).abs().cpu().numpy()
+        assert (diff <= 2).mean() >= 0.95 and diff.mean() <= 0.5
+        for key in ("nl_iters", "wls_iters"):
+            assert [t[key] for t in traces[i]] == [int(t[key]) for t in trace]
+
+
 def test_mixed_devices_raise(card):
     a = torch.zeros(5, 6, 32, device=card)
     with pytest.raises(ValueError, match="one device"):

@@ -111,11 +111,16 @@ def test_scan_batch_bitwise_equals_per_pair_loop(batch_pairs):
     torch.testing.assert_close(auto, out, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("kwargs", [{"mode": "vmap"}, {"mesh": object()},
-                                    {"mesh": object(), "mode": "scan"}])
+@pytest.mark.parametrize("kwargs", [
+    {"mode": "vmap", "config": Config(fine_strategy="patchmatch")},
+    {"mesh": object()}, {"mesh": object(), "mode": "scan"}])
 def test_vmap_and_mesh_not_ported(kwargs):
+    """A mesh is not ported; the vmap mode runs the default Config family
+    (tests/test_torch_batch.py) and raises for the rest."""
+    kwargs = dict(kwargs)
+    config = kwargs.pop("config", SMALL)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbatch.make_batch_transfer(SMALL, device="cpu", **kwargs)
+        tbatch.make_batch_transfer(config, device="cpu", **kwargs)
 
 
 def test_batch_without_device_needs_a_card():
