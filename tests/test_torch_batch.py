@@ -15,8 +15,6 @@ here: the scan mode is already held against JAX.
 
 import json
 import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -409,14 +407,14 @@ BATCH_STAGES = ["nn_directed_L3", "bds_vote_L3", "knn_graph_L3",
                 "knn_graph_L4", "nonlocal_mg6_L4", "wls_mg8_fullres"]
 
 
-def test_profile_batch_stages_cpu_small():
-    env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run(
-        [sys.executable, "-m", "nct_tpu_torch.tools.profile_batch_stages",
-         "--device", "cpu", "--small", "--reps", "1", "--batch", "3"],
-        capture_output=True, text=True, env=env, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    lines = proc.stdout.strip().splitlines()
+def test_profile_batch_stages_cpu_small(capsys):
+    """The tool's main in this process, on the file's one thread (a new
+    process would take every core while the other test workers run)."""
+    from nct_tpu_torch.tools import profile_batch_stages
+
+    assert profile_batch_stages.main(
+        ["--device", "cpu", "--small", "--reps", "1", "--batch", "3"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
     result = json.loads(lines[-1])
     assert result["device"] == "cpu" and result["batch"] == 3
     assert list(result["stages"]) == BATCH_STAGES

@@ -226,7 +226,8 @@ def _pairs_dir(tmp_path):
 def test_cli_cpu_run(tmp_path):
     d = _pairs_dir(tmp_path)
     out = tmp_path / "out"
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # one thread, as in this process: the other test workers share the cores
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-m", "nct_tpu_torch.cli", "-i", str(d), "-o",
          str(out), "--device", "cpu", "--size", "48"],
@@ -246,6 +247,7 @@ def test_cli_cuda_without_card_raises(tmp_path):
 def test_port_never_imports_jax():
     code = (
         "import sys, numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
         "import nct_tpu_torch, nct_tpu_torch.cli, nct_tpu_torch.io\n"
         "import nct_tpu_torch.utils.profiling\n"
         "import nct_tpu_torch.tools.profile_stages\n"

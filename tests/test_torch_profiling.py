@@ -6,9 +6,6 @@ end in one JSON line.  Its times on the card come from chip_smoke.py.
 """
 
 import json
-import os
-import subprocess
-import sys
 
 import pytest
 import torch
@@ -17,7 +14,6 @@ from nct_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAGES = [
     "vgg_5taps",
     "exact_nn_L2", "nn_directed_L2", "nn_bidir_L2", "bds_vote_L2",
@@ -30,19 +26,19 @@ STAGES = [
 ]
 
 
-def test_profile_stages_cpu_small():
-    env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run(
-        [sys.executable, "-m", "nct_tpu_torch.tools.profile_stages",
-         "--device", "cpu", "--small", "--reps", "1"],
-        capture_output=True, text=True, env=env, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    lines = proc.stdout.strip().splitlines()
-    result = json.loads(lines[-1])
+def test_profile_stages_cpu_small(capsys):
+    """The tool's main in this process, on the file's one thread (a new
+    process would take every core while the other test workers run)."""
+    from nct_tpu_torch.tools import profile_stages
+
+    assert profile_stages.main(["--device", "cpu", "--small", "--reps",
+                                "1"]) == 0
+    out = capsys.readouterr().out
+    result = json.loads(out.strip().splitlines()[-1])
     assert result["device"] == "cpu" and result["shapes"] == "small"
     assert list(result["stages_ms"]) == STAGES
     for name in STAGES:
-        assert f"{name}: " in proc.stdout
+        assert f"{name}: " in out
         assert result["stages_ms"][name] > 0.0
 
 

@@ -174,7 +174,7 @@ def test_caffemodel_convert_and_load(tmp_path, rng, layer_field, name_field,
     proc = subprocess.run(
         [sys.executable, "-m", "nct_tpu_torch.tools.convert_vgg19", str(path),
          str(npz)], capture_output=True, text=True, timeout=120,
-        env=dict(os.environ, PYTHONPATH=REPO))
+        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr
     assert "converted 5 layers" in proc.stdout
     model = tvgg.load_params(str(npz))
