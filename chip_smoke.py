@@ -59,14 +59,23 @@ no result, without them.  Phases, each of which raises on failure:
      times against 4 single launches, the bound (4 x the single bound)
      and a cuBLAS batched GEMM (``torch.bmm``) over the same tables;
      (b) ``make_batch_transfer(Config(), mode="vmap")`` on phase 8b's 4
-     pairs, one cold and two warm runs plus one traced run, every output
-     bitwise equal to the first, 4 ``nn_bidir`` launches of 16 items per
-     bucket, a stage split of one more bucket, and each item against 8b's
-     scan item: the same solver
-     iteration counts per level, within 2 LSB at >= 95% of values and a
-     mean difference <= 0.5 (the JAX package's batch contract), with the
-     seconds per pair of both; (c) ``nct_tpu_torch.tools.
-     profile_batch_stages`` at its real shapes, b = 1 and b = 4.
+     pairs, one cold (traced) and two warm runs, every output bitwise
+     equal to the first, 4 ``nn_bidir`` launches of 16 items per bucket, a
+     stage split of one more bucket, and each item against 8b's scan
+     item: the same solver iteration counts per level, within 2 LSB at
+     >= 95% of values and a mean difference <= 0.5 (the JAX package's
+     batch contract), with the seconds per pair of both; (c)
+     ``nct_tpu_torch.tools.profile_batch_stages`` at its real shapes,
+     b = 1 and b = 4;
+ 10. vmap of every single-card Config, on phase 8b's pairs, each bucket
+     beside a scan of the same items in the same call and held to 9b's
+     checks: (a) ``Config(fine_strategy="patchmatch")``, B = 4 (4
+     ``nn_bidir`` launches of 16 items, batched PatchMatch at L4); (b)
+     ``Config.reference_parity()``, B = 2 (PatchMatch at every level,
+     block-Jacobi at tol 1e-6; no NN launch), with a stage split of one
+     more bucket; (c) ``Config(knn_memberships=3, nl_transpose="scatter",
+     wls_precond="jacobi")``, B = 4 (4 launches of 16 items, the folded
+     P = 3 merge, the scatter transpose, Jacobi WLS).
 
 The line before the last holds {"kernels": [...]}, the one before it the
 card's name and power limit; the last line is {"ok": true, "device": ...}.
@@ -868,78 +877,154 @@ def check_batched_kernels(torch, bidir: dict, directed: dict) -> None:
                 rec["batched_bmm_ms_by_level"].append(bmm)
 
 
-def check_vmap_bucket(torch, scan: dict) -> dict:
-    """Phase 9b: the vmap bucket of phase 8b's pairs against 8b's scan
-    items; returns the bucket's launch and item counts."""
+def _vmap_bucket(torch, label, model, config, cnt_b, stl_b, seeds, scan,
+                 warm_runs: int, split: bool = False) -> dict:
+    """One cold run (traced for the iteration counts) and ``warm_runs``
+    warm runs of ``make_batch_transfer(config, mode="vmap")`` on the
+    bucket, each with the kernel counts set to 0 just before it and read
+    just after; every warm output bitwise the cold one, and each item held
+    to the batch contract of its scan item (``scan``: "outs", "traces" and
+    the scan's seconds "s").  With ``split``, a stage split of one more
+    warm bucket.  Returns the bucket's launch and item counts and times."""
     import numpy as np
 
-    from nct_tpu_torch import Config, pipeline
-    from nct_tpu_torch.models import vgg19
+    from nct_tpu_torch import pipeline
     from nct_tpu_torch.ops import cuda_nn
     from nct_tpu_torch.parallel.batch import make_batch_transfer
 
-    model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
-    config = Config()
-    cnt_b, stl_b, seeds = scan["cnt_b"], scan["stl_b"], scan["seeds"]
     bsz = len(seeds)
-    want = {"nn_bidir": config.exact_nn_levels, "nn_directed": 0}
-    want_items = {"nn_bidir": bsz * config.exact_nn_levels, "nn_directed": 0}
+    exact = min(config.exact_nn_levels, config.num_levels)
+    want = {"nn_bidir": exact, "nn_directed": 0}
+    want_items = {"nn_bidir": bsz * exact, "nn_directed": 0}
     batch = make_batch_transfer(config, mode="vmap")
     torch.cuda.reset_peak_memory_stats()
-    times, outs = [], []
-    for run in range(3):
+    times, first, traces = [], None, None
+    for run in range(1 + warm_runs):
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        outs.append(batch(model, cnt_b, stl_b, seeds, 2.0))
+        if run == 0:
+            out, traces = pipeline.transfer_batch(
+                model, cnt_b, stl_b, 2.0, config, seeds=seeds,
+                return_intermediates="stats")
+        else:
+            out = batch(model, cnt_b, stl_b, seeds, 2.0)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         counts = (dict(cuda_nn.LAUNCHES), dict(cuda_nn.LAUNCH_ITEMS))
-        log(f"[vmap] bucket run {run} ({'cold' if run == 0 else 'warm'}): "
+        log(f"[{label}] bucket run {run} ({'cold' if run == 0 else 'warm'}): "
             f"{times[-1]:.3f} s, kernel launches {counts[0]}, items "
             f"{counts[1]}")
         if counts != (want, want_items):
-            raise AssertionError(f"vmap bucket launches {counts}, expected "
+            raise AssertionError(f"[{label}] launches {counts}, expected "
                                  f"{(want, want_items)}")
-        if run and not torch.equal(outs[run], outs[0]):
-            raise AssertionError(f"vmap run {run} differs from run 0")
-    out, traces = pipeline.transfer_batch(
-        model, cnt_b, stl_b, 2.0, config, seeds=seeds,
-        return_intermediates="stats")
-    if not torch.equal(out, outs[0]):
-        raise AssertionError("the traced vmap run differs from run 0")
-    _stage_split(torch, "vmap", model, config, cnt_b, stl_b,
-                 run=lambda: batch(model, cnt_b, stl_b, seeds, 2.0))
-    broken = []
+        if run == 0:
+            first = out
+        elif not torch.equal(out, first):
+            raise AssertionError(f"[{label}] run {run} differs from run 0")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if split:
+        _stage_split(torch, label, model, config, cnt_b, stl_b,
+                     run=lambda: batch(model, cnt_b, stl_b, seeds, 2.0))
+    broken, shares = [], []
     for i in range(bsz):
-        got = outs[0][i].cpu().numpy().astype(int)
+        got = first[i].cpu().numpy().astype(int)
         ref = scan["outs"][i].cpu().numpy().astype(int)
         diff = np.abs(got - ref)
         within = float((diff <= BATCH_LSB).mean())
+        shares.append(float((diff == 0).mean()))
         its = [(t["nl_iters"], t["wls_iters"]) for t in traces[i]]
         ref_its = [(int(t["nl_iters"]), int(t["wls_iters"]))
                    for t in scan["traces"][i]]
-        log(f"[vmap] item {i} (seed {seeds[i]}) against its scan item: "
-            f"bitwise equal at {float((diff == 0).mean()):.4f} of values, "
-            f"<= {BATCH_LSB} LSB at {within:.4f}, mean |diff| "
-            f"{diff.mean():.4f}, max {diff.max()}; (nl, wls) iterations per "
-            f"level {its}, scan {ref_its}")
+        log(f"[{label}] item {i} (seed {seeds[i]}) against its scan item: "
+            f"bitwise equal at {shares[-1]:.4f} of values, <= {BATCH_LSB} "
+            f"LSB at {within:.4f}, mean |diff| {diff.mean():.4f}, max "
+            f"{diff.max()}; (nl, wls) iterations per level {its}, scan "
+            f"{ref_its}")
         if (within < BATCH_WITHIN_MIN or diff.mean() > BATCH_MEAN_MAX
                 or its != ref_its):
             broken.append(i)
     if broken:
-        raise AssertionError(f"vmap items {broken} break the batch contract")
+        raise AssertionError(f"[{label}] items {broken} break the batch "
+                             f"contract")
     mp = bsz * CONTENT_HW[0] * CONTENT_HW[1] / 1e6
     warm = statistics.median(times[1:])
-    log(f"[vmap] bucket of {bsz} pairs {CONTENT_HW[0]}x{CONTENT_HW[1]} / "
+    log(f"[{label}] bucket of {bsz} pairs {CONTENT_HW[0]}x{CONTENT_HW[1]} / "
         f"{STYLE_HW[0]}x{STYLE_HW[1]}: cold {times[0]:.3f} s "
         f"({times[0] / bsz:.3f} s per pair), warm "
         f"{[round(t, 3) for t in times[1:]]} s ({warm / bsz:.3f} s per "
-        f"pair, {mp / warm:.4f} MP/s); scan batch of phase 8b warm "
-        f"{scan['warm_s']:.3f} s ({scan['warm_s'] / bsz:.3f} s per pair, "
-        f"{mp / scan['warm_s']:.4f} MP/s); peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    return {"launches": want["nn_bidir"], "items": want_items["nn_bidir"]}
+        f"pair, {mp / warm:.4f} MP/s); scan of the same items "
+        f"{scan['s']:.3f} s ({scan['s'] / bsz:.3f} s per pair, "
+        f"{mp / scan['s']:.4f} MP/s); {scan['s'] / warm:.2f}x; bitwise "
+        f"share per item {[round(v, 4) for v in shares]}; peak device "
+        f"memory {peak:.2f} GiB")
+    return {"launches": want["nn_bidir"], "items": want_items["nn_bidir"],
+            "warm_s_per_pair": warm / bsz, "scan_s_per_pair": scan["s"] / bsz,
+            "peak_gib": peak}
+
+
+def check_vmap_bucket(torch, scan: dict) -> dict:
+    """Phase 9b: the vmap bucket of phase 8b's pairs against 8b's scan
+    items; returns the bucket's launch and item counts."""
+    from nct_tpu_torch import Config
+    from nct_tpu_torch.models import vgg19
+
+    model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
+    return _vmap_bucket(
+        torch, "vmap", model, Config(), scan["cnt_b"], scan["stl_b"],
+        scan["seeds"], {"outs": scan["outs"], "traces": scan["traces"],
+                        "s": scan["warm_s"]}, warm_runs=2, split=True)
+
+
+def _scan_items(torch, model, config, cnt_b, stl_b, seeds) -> dict:
+    """The scan of a bucket's items: ``transfer_pair`` per item in turn
+    (what ``make_batch_transfer(mode="scan")`` runs), with their traces."""
+    from nct_tpu_torch import pipeline
+
+    outs, traces = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, seed in enumerate(seeds):
+        out, trace = pipeline.transfer_pair(model, cnt_b[i], stl_b[i], 2.0,
+                                            config, seed=seed,
+                                            return_intermediates="stats")
+        outs.append(out)
+        traces.append(trace)
+    torch.cuda.synchronize()
+    return {"outs": outs, "traces": traces, "s": time.perf_counter() - t0}
+
+
+# phase 10: (label, Config, bucket size, warm runs, stage split)
+VMAP_CONFIGS = (
+    ("10a-pm", "patchmatch", 4, 2, False),
+    ("10b-parity", "parity", 2, 1, True),
+    ("10c-variants", "variants", 4, 2, False),
+)
+
+
+def check_vmap_configs(torch, scan: dict) -> dict:
+    """Phase 10: the vmap buckets of the Configs beyond the default family
+    on phase 8b's pairs, each beside a scan of the same items in the same
+    call; returns each bucket's launch and item counts."""
+    from nct_tpu_torch import Config
+    from nct_tpu_torch.models import vgg19
+
+    model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
+    configs = {
+        "patchmatch": Config(fine_strategy="patchmatch"),
+        "parity": Config.reference_parity(),
+        "variants": Config(knn_memberships=3, nl_transpose="scatter",
+                           wls_precond="jacobi"),
+    }
+    out = {}
+    for label, name, bsz, warm_runs, split in VMAP_CONFIGS:
+        config = configs[name]
+        cnt_b, stl_b = scan["cnt_b"][:bsz], scan["stl_b"][:bsz]
+        seeds = scan["seeds"][:bsz]
+        items = _scan_items(torch, model, config, cnt_b, stl_b, seeds)
+        out[label] = _vmap_bucket(torch, label, model, config, cnt_b, stl_b,
+                                  seeds, items, warm_runs, split)
+    return out
 
 
 def check_batch_profiler(torch) -> None:
@@ -986,6 +1071,12 @@ def main() -> int:
     bidir["vmap_bucket_items"] = bucket["items"]
     check_batch_profiler(torch)
     phase_done("phase 9 (vmap batch)")
+    buckets = check_vmap_configs(torch, scan)
+    bidir["vmap_config_buckets"] = {
+        label: {"launches": b["launches"], "items": b["items"]}
+        for label, b in buckets.items()}
+    phase_done("phase 10 (vmap of every single-card Config)")
+    log(f"[time] whole run {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [bidir, directed]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

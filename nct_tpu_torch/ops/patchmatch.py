@@ -64,17 +64,30 @@ def random_search_mags(rs_max: int, bh: int, bw: int) -> list[int]:
     return mags
 
 
-def _eval_candidates(pa, pam, pb_flat, pbm_flat, cand, valid, wb: int):
+def _eval_candidates(pa, pam, pb_flat, pbm_flat, cand, valid, wb: int,
+                     hb: int):
     """Masked cosine patch distance for a candidate field.
 
-    pa/pam: patchified A [Ha,Wa,K*C] f32 / [Ha,Wa,K]; pb_flat/pbm_flat:
-    patchified B [Hb*Wb,K*C] / [Hb*Wb,K]; cand [Ha,Wa,2] int32 (x, y);
-    valid [Ha,Wa] bool (+inf where False).
+    pa/pam: patchified A [..., Ha,Wa,K*C] f32 / [Ha,Wa,K]; pb_flat/pbm_flat:
+    patchified B [B*Hb*Wb,K*C] (the bucket's tables folded into rows) /
+    [Hb*Wb,K]; cand [..., Ha,Wa,2] int32 (x, y); valid [..., Ha,Wa] bool
+    (+inf where False).  With a leading batch axis, item i's candidates
+    index rows i*Hb*Wb on, and each item's row sums run as one call of its
+    own: a sum's order on the card follows the number of rows it covers,
+    so a batched sum would give other bits than the item's single call.
     """
-    flat = torch.clamp(cand[..., 1].long() * wb + cand[..., 0].long(), 0,
-                       pb_flat.shape[0] - 1)
-    num = -(pa * pb_flat[flat].float()).sum(-1)
-    cnt = (pam * pbm_flat[flat]).sum(-1)
+    local = torch.clamp(cand[..., 1].long() * wb + cand[..., 0].long(), 0,
+                        hb * wb - 1)
+    flat = local
+    if cand.dim() == 4:
+        flat = local + torch.arange(cand.shape[0], device=cand.device)[
+            :, None, None] * (hb * wb)
+    prod = pa * pb_flat[flat].float()
+    if cand.dim() == 4:
+        num = -torch.stack([p.sum(-1) for p in prod])
+    else:
+        num = -prod.sum(-1)
+    cnt = (pam * pbm_flat[local]).sum(-1)
     d = torch.where(cnt > 0, num / torch.clamp(cnt, min=1.0), 1.0)
     return torch.where(valid, d, float("inf"))
 
@@ -91,23 +104,29 @@ def patchmatch(a_norm: torch.Tensor, b_norm: torch.Tensor,
     [iters, n_mags, Ha, Wa, 2] in [0, 1), n_mags =
     max(len(random_search_mags(rs_max, Hb, Wb)), 1); by default drawn on
     the CPU from ``generator`` (or the global generator).
+
+    Batched (the counterpart of ``jax.vmap``): a_norm [B,Ha,Wa,C], b_norm
+    [B,Hb,Wb,C], nnf0 [B,Ha,Wa,2] and uniforms [B, iters, n_mags, Ha, Wa,
+    2]; every sweep runs once over the bucket, propagation rolls each
+    item's own (H, W) axes, and item i's result is bitwise its own call.
     """
-    ha, wa = a_norm.shape[0], a_norm.shape[1]
-    hb, wb = b_norm.shape[0], b_norm.shape[1]
+    ha, wa = a_norm.shape[-3], a_norm.shape[-2]
+    hb, wb = b_norm.shape[-3], b_norm.shape[-2]
+    lead = tuple(a_norm.shape[:-3])
     dev = a_norm.device
 
     pa, pam = patchify(a_norm, patch_size)
     pb, pbm = patchify(b_norm, patch_size)
-    k, c = pb.shape[2], pb.shape[3]
-    pa = pa.reshape(ha, wa, k * c).float()
+    k, c = pb.shape[-2], pb.shape[-1]
+    pa = pa.reshape(lead + (ha, wa, k * c)).float()
     pam = pam.float()
-    pb_flat = pb.reshape(hb * wb, k * c)
+    pb_flat = pb.reshape(-1, k * c)
     pbm_flat = pbm.reshape(hb * wb, k).float()
 
     ys = torch.arange(ha, dtype=torch.int32, device=dev)[:, None]
     xs = torch.arange(wa, dtype=torch.int32, device=dev)[None, :]
     mags = random_search_mags(rs_max, hb, wb)
-    shape = (iters, max(len(mags), 1), ha, wa, 2)
+    shape = lead + (iters, max(len(mags), 1), ha, wa, 2)
     if uniforms is None:
         uniforms = torch.rand(shape, generator=generator)
     if tuple(uniforms.shape) != shape:
@@ -116,9 +135,10 @@ def patchmatch(a_norm: torch.Tensor, b_norm: torch.Tensor,
     uniforms = uniforms.to(device=dev, dtype=torch.float32)
 
     def evaluate(cand, valid):
-        return _eval_candidates(pa, pam, pb_flat, pbm_flat, cand, valid, wb)
+        return _eval_candidates(pa, pam, pb_flat, pbm_flat, cand, valid, wb,
+                                hb)
 
-    nnf = nnf0.to(device=dev, dtype=torch.int32)
+    nnf = nnf0.to(device=dev, dtype=torch.int32).expand(lead + (ha, wa, 2))
     dbest = evaluate(nnf, torch.ones((ha, wa), dtype=torch.bool, device=dev))
 
     def improve(cand, valid):
@@ -132,7 +152,7 @@ def patchmatch(a_norm: torch.Tensor, b_norm: torch.Tensor,
         for j in _JUMPS:
             for dx, dy in _DIRS:
                 jx, jy = dx * j, dy * j
-                src = torch.roll(nnf, shifts=(jy, jx), dims=(0, 1))
+                src = torch.roll(nnf, shifts=(jy, jx), dims=(-3, -2))
                 cand_x = src[..., 0] + jx
                 cand_y = src[..., 1] + jy
                 valid = ((xs - jx >= 0) & (xs - jx < wa)
@@ -143,7 +163,7 @@ def patchmatch(a_norm: torch.Tensor, b_norm: torch.Tensor,
         # with no radius (rs_max < 1) the search is skipped, as JAX's mag-0
         # placeholder never improves; its uniforms go unused
         for mi, mag in enumerate(mags):
-            u = uniforms[it, mi]
+            u = uniforms[..., it, mi, :, :, :]
             xb, yb = nnf[..., 0], nnf[..., 1]
             xmin = torch.clamp(xb - mag, min=0)
             xmax = torch.clamp(xb + mag + 1, max=wb)

@@ -11,7 +11,7 @@ bucket of pairs that share (H, W), (Hs, Ws) and a BDS weight
   * ``mode="vmap"`` is its ``jax.vmap``: one batched pass of the pipeline
     (``pipeline.transfer_batch``), every stage over [B, ...] tensors, so
     the bucket pays about one pair's kernel launches and host syncs.  It
-    runs the default Config family (``pipeline.check_batch_config``).
+    runs every Config that ``pipeline.check_config`` accepts.
 
 ``mode="auto"`` is scan, as in the JAX package without a mesh.  A mesh (the
 ring-scheduled matcher over several cards) is not ported yet.
@@ -38,8 +38,8 @@ def make_batch_transfer(config: Config, mesh=None, mode: str = "auto",
     the same solver iteration counts) in the vmap mode.
 
     ``mode``: ``"scan"`` (and ``"auto"``) runs the pairs in turn; ``"vmap"``
-    runs them as one batched pass and raises NotImplementedError here for
-    the Config values it does not batch yet.  A mesh raises
+    runs them as one batched pass, for every Config the single pair runs
+    (``space_mesh`` raises NotImplementedError here).  A mesh raises
     NotImplementedError.
     """
     if mesh is not None:
@@ -50,7 +50,7 @@ def make_batch_transfer(config: Config, mesh=None, mode: str = "auto",
     if mode not in ("auto", "scan", "vmap"):
         raise ValueError(f"mode={mode!r}")
     if mode == "vmap":
-        pipeline.check_batch_config(config)
+        pipeline.check_config(config)
     device = pipeline._resolve_device(device)
 
     def scan(model, cnt_b, stl_b, seeds, bds_weight: float) -> torch.Tensor:

@@ -83,14 +83,21 @@ class GeneratorDraws:
 
 class BatchDraws:
     """The draws of a bucket: item i draws from ``GeneratorDraws(seeds[i])``
-    in the order ``transfer_pair`` draws, results stacked on a leading
-    batch axis."""
+    in the order ``transfer_pair`` draws (k-means, then per level the "ab"
+    and "ba" PatchMatch uniforms where PatchMatch runs, then the
+    candidates), results stacked on a leading batch axis."""
 
     def __init__(self, seeds):
         self.items = [GeneratorDraws(int(s)) for s in seeds]
 
     def kmeans_init(self, n: int, num_clusters: int) -> torch.Tensor:
         return torch.stack([d.kmeans_init(n, num_clusters)
+                            for d in self.items])
+
+    def patchmatch_uniforms(self, level: int, direction: str,
+                            shape: tuple) -> torch.Tensor:
+        """[B, *shape]: each item's uniforms of one PatchMatch call."""
+        return torch.stack([d.patchmatch_uniforms(level, direction, shape)
                             for d in self.items])
 
     def candidates(self, level: int, membership_pix: torch.Tensor,
@@ -105,7 +112,7 @@ class BatchDraws:
 def check_config(config: Config) -> None:
     """Raise for Config values the port does not run: NotImplementedError
     for ``space_mesh`` (it needs several cards), ValueError for unknown
-    values."""
+    values.  ``transfer_batch`` runs every Config this accepts."""
     if config.fine_strategy not in ("window", "patchmatch"):
         raise ValueError(f"fine_strategy={config.fine_strategy!r}")
     if config.space_mesh is not None:
@@ -114,25 +121,6 @@ def check_config(config: Config) -> None:
             "(ROADMAP Queue 1: ring_nn / mesh / space_mesh)")
     if config.feature_dtype not in ("bfloat16", "float32"):
         raise ValueError(f"feature_dtype={config.feature_dtype!r}")
-
-
-def check_batch_config(config: Config) -> None:
-    """Raise NotImplementedError for Config values ``transfer_batch`` does
-    not batch yet (the scan mode runs them)."""
-    excluded = [name for name, hit in (
-        ("fine_strategy='patchmatch'", config.fine_strategy == "patchmatch"),
-        ("exact_nn_levels=0", config.exact_nn_levels == 0),
-        (f"knn_memberships={config.knn_memberships}",
-         config.knn_memberships > 1),
-        ("nl_precond='block_jacobi'", config.nl_precond == "block_jacobi"),
-        ("wls_precond='jacobi'", config.wls_precond == "jacobi"),
-        ("nl_transpose='scatter'", config.nl_transpose == "scatter"),
-    ) if hit]
-    if excluded:
-        raise NotImplementedError(
-            f"the batched (vmap) pipeline does not run {', '.join(excluded)} "
-            f"yet; use mode='scan' (ROADMAP Queue 1: 'vmap for the "
-            f"remaining Configs')")
 
 
 def _resolve_device(device) -> torch.device:
@@ -247,17 +235,21 @@ def _level_match(config: Config, l: int, rs: int, draws, bds_weight: float,
         elif ann_prev is not None:      # video warm start
             ann0, bnn0 = ann_prev, bnn_prev
         else:
-            ann0 = nnf.init_scaled_identity(ah, aw, bh, bw, dev)
-            bnn0 = nnf.init_scaled_identity(bh, bw, ah, aw, dev)
+            # one field for every item of a bucket
+            lead = tuple(fc_n.shape[:-3])
+            ann0 = nnf.init_scaled_identity(ah, aw, bh, bw, dev).expand(
+                lead + (ah, aw, 2))
+            bnn0 = nnf.init_scaled_identity(bh, bw, ah, aw, dev).expand(
+                lead + (bh, bw, 2))
         iters = (config.pm_iters_fine if config.exact_nn_levels > 0
                  else config.pm_iters)
         fields = []
         for direction, (fa, fb, f0) in (("ab", (fc_n, fs_n, ann0)),
                                         ("ba", (fs_n, fc_n, bnn0))):
-            n_mags = max(len(random_search_mags(rs, fb.shape[0],
-                                                fb.shape[1])), 1)
+            n_mags = max(len(random_search_mags(rs, fb.shape[-3],
+                                                fb.shape[-2])), 1)
             u = draws.patchmatch_uniforms(
-                l, direction, (iters, n_mags, fa.shape[0], fa.shape[1], 2))
+                l, direction, (iters, n_mags, fa.shape[-3], fa.shape[-2], 2))
             fields.append(patchmatch(fa, fb, f0, u, iters, rs, ps)[0])
         ann, bnn = fields
 
@@ -454,16 +446,17 @@ def transfer_batch(
     draws.  Every stage runs once over the bucket with a leading batch axis
     (the NN kernel over its batch grid axis, the solves as grouped PCG), so
     item i matches its own ``transfer_pair`` up to summation order, with
-    the same solver iteration counts.  ``device`` defaults to ``cuda`` and
-    raises without a card; ``device="cpu"`` runs the plain path.  Config
-    values outside ``check_batch_config`` raise NotImplementedError.
+    the same solver iteration counts.  It runs every Config that
+    ``check_config`` accepts (PatchMatch levels with each item's own
+    uniforms, every preconditioner, transpose and membership count); only
+    ``space_mesh`` raises.  ``device`` defaults to ``cuda`` and raises
+    without a card; ``device="cpu"`` runs the plain path.
 
     Returns the uint8 BGR results [B, H, W, 3] on ``device``; with
     ``return_intermediates`` also one trace list per item, as
     ``transfer_pair`` gives it.
     """
     check_config(config)
-    check_batch_config(config)
     device = _resolve_device(device)
     model = model.to(device)
     cnt = _as_image(cnt_b, device)

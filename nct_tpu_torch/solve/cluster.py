@@ -93,7 +93,9 @@ def multi_labels_for_pixels(label_map: torch.Tensor, membership: torch.Tensor,
                             h: int, w: int, stride: int,
                             num_memberships: int) -> torch.Tensor:
     """Per-pixel list of up to P cluster memberships, primary first:
-    int64 [h, w, min(P, K)].
+    int64 [h, w, min(P, K)] (label_map [lh, lw], membership [K, lh, lw]);
+    with a leading batch axis on both, [B, h, w, min(P, K)], each item
+    ranked on its own scores.
 
     Cell scores are 2 for the primary cluster, 1 for a dilated member and 0
     otherwise; the P best are taken stably (equal scores keep the lower
@@ -101,15 +103,15 @@ def multi_labels_for_pixels(label_map: torch.Tensor, membership: torch.Tensor,
     the primary cluster (its duplicate candidates are deduplicated by
     ``knn_graph``).
     """
-    k = membership.shape[0]
+    k = membership.shape[-3]
     ks = torch.arange(k, device=label_map.device)
-    primary = label_map[None, :, :] == ks[:, None, None]
-    score = (membership.long() + primary.long()).permute(1, 2, 0)
+    primary = label_map[..., None, :, :] == ks[:, None, None]
+    score = (membership.long() + primary.long()).movedim(-3, -1)
     order = torch.argsort(score, dim=-1, descending=True,
                           stable=True)[..., :min(num_memberships, k)]
     got = torch.gather(score, -1, order)
     cells = torch.where(got > 0, order, order[..., :1])
-    lh, lw = label_map.shape
+    lh, lw = label_map.shape[-2], label_map.shape[-1]
     ys = _cells(h, stride, lh, label_map.device)
     xs = _cells(w, stride, lw, label_map.device)
-    return cells[ys[:, None], xs[None, :], :]
+    return cells[..., ys[:, None], xs[None, :], :]

@@ -61,12 +61,14 @@ def knn_graph(
     the flattened [K*M] candidate table.  ``chunk`` query rows are scored at
     a time.
 
-    Batched (lab_unit [B, H, W, 3], pixel_labels [B, H, W], candidates [B,
-    K, M]; single membership only): the bucket folds into the row axis as
-    one graph whose clusters are disjoint across items (labels offset by
-    i*K, candidate ids by i*N), so each item's rows, chunks and picks are
-    its own and the result, [B, N, k] with item-local ids and slots, is
+    Batched (lab_unit [B, H, W, 3], pixel_labels [B, H, W] or [B, H, W,
+    P], candidates [B, K, M]): the bucket folds into the row axis as one
+    graph whose clusters are disjoint across items (labels offset by i*K,
+    candidate ids by i*N), so each item's rows, chunks and picks are its
+    own and the result, [B, N, k] with item-local ids and slots, is
     bitwise each item's own graph; one host sync for the whole bucket.
+    The P > 1 merge scores every row on its own, so its fold is bitwise by
+    construction (the JAX package vmaps it plainly, with the same result).
     """
     if lab_unit.dim() == 4:
         return _knn_graph_folded(lab_unit, pixel_labels, candidates, k_num,
@@ -146,19 +148,22 @@ def _knn_graph_folded(lab_unit: torch.Tensor, pixel_labels: torch.Tensor,
     """The batch folded into rows (counterpart of the JAX package's
     ``_knn_custom_vmap`` rule, ``nct_tpu/solve/knn.py:180-213``)."""
     b, h, w, _ = lab_unit.shape
-    if pixel_labels.dim() == 4 and pixel_labels.shape[-1] > 1:
-        raise NotImplementedError(
-            "the batched k-NN graph takes one membership per pixel "
-            "(ROADMAP: 'vmap for the remaining Configs')")
     n = h * w
     dev = lab_unit.device
     kc, m = candidates.shape[-2], candidates.shape[-1]
     boff = torch.arange(b, device=dev)[:, None]
-    labels = pixel_labels.reshape(b, n).long() + boff * kc
-    cands = candidates.long().to(dev) + boff[..., None] * n
-    ids, wts, slots = _knn_graph_sorted(
-        lab_unit.reshape(b * n, 3).float(), labels.reshape(-1),
-        cands.reshape(b * kc, m), k_num, chunk)
+    multi = pixel_labels.dim() == 4 and pixel_labels.shape[-1] > 1
+    labels = (pixel_labels.reshape(b, n, -1).long()
+              + boff[..., None] * kc).reshape(b * n, -1)
+    cands = (candidates.long().to(dev)
+             + boff[..., None] * n).reshape(b * kc, m)
+    colors = lab_unit.reshape(b * n, 3).float()
+    if multi:
+        ids, wts, slots = _knn_graph_multi(colors, labels, cands, k_num,
+                                           chunk)
+    else:
+        ids, wts, slots = _knn_graph_sorted(colors, labels.reshape(-1),
+                                            cands, k_num, chunk)
     return (ids.reshape(b, n, k_num) - boff[..., None] * n,
             wts.reshape(b, n, k_num),
             slots.reshape(b, n, k_num) - boff[..., None] * (kc * m))

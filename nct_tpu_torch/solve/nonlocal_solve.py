@@ -257,12 +257,14 @@ def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
 
     Batched: every operand gains a leading batch axis (src_lab [B, H, W,
     3], ids [B, N, k], candidates [B, K, M], ...) and the B systems are
-    solved as one.  The grid terms and the V-cycle take the batch as a
-    leading axis; the graph folds into the row axis (ids offset by i*N,
-    slots by i*K*M), each item's in-edges ranked on its own keys and capped
-    at its own width, so the table keeps each item's own pairs (the table
-    is as wide as the widest item's).  Only the mg V-cycle with slot-keyed
-    tables is batched.
+    solved as one, under every option.  The grid terms, the V-cycle and the
+    block-Jacobi inverse take the batch as a leading axis; the graph folds
+    into the row axis (ids offset by i*N, slots by i*K*M), each item's
+    in-edges ranked on its own keys (slots or pixels) and capped at its own
+    width, so the table keeps each item's own pairs (the table is as wide
+    as the widest item's, and each item's in-degree sums over its own
+    width).  The scatter transpose deposits each pair at its folded target:
+    a target only ever receives its own item's pairs, in their order.
     """
     if precond_kind not in PRECOND_KINDS:
         raise ValueError(f"precond_kind={precond_kind!r}")
@@ -285,16 +287,11 @@ def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
     use_slots = candidates is not None and nbr_slots is not None
     if transpose == "auto":
         transpose = "scatter" if n * k > _TABLES_MAX_PAIRS else "tables"
-    if batched and not (use_slots and transpose == "tables"
-                        and precond_kind == "mg"):
-        raise NotImplementedError(
-            "the batched nonlocal system runs the mg preconditioner with "
-            "slot-keyed tables only (ROADMAP: 'vmap for the remaining "
-            "Configs')")
     # every item's graph folded into rows: pixel p of item i is row i*N + p
     goff = torch.arange(g, device=dev)[:, None]
     pair_w = (nbr_w.float() * (nonlocal_weight / k)).reshape(g * n, k)
     nbr_ids = nbr_ids.long()
+    ids_local = nbr_ids.reshape(g, n * k)
     if batched:
         nbr_ids = nbr_ids + goff[..., None] * n
     nbr_ids = nbr_ids.reshape(g * n, k)
@@ -339,9 +336,9 @@ def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
                 pair_w.reshape(g, -1), 0.0, 15.0)
         else:
             # pixel-keyed: each target pixel keeps its first 2k in-edges
-            n_targets = n
-            in_max = min(2 * k, n_pairs)
-            flat_t = ids_flat.reshape(1, -1)
+            n_targets = n // g
+            in_max = min(2 * k, n_pairs // g)
+            flat_t = ids_local
             sort_key = flat_t
         # rank of each pair among its item's in-edges of the same target
         order, sorted_t, rank = _rank_in_targets(flat_t, sort_key)
@@ -374,28 +371,38 @@ def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
         in_tab_c = torch.clamp(in_tab, max=n * k - 1)
         in_src = torch.where(valid, in_tab_c // k, 0)
         in_w = torch.where(valid, pair_w_flat[in_tab_c], 0.0)
+        # each item's target sums over a table of its own width, as its own
+        # solve sums them (the card's row sum peels rows by their
+        # alignment)
+        target_sums = torch.cat([
+            torch.sum(in_w[i * item_targets:(i + 1) * item_targets,
+                           :wi].contiguous(), dim=1)
+            for i, wi in enumerate(widths)])
         if use_slots:
-            # each item's slot sums over a table of its own width, as its
-            # own solve sums them (the card's row sum peels rows by their
-            # alignment); they land on their pixels through one sorted
-            # scatter
-            slot_sums = torch.cat([
-                torch.sum(in_w[i * item_targets:(i + 1) * item_targets,
-                               :wi].contiguous(), dim=1)
-                for i, wi in enumerate(widths)])
+            # slot sums land on their pixels through one sorted scatter
             cs_order = torch.argsort(cand_flat, stable=True)
             cs_ids = cand_flat[cs_order]
             in_deg = torch.zeros(n, dtype=torch.float32, device=dev)
-            in_deg.index_put_((cs_ids,), slot_sums[cs_order],
+            in_deg.index_put_((cs_ids,), target_sums[cs_order],
                               accumulate=True)
         else:
-            in_deg = torch.sum(in_w, dim=1)
+            in_deg = target_sums
         both_deg = (torch.sum(pair_w, dim=1) + in_deg)[:, None]
 
         def nl_apply(u):
             """u [N, C] -> sum_j w_ij (u_i - u_j) over both edge directions."""
             out_sum = torch.sum(pair_w[..., None] * out_gather(u), dim=1)
-            in_sum = torch.sum(in_w[..., None] * u[in_src], dim=1)
+            in_prod = in_w[..., None] * u[in_src]
+            if g == 1:
+                in_sum = torch.sum(in_prod, dim=1)
+            else:
+                # each item sums its targets over its own width: a CPU sum
+                # groups its terms by the row's length, so zero padding to
+                # the widest item's width would move the item's bits
+                in_sum = torch.cat([
+                    torch.sum(in_prod[i * item_targets:(i + 1)
+                                      * item_targets, :wi], dim=1)
+                    for i, wi in enumerate(widths)])
             if use_slots:
                 in_sum_c, in_sum = in_sum, torch.zeros_like(u)
                 in_sum.index_put_((cs_ids,), in_sum_c[cs_order],

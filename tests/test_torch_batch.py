@@ -254,15 +254,28 @@ def test_solve_nonlocal_batched_vs_items(rng, in_cap):
 
 
 def test_batched_nonlocal_refuses_unbatched_options(rng):
+    """The options the batched system once refused (block-Jacobi, the
+    scatter transpose, pixel-keyed tables) now build over the fold: A x and
+    the preconditioner are bitwise each item's own system's."""
     d, e, nf = _nl_items(rng)
-    args = [T(np.stack([np.asarray(d[k]), np.asarray(e[k])]))
-            for k in ("src_lab", "ref_lab", "confidence", "nbr_ids", "nbr_w")]
+    keys = ("src_lab", "ref_lab", "confidence", "nbr_ids", "nbr_w")
+    args = [T(np.stack([np.asarray(d[k]), np.asarray(e[k])])) for k in keys]
     slots = {"candidates": T(np.stack([d["candidates"], e["candidates"]])),
              "nbr_slots": T(np.stack([d["nbr_slots"], e["nbr_slots"]]))}
+    x = [T(rng.standard_normal((2,) + d["a0"].shape).astype(np.float32))
+         for _ in range(2)]
     for kw in ({"precond_kind": "block_jacobi", **slots},
                {"transpose": "scatter", **slots}, {}):
-        with pytest.raises(NotImplementedError, match="vmap for the"):
-            tnl.make_nonlocal_system(*args, nf, **kw)
+        op, _, pc = tnl.make_nonlocal_system(*args, nf, **kw)
+        got_op, got_pc = op(tuple(x)), pc(tuple(x))
+        for i, item in enumerate((d, e)):
+            one = {k: (v[i] if isinstance(v, torch.Tensor) else v)
+                   for k, v in kw.items()}
+            op_i, _, pc_i = tnl.make_nonlocal_system(
+                *(T(item[k]) for k in keys), nf, **one)
+            xi = (x[0][i], x[1][i])
+            for g, w in zip(got_op + got_pc, op_i(xi) + pc_i(xi)):
+                assert torch.equal(g[i], w)
 
 
 # --- VGG, BDS vote, stats, clusters: against per-item calls -----------------
@@ -366,13 +379,28 @@ def test_vmap_trace_iterations_equal_transfer_pair(bucket):
     {"knn_memberships": 3}, {"nl_precond": "block_jacobi"},
     {"wls_precond": "jacobi"}, {"nl_transpose": "scatter"}])
 def test_vmap_excluded_configs_raise(bucket, overrides):
+    """The Config values the vmap mode once excluded now run there: each
+    item within the batch contract of its own pair, with its iteration
+    counts (only space_mesh and a mesh raise, below)."""
+    import dataclasses
+
     model, cnt, stl, seeds = bucket
-    config = Config(**overrides)
-    with pytest.raises(NotImplementedError, match="vmap for the remaining"):
-        tbatch.make_batch_transfer(config, mode="vmap", device="cpu")
-    with pytest.raises(NotImplementedError, match="vmap for the remaining"):
-        pipeline.transfer_batch(model, cnt, stl, 2.0, config, seeds=seeds,
-                                device="cpu")
+    config = dataclasses.replace(SMALL, **{
+        "exact_nn_levels": 1, "pm_iters": 2, "pm_iters_fine": 2,
+        **overrides})
+    got = tbatch.make_batch_transfer(config, mode="vmap", device="cpu")(
+        model, cnt, stl, seeds, 2.0)
+    _, traces = pipeline.transfer_batch(model, cnt, stl, 2.0, config,
+                                        seeds=seeds, device="cpu",
+                                        return_intermediates="stats")
+    for i, seed in enumerate(seeds):
+        ref, ref_trace = pipeline.transfer_pair(
+            model, cnt[i], stl[i], 2.0, config, seed=seed, device="cpu",
+            return_intermediates="stats")
+        _assert_mostly_equal(got[i].numpy(), ref.numpy())
+        for key in ("nl_iters", "wls_iters"):
+            assert [t[key] for t in traces[i]] == \
+                [int(t[key]) for t in ref_trace]
     # the scan mode still takes them
     tbatch.make_batch_transfer(config, mode="scan", device="cpu")
 
@@ -382,6 +410,12 @@ def test_vmap_mesh_and_bad_inputs_raise(bucket):
     with pytest.raises(NotImplementedError, match="ring_nn"):
         tbatch.make_batch_transfer(SMALL, mesh=object(), mode="vmap",
                                    device="cpu")
+    mesh_cfg = Config(space_mesh=object())
+    with pytest.raises(NotImplementedError, match="space_mesh"):
+        tbatch.make_batch_transfer(mesh_cfg, mode="vmap", device="cpu")
+    with pytest.raises(NotImplementedError, match="space_mesh"):
+        pipeline.transfer_batch(model, cnt, stl, 2.0, mesh_cfg, seeds=seeds,
+                                device="cpu")
     with pytest.raises(ValueError, match="mode"):
         tbatch.make_batch_transfer(SMALL, mode="pmap", device="cpu")
     fn = tbatch.make_batch_transfer(SMALL, mode="vmap", device="cpu")

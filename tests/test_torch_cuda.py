@@ -277,6 +277,101 @@ def test_vmap_bucket_matches_scan(card):
             assert [t[key] for t in traces[i]] == [int(t[key]) for t in trace]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_batched_patchmatch_bitwise_per_item(card, dtype):
+    """One PatchMatch over a batch of 3 against 3 single calls on the card:
+    each item's row sums run as a call of their own, so the bits agree."""
+    from nct_tpu_torch.ops.patchmatch import patchmatch, random_search_mags
+
+    g = torch.Generator().manual_seed(5)
+    a = torch.relu(torch.randn(3, 38, 57, 64, generator=g))
+    b = torch.relu(torch.randn(3, 50, 80, 64, generator=g))
+    a = (a / a.norm(dim=-1, keepdim=True).clamp(min=1e-12)).to(card, dtype)
+    b = (b / b.norm(dim=-1, keepdim=True).clamp(min=1e-12)).to(card, dtype)
+    nnf0 = torch.zeros(3, 38, 57, 2, dtype=torch.int32, device=card)
+    n_mags = len(random_search_mags(32, 50, 80))
+    u = torch.rand((3, 4, n_mags, 38, 57, 2), generator=g)
+    nnf, d = patchmatch(a, b, nnf0, u, 4, 32)
+    for i in range(3):
+        one = patchmatch(a[i], b[i], nnf0[i], u[i], 4, 32)
+        torch.testing.assert_close(nnf[i], one[0], rtol=0, atol=0)
+        torch.testing.assert_close(d[i], one[1], rtol=0, atol=0)
+
+
+def _nl_items_card(device):
+    """nl_L0 and a copy with another seeded graph, stacked on the card."""
+    from nct_tpu_torch.solve import knn
+
+    d = np.load(f"{FIXTURES}/nl_L0.npz")
+    rng = np.random.default_rng(6)
+    h, w, _ = d["src_lab"].shape
+    lab = torch.from_numpy(rng.uniform(0, 1, (h, w, 3)).astype(np.float32))
+    cands = torch.from_numpy(rng.integers(0, h * w, d["candidates"].shape))
+    ids, wts, slots = knn.knn_graph(
+        lab, torch.from_numpy(rng.integers(0, 10, (h, w))), cands)
+    e = {"src_lab": lab, "ref_lab": torch.from_numpy(d["ref_lab"][::-1].copy()),
+         "confidence": torch.from_numpy(d["confidence"]),
+         "nbr_ids": ids, "nbr_w": wts}
+    keys = ("src_lab", "ref_lab", "confidence", "nbr_ids", "nbr_w")
+    one = [{k: torch.from_numpy(np.asarray(d[k])).to(device) for k in keys},
+           {k: e[k].to(device) for k in keys}]
+    return one, float(d["norm_factor"]), keys
+
+
+@pytest.mark.parametrize("kw", [
+    {"transpose": "scatter"},
+    {"transpose": "scatter", "precond_kind": "block_jacobi"},
+    {"precond_kind": "block_jacobi"},
+], ids=["scatter", "bj-scatter", "bj-pixel-keyed"])
+def test_folded_nonlocal_operator_bitwise_per_item(card, kw):
+    """The graph folded into rows on the card: the scatter transpose (each
+    target takes its own item's pairs in their order) and pixel-keyed
+    tables give each item's A x and preconditioner bits."""
+    from nct_tpu_torch.solve.nonlocal_solve import make_nonlocal_system
+
+    items, nf, keys = _nl_items_card(card)
+    stacked = [torch.stack([it[k] for it in items]) for k in keys]
+    g = torch.Generator().manual_seed(2)
+    x = tuple(torch.randn((2,) + tuple(items[0]["src_lab"].shape),
+                          generator=g).to(card) for _ in range(2))
+    op, _, pc = make_nonlocal_system(*stacked, nf, **kw)
+    got = op(x) + pc(x)
+    for i, it in enumerate(items):
+        op_i, _, pc_i = make_nonlocal_system(*(it[k] for k in keys), nf,
+                                             **kw)
+        xi = (x[0][i], x[1][i])
+        for a, b in zip(got, op_i(xi) + pc_i(xi)):
+            torch.testing.assert_close(a[i], b, rtol=0, atol=0)
+
+
+def test_vmap_bucket_parity_matches_scan(card):
+    """The reference-parity Config in the vmap mode on the card: 2 small
+    pairs, PatchMatch at every level and block-Jacobi at tol 1e-6 with no
+    NN launch; each item within the batch contract of its scan item and
+    with its iteration counts."""
+    from nct_tpu_torch import Config, pipeline
+    from nct_tpu_torch.models import vgg19
+
+    rng = np.random.default_rng(9)
+    cnt = rng.integers(0, 256, (2, 64, 80, 3)).astype(np.uint8)
+    stl = rng.integers(0, 256, (2, 72, 88, 3)).astype(np.uint8)
+    model = vgg19.init_params().to(card)
+    config = Config.reference_parity()
+    before = dict(cuda_nn.LAUNCHES)
+    got, traces = pipeline.transfer_batch(model, cnt, stl, 2.0, config,
+                                          seeds=[3, 4],
+                                          return_intermediates="stats")
+    assert cuda_nn.LAUNCHES == before
+    for i, seed in enumerate([3, 4]):
+        ref, trace = pipeline.transfer_pair(model, cnt[i], stl[i], 2.0,
+                                            config, seed=seed,
+                                            return_intermediates="stats")
+        diff = (got[i].int() - ref.int()).abs().cpu().numpy()
+        assert (diff <= 2).mean() >= 0.95 and diff.mean() <= 0.5
+        for key in ("nl_iters", "wls_iters"):
+            assert [t[key] for t in traces[i]] == [int(t[key]) for t in trace]
+
+
 def test_mixed_devices_raise(card):
     a = torch.zeros(5, 6, 32, device=card)
     with pytest.raises(ValueError, match="one device"):

@@ -112,11 +112,11 @@ def test_scan_batch_bitwise_equals_per_pair_loop(batch_pairs):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mode": "vmap", "config": Config(fine_strategy="patchmatch")},
+    {"mode": "vmap", "config": Config(space_mesh=object())},
     {"mesh": object()}, {"mesh": object(), "mode": "scan"}])
 def test_vmap_and_mesh_not_ported(kwargs):
-    """A mesh is not ported; the vmap mode runs the default Config family
-    (tests/test_torch_batch.py) and raises for the rest."""
+    """A mesh is not ported; the vmap mode runs every single-card Config
+    (tests/test_torch_batch_configs.py) and raises for space_mesh."""
     kwargs = dict(kwargs)
     config = kwargs.pop("config", SMALL)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
