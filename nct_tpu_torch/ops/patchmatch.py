@@ -64,8 +64,7 @@ def random_search_mags(rs_max: int, bh: int, bw: int) -> list[int]:
     return mags
 
 
-def _eval_candidates(pa, pam, pb_flat, pbm_flat, cand, valid, wb: int,
-                     hb: int):
+def _eval_candidates(pa, pam, pb_flat, pbm_flat, cand, valid, wb: int):
     """Masked cosine patch distance for a candidate field.
 
     pa/pam: patchified A [..., Ha,Wa,K*C] f32 / [Ha,Wa,K]; pb_flat/pbm_flat:
@@ -76,12 +75,13 @@ def _eval_candidates(pa, pam, pb_flat, pbm_flat, cand, valid, wb: int,
     own: a sum's order on the card follows the number of rows it covers,
     so a batched sum would give other bits than the item's single call.
     """
+    nb = pbm_flat.shape[0]
     local = torch.clamp(cand[..., 1].long() * wb + cand[..., 0].long(), 0,
-                        hb * wb - 1)
+                        nb - 1)
     flat = local
     if cand.dim() == 4:
         flat = local + torch.arange(cand.shape[0], device=cand.device)[
-            :, None, None] * (hb * wb)
+            :, None, None] * nb
     prod = pa * pb_flat[flat].float()
     if cand.dim() == 4:
         num = -torch.stack([p.sum(-1) for p in prod])
@@ -135,8 +135,7 @@ def patchmatch(a_norm: torch.Tensor, b_norm: torch.Tensor,
     uniforms = uniforms.to(device=dev, dtype=torch.float32)
 
     def evaluate(cand, valid):
-        return _eval_candidates(pa, pam, pb_flat, pbm_flat, cand, valid, wb,
-                                hb)
+        return _eval_candidates(pa, pam, pb_flat, pbm_flat, cand, valid, wb)
 
     nnf = nnf0.to(device=dev, dtype=torch.int32).expand(lead + (ha, wa, 2))
     dbest = evaluate(nnf, torch.ones((ha, wa), dtype=torch.bool, device=dev))

@@ -14,8 +14,6 @@ the pipeline files, and JAX's own vmap against its pairs in
 ``tests/test_parallel_batch.py``.
 """
 
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,41 +32,16 @@ from nct_tpu_torch.solve import cluster as tcl
 from nct_tpu_torch.solve import knn as tknn
 from nct_tpu_torch.solve import nonlocal_solve as tnl
 from nct_tpu_torch.solve import wls as twls
+from test_torch_batch import (
+    T, _assert_mostly_equal, _integer, _nl_items, _random_nnf,
+)
 
 torch.set_num_threads(1)
 
-FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 NL_ARGS = ("a0", "b0", "src_lab", "ref_lab", "confidence", "nbr_ids",
            "nbr_w")
 # tests/test_torch_solve_variants.py: solves at pinned iterations
 SOLVE_ATOL = 5e-5
-
-
-def T(x):
-    return torch.tensor(np.asarray(x))
-
-
-def _integer(rng, shape):
-    """{-2..2} features from a 3-vector palette per item: exact f32 sums
-    and many exactly tied patches."""
-    *lead, h, w, c = shape
-    out = [rng.integers(-2, 3, (3, c))[rng.integers(0, 3, (h, w))]
-           for _ in range(int(np.prod(lead)))]
-    return np.stack(out).reshape(shape).astype(np.float32)
-
-
-def _random_nnf(rng, b, h, w, th, tw):
-    return np.stack([rng.integers(0, tw, (b, h, w)),
-                     rng.integers(0, th, (b, h, w))], axis=-1).astype(np.int32)
-
-
-def _assert_mostly_equal(got, want, max_lsb=2, frac=0.95, mean_tol=0.5):
-    """The JAX package's batch contract (tests/test_parallel_batch.py)."""
-    diff = np.abs(np.asarray(got).astype(int) - np.asarray(want).astype(int))
-    assert (diff <= max_lsb).mean() >= frac, (
-        f"{(diff > max_lsb).mean():.2%} of values differ by more than "
-        f"{max_lsb} LSB (max {diff.max()})")
-    assert diff.mean() <= mean_tol, f"mean abs diff {diff.mean():.3f}"
 
 
 # --- PatchMatch --------------------------------------------------------------
@@ -179,25 +152,6 @@ def test_knn_graph_multi_folded_vs_vmap(rng):
 
 # --- block-Jacobi, the scatter transpose, pixel-keyed tables -----------------
 
-def _nl_items(rng):
-    """Two systems of one geometry: the captured nl_L0 fixture, and a
-    perturbed copy whose graph the port builds from other colours, labels
-    and candidates."""
-    d = dict(np.load(os.path.join(FIXTURES, "nl_L0.npz")))
-    h, w, _ = d["src_lab"].shape
-    lab = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
-    labels = rng.integers(0, 10, (h, w))
-    cands = rng.integers(0, h * w, d["candidates"].shape)
-    ids, wts, slots = tknn.knn_graph(T(lab), T(labels), T(cands))
-    e = {"a0": d["a0"] * 0.9, "b0": d["b0"] + 0.05, "src_lab": lab,
-         "ref_lab": rng.uniform(0, 1, (h, w, 3)).astype(np.float32),
-         "confidence": rng.uniform(0.1, 1, (h, w)).astype(np.float32),
-         "nbr_ids": ids.numpy().astype(np.int32), "nbr_w": wts.numpy(),
-         "candidates": cands.astype(np.int32),
-         "nbr_slots": slots.numpy().astype(np.int32)}
-    return [d, e], float(d["norm_factor"])
-
-
 NL_VARIANTS = {
     "block_jacobi": ({"precond_kind": "block_jacobi"}, True),
     "scatter": ({"precond_kind": "mg", "transpose": "scatter"}, True),
@@ -210,7 +164,8 @@ def test_solve_nonlocal_batched_variants(rng, variant):
     """Bitwise each item's own port solve; within SOLVE_ATOL of jax.vmap of
     the JAX solve, with the same (pinned) iteration counts."""
     kw, slots = NL_VARIANTS[variant]
-    items, nf = _nl_items(rng)
+    d, e, nf = _nl_items(rng)
+    items = [d, e]
     keys = NL_ARGS + (("candidates", "nbr_slots") if slots else ())
     stacked = {k: np.stack([np.asarray(it[k]) for it in items])
                for k in keys}
@@ -239,26 +194,6 @@ def test_solve_nonlocal_batched_variants(rng, variant):
                                atol=SOLVE_ATOL)
     np.testing.assert_allclose(b.numpy(), np.asarray(jb), rtol=0,
                                atol=SOLVE_ATOL)
-
-
-def test_scatter_transpose_folded_equals_items(rng):
-    """The scatter operator over a folded batch: each target receives its
-    own item's pairs in their order, so A x is bitwise each item's."""
-    items, nf = _nl_items(rng)
-    x = [rng.standard_normal((2,) + items[0]["a0"].shape).astype(np.float32)
-         for _ in range(2)]
-
-    def op(i=None):
-        pick = (lambda v: np.stack([np.asarray(it[v]) for it in items])) \
-            if i is None else (lambda v: np.asarray(items[i][v]))
-        return tnl.make_nonlocal_system(
-            *(T(pick(k)) for k in NL_ARGS[2:]), nf, transpose="scatter")[0]
-
-    got = op()((T(x[0]), T(x[1])))
-    for i in range(2):
-        one = op(i)((T(x[0][i]), T(x[1][i])))
-        for g, o in zip(got, one):
-            assert torch.equal(g[i], o)
 
 
 # --- Jacobi WLS ----------------------------------------------------------------
