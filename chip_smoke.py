@@ -75,7 +75,22 @@ no result, without them.  Phases, each of which raises on failure:
      block-Jacobi at tol 1e-6; no NN launch), with a stage split of one
      more bucket; (c) ``Config(knn_memberships=3, nl_transpose="scatter",
      wls_precond="jacobi")``, B = 4 (4 launches of 16 items, the folded
-     P = 3 merge, the scatter transpose, Jacobi WLS).
+     P = 3 merge, the scatter transpose, Jacobi WLS);
+ 11. mesh: 2 ranks spawned by ``parallel.mesh.launch``, both on the one
+     card (gloo): (a) ``ring_exact_nn`` a -> b and b -> a at the L0-L3
+     shapes, random and integer features, bitwise equal to
+     ``exact_nn_bidir`` on every rank with 2 x 2 ``nn_directed`` launches
+     per level, and at L3 the CUDA-event ms per ring step, the ring's ms
+     per direction beside one ``nn_bidir``, the host staging and the
+     matcher's peak bytes beside the single-card search's; (b) the default
+     pair under ``Config(space_mesh=mesh, vgg_compute_dtype="float32")``,
+     one cold and two warm runs, 16 ``nn_directed`` and no ``nn_bidir``
+     launch per pair per rank, both ranks bitwise equal to the
+     single-process pair; (c) ``make_batch_transfer(Config(), mesh)`` over
+     a 2x1 data mesh on phase 8b's 4 pairs, every item bitwise its 8b
+     scan item; (d) a vmap bucket of 2 under the 1x2 space mesh, each ring
+     step one launch of 2 items, each item bitwise its single-process
+     item under float32 VGG.
 
 The line before the last holds {"kernels": [...]}, the one before it the
 card's name and power limit; the last line is {"ok": true, "device": ...}.
@@ -1039,6 +1054,235 @@ def check_batch_profiler(torch) -> None:
         raise AssertionError(f"batch profiler: stages {bad} not timed")
 
 
+# phase 11: the ranks of the mesh phases (gloo, both on the one card)
+MESH_RANKS = 2
+
+
+def _ring_check(torch, mesh, a, b, timing=None) -> dict:
+    """The ring a -> b and b -> a against ``exact_nn_bidir`` of the same
+    features on this rank: bitwise flags, the directed launches of the two
+    rings, their CUDA-event times and the matcher's peak bytes beside the
+    single-card search's."""
+    from nct_tpu_torch.ops import cuda_nn
+    from nct_tpu_torch.parallel.ring_nn import ring_exact_nn
+
+    def measured(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end), (
+            torch.cuda.max_memory_allocated() - base)
+
+    ref, bidir_ms, bidir_bytes = measured(
+        lambda: cuda_nn.exact_nn_bidir(a, b, 3))
+    before = cuda_nn.LAUNCHES["nn_directed"]
+    ab, ab_ms, ab_bytes = measured(
+        lambda: ring_exact_nn(a, b, mesh, timing=timing))
+    ba, ba_ms, ba_bytes = measured(
+        lambda: ring_exact_nn(b, a, mesh, timing=timing))
+    rec = {"launches": cuda_nn.LAUNCHES["nn_directed"] - before,
+           "ring_ab_ms": ab_ms, "ring_ba_ms": ba_ms, "bidir_ms": bidir_ms,
+           "ring_peak_bytes": max(ab_bytes, ba_bytes),
+           "bidir_peak_bytes": bidir_bytes}
+    for name, got, want in (("ab", ab, ref[:2]), ("ba", ba, ref[2:])):
+        rec[f"{name}_bitwise"] = (torch.equal(got[0], want[0])
+                                  and torch.equal(got[1], want[1]))
+        rec[f"{name}_index_diff"] = int(
+            (got[0] != want[0]).any(-1).sum())
+        rec[f"{name}_max_d_diff"] = float((got[1] - want[1]).abs().max())
+    return rec
+
+
+def _mesh_runs(torch, runs: int, fn) -> dict:
+    """``runs`` synchronised runs of ``fn`` (the first cold), each with the
+    kernel counts set to 0 just before it and read just after; every
+    output must equal the first."""
+    from nct_tpu_torch.ops import cuda_nn
+
+    times, launches, first = [], None, None
+    torch.cuda.reset_peak_memory_stats()
+    for run in range(runs):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = (dict(cuda_nn.LAUNCHES), dict(cuda_nn.LAUNCH_ITEMS))
+        if run == 0:
+            first, launches = out, counts
+        elif counts != launches or not torch.equal(out, first):
+            raise AssertionError(f"run {run} differs from run 0 in its "
+                                 f"output or launches {counts}")
+    return {"out": first.cpu(), "s": times, "launches": launches[0],
+            "items": launches[1],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def mesh_rank(cnt_b, stl_b, seeds) -> dict:
+    """Phase 11 in one rank of a 2-rank gloo world on the one card (run by
+    ``parallel.mesh.launch``); returns what the parent checks and prints."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from nct_tpu_torch import Config, pipeline
+    from nct_tpu_torch.models import vgg19
+    from nct_tpu_torch.parallel.batch import make_batch_transfer
+    from nct_tpu_torch.parallel.mesh import make_mesh
+    from nct_tpu_torch.parallel.ring_nn import RingTiming
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    space = make_mesh(n_data=1, n_space=MESH_RANKS)
+    data = make_mesh(n_data=MESH_RANKS, n_space=1)
+    lead = space.index("space") == 0
+    out = {"rank": dist.get_rank(), "backend": space.backend,
+           "device": str(space.device), "ring": []}
+
+    # 11a: the ring at the L0-L3 shapes, random and integer features
+    gen = torch.Generator().manual_seed(11)
+    for lvl, (ha, wa, hb, wb, c) in enumerate(NN_SHAPES):
+        for integer in (False, True):
+            a = _features(torch, gen, ha, wa, c, integer)
+            b = _features(torch, gen, hb, wb, c, integer)
+            rec = _ring_check(torch, space, a, b)
+            rec.update(level=lvl, integer=integer)
+            if lvl == len(NN_SHAPES) - 1 and not integer:
+                timing = RingTiming()     # warm now: time one more pass
+                rec["timed"] = _ring_check(torch, space, a, b, timing)
+                rec["timed"].update(step_ms=timing.step_ms(),
+                                    staging_ms=timing.staging_s * 1e3,
+                                    wait_ms=timing.wait_s * 1e3)
+            out["ring"].append(rec)
+            del a, b
+    torch.cuda.empty_cache()
+
+    # 11b: the default pair under a 1x2 space mesh with float32 VGG
+    model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
+    cnt, stl = _pair(torch, torch.Generator().manual_seed(0), CONTENT_HW,
+                     STYLE_HW, smooth=False)
+    f32 = Config(vgg_compute_dtype="float32")
+    sharded = dataclasses.replace(f32, space_mesh=space)
+    dist.barrier()
+    out["pair"] = _mesh_runs(torch, 3, lambda: pipeline.transfer_pair(
+        model, cnt, stl, 2.0, sharded, seed=7))
+    if lead:
+        out["pair_single"] = pipeline.transfer_pair(
+            model, cnt, stl, 2.0, f32, seed=7).cpu()
+    torch.cuda.empty_cache()
+
+    # 11c: phase 8b's 4 pairs over a 2x1 data mesh, 2 per rank as vmap
+    dist.barrier()
+    out["data"] = _mesh_runs(torch, 2, lambda: make_batch_transfer(
+        Config(), data)(model, cnt_b, stl_b, seeds, 2.0))
+    torch.cuda.empty_cache()
+
+    # 11d: a bucket of 2 under the 1x2 space mesh, vmap (float32 VGG)
+    dist.barrier()
+    out["bucket"] = _mesh_runs(torch, 2, lambda: make_batch_transfer(
+        Config(), space)(model, cnt_b[:2], stl_b[:2], seeds[:2], 2.0))
+    if lead:
+        out["bucket_single"] = [pipeline.transfer_pair(
+            model, cnt_b[i], stl_b[i], 2.0, f32, seed=seeds[i]).cpu()
+            for i in range(2)]
+    return out
+
+
+def check_mesh(torch, scan: dict, directed: dict) -> None:
+    """Phase 11: ``mesh_rank`` in 2 ranks on the card; checks every rank's
+    results and prints them."""
+    from nct_tpu_torch import Config
+    from nct_tpu_torch.parallel.mesh import launch
+
+    exact = Config().exact_nn_levels
+    ring = 2 * MESH_RANKS * exact      # directed launches per pair per rank
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(mesh_rank, MESH_RANKS, scan["cnt_b"], scan["stl_b"],
+                   scan["seeds"])
+    log(f"[mesh] {MESH_RANKS} ranks ({ranks[0]['backend']}, "
+        f"{[r['device'] for r in ranks]}) done in "
+        f"{time.perf_counter() - t0:.1f} s with the spawn")
+    per_pair = {"nn_bidir": 0, "nn_directed": ring}
+    bad = []
+    for r in ranks:
+        for rec in r["ring"]:
+            kind = "integer" if rec["integer"] else "random"
+            log(f"[mesh] 11a rank {r['rank']} L{rec['level']} {kind}: ring "
+                f"bitwise nn_bidir a->b {rec['ab_bitwise']} b->a "
+                f"{rec['ba_bitwise']} (indices differing {rec['ab_index_diff']}"
+                f" / {rec['ba_index_diff']}, max |d diff| "
+                f"{rec['ab_max_d_diff']:.3g} / {rec['ba_max_d_diff']:.3g}); "
+                f"nn_directed launches {rec['launches']}")
+            if not (rec["ab_bitwise"] and rec["ba_bitwise"]
+                    and rec["launches"] == 2 * MESH_RANKS):
+                bad.append(f"11a rank {r['rank']} L{rec['level']} {kind}")
+            timed = rec.get("timed")
+            if timed:
+                steps = [round(v, 3) for v in timed["step_ms"]]
+                log(f"[mesh] 11a rank {r['rank']} L{rec['level']}: ms per "
+                    f"ring step {steps} (a->b, then b->a); ring a->b "
+                    f"{timed['ring_ab_ms']:.3f} ms, b->a "
+                    f"{timed['ring_ba_ms']:.3f} ms, one nn_bidir "
+                    f"{timed['bidir_ms']:.3f} ms; host staging "
+                    f"{timed['staging_ms']:.3f} ms, rotation wait "
+                    f"{timed['wait_ms']:.3f} ms; matcher peak "
+                    f"{timed['ring_peak_bytes'] / 2 ** 20:.1f} MiB against "
+                    f"the single-card search's "
+                    f"{timed['bidir_peak_bytes'] / 2 ** 20:.1f} MiB")
+                directed.setdefault("ring_step_ms_L3", []).append(steps)
+    single = ranks[0]["pair_single"]
+    mp = CONTENT_HW[0] * CONTENT_HW[1] / 1e6
+    for r in ranks:
+        p = r["pair"]
+        warm = statistics.median(p["s"][1:])
+        same = torch.equal(p["out"], single)
+        log(f"[mesh] 11b rank {r['rank']} space mesh 1x{MESH_RANKS} pair "
+            f"452x680 / 600x960: cold {p['s'][0]:.3f} s, warm "
+            f"{[round(t, 3) for t in p['s'][1:]]} s (median {warm:.3f} s, "
+            f"{mp / warm:.4f} MP/s), launches per pair {p['launches']}, "
+            f"peak {p['peak_gib']:.2f} GiB; bitwise the single-process pair: "
+            f"{same}")
+        if not same or p["launches"] != per_pair:
+            bad.append(f"11b rank {r['rank']}")
+        if not torch.equal(p["out"], ranks[0]["pair"]["out"]):
+            bad.append(f"11b rank {r['rank']} differs from rank 0")
+    directed["ring_launches"] = ranks[0]["pair"]["launches"]["nn_directed"]
+    for label, key, bsz, want in (
+            ("11c data mesh 2x1", "data", 4,
+             [o.cpu() for o in scan["outs"]]),
+            ("11d space mesh 1x2 bucket", "bucket", 2,
+             ranks[0]["bucket_single"])):
+        for r in ranks:
+            b = r[key]
+            same = [torch.equal(b["out"][i], want[i]) for i in range(bsz)]
+            warm = b["s"][1]
+            log(f"[mesh] {label} rank {r['rank']}: cold {b['s'][0]:.3f} s, "
+                f"warm {warm:.3f} s ({warm / bsz:.3f} s per pair of the "
+                f"bucket of {bsz}), launches {b['launches']}, items "
+                f"{b['items']}, peak {b['peak_gib']:.2f} GiB; items bitwise "
+                f"their single-process items: {same}")
+            if not all(same):
+                bad.append(f"{label} rank {r['rank']}")
+    for r in ranks:
+        if r["data"]["launches"] != {"nn_bidir": exact, "nn_directed": 0} or (
+                r["data"]["items"]["nn_bidir"] != 2 * exact):
+            bad.append(f"11c rank {r['rank']} launches")
+        if r["bucket"]["launches"] != {"nn_bidir": 0, "nn_directed": ring} or (
+                r["bucket"]["items"]["nn_directed"] != 2 * ring):
+            bad.append(f"11d rank {r['rank']} launches")
+    if bad:
+        raise AssertionError(f"phase 11 failed: {bad}")
+
+
 def main() -> int:
     import torch
 
@@ -1076,6 +1320,8 @@ def main() -> int:
         label: {"launches": b["launches"], "items": b["items"]}
         for label, b in buckets.items()}
     phase_done("phase 10 (vmap of every single-card Config)")
+    check_mesh(torch, scan, directed)
+    phase_done("phase 11 (mesh: ring, space and data meshes)")
     log(f"[time] whole run {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [bidir, directed]}))
     log(smi)

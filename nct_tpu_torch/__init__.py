@@ -12,7 +12,9 @@ package so each counterpart is easy to find:
                              caffemodel reader
   nct_tpu_torch.solve     -- k-means, k-NN graph, PCG solvers
   nct_tpu_torch.data      -- PNG codec, prefetching PairLoader
-  nct_tpu_torch.parallel  -- geometry buckets, scan-mode batch transfer
+  nct_tpu_torch.parallel  -- geometry buckets, batch transfer (scan, vmap,
+                             over a mesh), the torch.distributed mesh and
+                             the ring-scheduled exact matcher
   nct_tpu_torch.pipeline  -- the 5-level progressive ``transfer_pair`` and
                              the video path ``transfer_sequence``
   nct_tpu_torch.cli       -- pairs.txt batch CLI (python -m nct_tpu_torch.cli)

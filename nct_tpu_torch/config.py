@@ -4,8 +4,8 @@ The same fields and defaults as ``nct_tpu/config.py`` (whose comments give
 the reason for each default); the port keeps its own copy so that nothing
 it imports belongs to the JAX package.  ``tests/test_torch_pipeline.py``
 holds the two field lists, the defaults and the two methods below equal.
-``space_mesh``, which needs several cards, is the one field whose paths the
-port does not run yet: ``pipeline.check_config`` rejects it.
+``space_mesh`` takes a ``parallel.mesh.Mesh`` (ranks of ``torch.distributed``)
+where the JAX package takes a ``jax.sharding.Mesh``.
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ class Config:
     nl_in_cap: int = 128
     nl_transpose: str = "auto"
     knn_memberships: int = 1
-    space_mesh: object = None
+    space_mesh: object = None    # parallel.mesh.Mesh: ring at exact levels
     space_axis: str = "space"
 
     @classmethod

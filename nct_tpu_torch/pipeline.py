@@ -30,6 +30,15 @@ level loop with a leading batch axis on every tensor (the counterpart of
 so a bucket costs about one pair's launches.  Item i draws what
 ``transfer_pair(seed=seeds[i])`` draws, in the same order, and its solves
 run their own iterations (``cg_solve_grouped``).
+
+Under ``Config.space_mesh`` (a ``parallel.mesh.Mesh`` with more than one
+rank on ``space_axis``) every rank of the space group calls the function
+with the same pair or bucket: the exact levels search through the
+ring-scheduled matcher (``parallel.ring_nn``, the patch tables row-sharded
+over the ranks), and every other stage runs replicated on each rank's
+device, so the ranks return bitwise equal results.  The JAX package lets
+GSPMD shard those stages by rows with halo exchanges; here a rank's memory
+outside the matcher is a whole pair's.
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ from nct_tpu_torch.ops import bds, cuda_nn, features, nnf, resize
 from nct_tpu_torch.ops.color import bgr_u8_to_lab_u8, unit_lab_to_bgr_u8
 from nct_tpu_torch.ops.patchmatch import patchmatch, random_search_mags
 from nct_tpu_torch.ops.window_refine import window_refine
+from nct_tpu_torch.parallel.mesh import Mesh
+from nct_tpu_torch.parallel.ring_nn import ring_exact_nn
 from nct_tpu_torch.solve import cluster, knn, stats
 from nct_tpu_torch.solve.nonlocal_solve import solve_nonlocal
 from nct_tpu_torch.solve.wls import apply_transform, solve_wls
@@ -110,22 +121,25 @@ class BatchDraws:
 
 
 def check_config(config: Config) -> None:
-    """Raise for Config values the port does not run: NotImplementedError
-    for ``space_mesh`` (it needs several cards), ValueError for unknown
-    values.  ``transfer_batch`` runs every Config this accepts."""
+    """Raise ValueError for Config values the port does not know; a
+    ``space_mesh`` must be a ``parallel.mesh.Mesh``.  ``transfer_pair`` and
+    ``transfer_batch`` run every Config this accepts."""
     if config.fine_strategy not in ("window", "patchmatch"):
         raise ValueError(f"fine_strategy={config.fine_strategy!r}")
-    if config.space_mesh is not None:
-        raise NotImplementedError(
-            "space_mesh: the space-sharded ring search is not ported yet "
-            "(ROADMAP Queue 1: ring_nn / mesh / space_mesh)")
+    if config.space_mesh is not None and not isinstance(config.space_mesh,
+                                                        Mesh):
+        raise ValueError(f"space_mesh must be a parallel.mesh.Mesh, got "
+                         f"{type(config.space_mesh).__name__}")
     if config.feature_dtype not in ("bfloat16", "float32"):
         raise ValueError(f"feature_dtype={config.feature_dtype!r}")
 
 
-def _resolve_device(device) -> torch.device:
-    """``device`` or, by default, ``cuda``; raises when that is ``cuda`` and
-    no card is present (never carries on on the CPU unasked)."""
+def _resolve_device(device, config: Config | None = None) -> torch.device:
+    """``device`` or, by default, the space mesh's device, else ``cuda``;
+    raises when that is ``cuda`` and no card is present (never carries on
+    on the CPU unasked)."""
+    if device is None and config is not None and config.space_mesh is not None:
+        device = config.space_mesh.device
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("the pipeline runs on cuda unless device='cpu' is "
@@ -216,7 +230,13 @@ def _level_match(config: Config, l: int, rs: int, draws, bds_weight: float,
     fs = stl_feat_l.float()
     fc_n = features.l2_normalize(cnt_feat_l.float())[0].to(fdt)
     fs_n = features.l2_normalize(fs)[0].to(fdt)
-    if l < config.exact_nn_levels:
+    mesh = config.space_mesh
+    if l < config.exact_nn_levels and mesh is not None and (
+            mesh.shape[config.space_axis] > 1):
+        # row-sharded tables, one directed ring per direction
+        ann, _ = ring_exact_nn(fc_n, fs_n, mesh, config.space_axis, ps)
+        bnn, _ = ring_exact_nn(fs_n, fc_n, mesh, config.space_axis, ps)
+    elif l < config.exact_nn_levels:
         ann, _, bnn, _ = cuda_nn.exact_nn_bidir(fc_n, fs_n, ps)
     elif config.fine_strategy == "window" and l > 0:
         ann0 = nnf.upsample(ann_prev, ah, aw, bh, bw)
@@ -393,7 +413,9 @@ def transfer_pair(
 
     model: ``vgg19.VGG19`` (moved to ``device``); cnt/stl: uint8 BGR
     [H, W, 3] arrays or tensors, already capped to max_size.  ``device``
-    defaults to ``cuda`` and raises RuntimeError when no card is present;
+    defaults to the space mesh's device under ``config.space_mesh`` (every
+    rank of its space group then calls this with the same pair), else to
+    ``cuda``, and raises RuntimeError when no card is present;
     ``device="cpu"`` runs the plain PyTorch path.  ``draws`` supplies the
     k-means initial indices, PatchMatch uniforms and per-level candidates
     (default ``GeneratorDraws(seed)``).
@@ -406,7 +428,7 @@ def transfer_pair(
     level 0 ignores it).
     """
     check_config(config)
-    device = _resolve_device(device)
+    device = _resolve_device(device, config)
     model = model.to(device)
     if draws is None:
         draws = GeneratorDraws(seed)
@@ -448,16 +470,17 @@ def transfer_batch(
     item i matches its own ``transfer_pair`` up to summation order, with
     the same solver iteration counts.  It runs every Config that
     ``check_config`` accepts (PatchMatch levels with each item's own
-    uniforms, every preconditioner, transpose and membership count); only
-    ``space_mesh`` raises.  ``device`` defaults to ``cuda`` and raises
-    without a card; ``device="cpu"`` runs the plain path.
+    uniforms, every preconditioner, transpose and membership count, and a
+    ``space_mesh``, under which each ring step is one batched launch).
+    ``device`` defaults as in ``transfer_pair`` and raises without a card;
+    ``device="cpu"`` runs the plain path.
 
     Returns the uint8 BGR results [B, H, W, 3] on ``device``; with
     ``return_intermediates`` also one trace list per item, as
     ``transfer_pair`` gives it.
     """
     check_config(config)
-    device = _resolve_device(device)
+    device = _resolve_device(device, config)
     model = model.to(device)
     cnt = _as_image(cnt_b, device)
     stl = _as_image(stl_b, device)
@@ -500,7 +523,7 @@ def transfer_sequence(
     turn.  Returns an iterator of the uint8 BGR results on ``device``
     (default ``cuda``; raises here, before the first frame, without a
     card)."""
-    device = _resolve_device(device)
+    device = _resolve_device(device, config)
     if draws is None:
         draws = GeneratorDraws(seed)
 

@@ -381,7 +381,7 @@ def test_vmap_trace_iterations_equal_transfer_pair(bucket):
 def test_vmap_excluded_configs_raise(bucket, overrides):
     """The Config values the vmap mode once excluded now run there: each
     item within the batch contract of its own pair, with its iteration
-    counts (only space_mesh and a mesh raise, below)."""
+    counts (a space_mesh or mesh of the wrong type raises, below)."""
     import dataclasses
 
     model, cnt, stl, seeds = bucket
@@ -406,14 +406,16 @@ def test_vmap_excluded_configs_raise(bucket, overrides):
 
 
 def test_vmap_mesh_and_bad_inputs_raise(bucket):
+    """A mesh or space_mesh that is not a parallel.mesh.Mesh raises (the
+    mesh paths themselves: tests/test_torch_mesh.py)."""
     model, cnt, stl, seeds = bucket
-    with pytest.raises(NotImplementedError, match="ring_nn"):
+    with pytest.raises(ValueError, match="parallel.mesh.Mesh"):
         tbatch.make_batch_transfer(SMALL, mesh=object(), mode="vmap",
                                    device="cpu")
     mesh_cfg = Config(space_mesh=object())
-    with pytest.raises(NotImplementedError, match="space_mesh"):
+    with pytest.raises(ValueError, match="space_mesh"):
         tbatch.make_batch_transfer(mesh_cfg, mode="vmap", device="cpu")
-    with pytest.raises(NotImplementedError, match="space_mesh"):
+    with pytest.raises(ValueError, match="space_mesh"):
         pipeline.transfer_batch(model, cnt, stl, 2.0, mesh_cfg, seeds=seeds,
                                 device="cpu")
     with pytest.raises(ValueError, match="mode"):

@@ -502,3 +502,44 @@ def test_ssim_card_vs_cpu(card):
                 255).astype(np.uint8)
     on_card = ssim(torch.from_numpy(a).to(card), torch.from_numpy(b).to(card))
     assert abs(on_card - ssim(a, b)) <= 1e-5
+
+
+def _unit(rng, h, w, c):
+    x = np.maximum(rng.standard_normal((h, w, c)), 0).astype(np.float32)
+    return x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), 1e-12)
+
+
+def test_ring_two_ranks_on_card_bitwise_nn_bidir(card, tmp_path):
+    """2 gloo ranks sharing the card: the ring a -> b and b -> a at the L2
+    shapes of the 452x680 / 600x960 pair are ``nn_bidir``'s two results
+    bit for bit, on both ranks, with 2 directed launches per direction."""
+    import torch_mesh_workers as workers
+    from nct_tpu_torch.parallel.mesh import launch
+
+    rng = np.random.default_rng(4)
+    a, b = _unit(rng, 113, 170, 256), _unit(rng, 150, 240, 256)
+    ranks = launch(workers.ring_cases, 2, 2, {"ab": (a, b), "ba": (b, a)},
+                   None, store_dir=str(tmp_path))
+    ab, d_ab, ba, d_ba = (t.cpu() for t in cuda_nn.exact_nn_bidir(
+        torch.from_numpy(a).to(card), torch.from_numpy(b).to(card), 3))
+    for rank in ranks:
+        assert rank["launches"] == 4
+        for got, want in ((rank["ab"], (ab, d_ab)), (rank["ba"], (ba, d_ba))):
+            np.testing.assert_array_equal(got[0], want[0].numpy())
+            np.testing.assert_array_equal(got[1], want[1].numpy())
+
+
+def test_space_mesh_pair_on_card_bitwise_single(card, tmp_path):
+    """A 1x2 space mesh on one card: both ranks' ``transfer_pair`` equal
+    the single-process pair (float32 VGG), with 16 directed launches and
+    no bidirectional one per rank."""
+    import torch_mesh_workers as workers
+    from nct_tpu_torch.parallel.mesh import launch
+
+    rng = np.random.default_rng(5)
+    cnt = rng.integers(0, 256, (120, 160, 3)).astype(np.uint8)
+    stl = rng.integers(0, 256, (128, 176, 3)).astype(np.uint8)
+    ranks = launch(workers.card_pair, 2, cnt, stl, store_dir=str(tmp_path))
+    for rank in ranks:
+        assert rank["launches"] == {"nn_bidir": 0, "nn_directed": 16}
+        np.testing.assert_array_equal(rank["pair"], ranks[0]["single"])

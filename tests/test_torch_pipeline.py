@@ -198,7 +198,9 @@ def test_generator_draws_are_seeded():
 
 @pytest.mark.parametrize("overrides", [{"space_mesh": object()}])
 def test_unported_config_values_raise(overrides):
-    with pytest.raises(NotImplementedError, match="ROADMAP|ported"):
+    """space_mesh runs (tests/test_torch_mesh.py), but only as a
+    parallel.mesh.Mesh."""
+    with pytest.raises(ValueError, match="space_mesh must be"):
         tpipe.check_config(Config(**overrides))
 
 
@@ -253,6 +255,7 @@ def test_port_never_imports_jax():
         "import nct_tpu_torch.tools.profile_stages\n"
         "import nct_tpu_torch.solve.retune, nct_tpu_torch.solve.knn_exact\n"
         "import nct_tpu_torch.data, nct_tpu_torch.parallel.batch\n"
+        "import nct_tpu_torch.parallel.mesh, nct_tpu_torch.parallel.ring_nn\n"
         "import nct_tpu_torch.parallel.bucket, nct_tpu_torch.utils.flops\n"
         "import nct_tpu_torch.utils.ssim, nct_tpu_torch.utils.vis\n"
         "import nct_tpu_torch.utils.glog, nct_tpu_torch.models.caffe_io\n"

@@ -115,11 +115,11 @@ def test_scan_batch_bitwise_equals_per_pair_loop(batch_pairs):
     {"mode": "vmap", "config": Config(space_mesh=object())},
     {"mesh": object()}, {"mesh": object(), "mode": "scan"}])
 def test_vmap_and_mesh_not_ported(kwargs):
-    """A mesh is not ported; the vmap mode runs every single-card Config
-    (tests/test_torch_batch_configs.py) and raises for space_mesh."""
+    """The mesh paths take a parallel.mesh.Mesh (tests/test_torch_mesh.py):
+    anything else raises, in the vmap mode, with "auto" and with "scan"."""
     kwargs = dict(kwargs)
     config = kwargs.pop("config", SMALL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="parallel.mesh.Mesh"):
         tbatch.make_batch_transfer(config, device="cpu", **kwargs)
 
 
