@@ -90,7 +90,9 @@ no result, without them.  Phases, each of which raises on failure:
      a 2x1 data mesh on phase 8b's 4 pairs, every item bitwise its 8b
      scan item; (d) a vmap bucket of 2 under the 1x2 space mesh, each ring
      step one launch of 2 items, each item bitwise its single-process
-     item under float32 VGG.
+     item under float32 VGG; (c) and (d) one cold and two warm runs; (e)
+     (d)'s bucket with ``ring_nn=False`` (each rank one ``nn_bidir``
+     launch of 2 items per exact level), bitwise (d)'s.
 
 The line before the last holds {"kernels": [...]}, the one before it the
 card's name and power limit; the last line is {"ok": true, "device": ...}.
@@ -1180,14 +1182,22 @@ def mesh_rank(cnt_b, stl_b, seeds) -> dict:
 
     # 11c: phase 8b's 4 pairs over a 2x1 data mesh, 2 per rank as vmap
     dist.barrier()
-    out["data"] = _mesh_runs(torch, 2, lambda: make_batch_transfer(
+    out["data"] = _mesh_runs(torch, 3, lambda: make_batch_transfer(
         Config(), data)(model, cnt_b, stl_b, seeds, 2.0))
     torch.cuda.empty_cache()
 
     # 11d: a bucket of 2 under the 1x2 space mesh, vmap (float32 VGG)
     dist.barrier()
-    out["bucket"] = _mesh_runs(torch, 2, lambda: make_batch_transfer(
+    out["bucket"] = _mesh_runs(torch, 3, lambda: make_batch_transfer(
         Config(), space)(model, cnt_b[:2], stl_b[:2], seeds[:2], 2.0))
+    torch.cuda.empty_cache()
+
+    # 11e: 11d's bucket with ring_nn=False: each rank searches the whole
+    # tables with nn_bidir, and must give the ring's bucket bit for bit
+    dist.barrier()
+    out["replicated"] = _mesh_runs(torch, 2, lambda: make_batch_transfer(
+        Config(), space, ring_nn=False)(
+            model, cnt_b[:2], stl_b[:2], seeds[:2], 2.0))
     if lead:
         out["bucket_single"] = [pipeline.transfer_pair(
             model, cnt_b[i], stl_b[i], 2.0, f32, seed=seeds[i]).cpu()
@@ -1260,16 +1270,20 @@ def check_mesh(torch, scan: dict, directed: dict) -> None:
             ("11c data mesh 2x1", "data", 4,
              [o.cpu() for o in scan["outs"]]),
             ("11d space mesh 1x2 bucket", "bucket", 2,
-             ranks[0]["bucket_single"])):
+             ranks[0]["bucket_single"]),
+            ("11e space mesh 1x2 bucket, ring_nn=False", "replicated", 2,
+             ranks[0]["bucket"]["out"])):
         for r in ranks:
             b = r[key]
             same = [torch.equal(b["out"][i], want[i]) for i in range(bsz)]
-            warm = b["s"][1]
+            warm = statistics.median(b["s"][1:])
+            what = ("the ring's bucket" if key == "replicated"
+                    else "their single-process items")
             log(f"[mesh] {label} rank {r['rank']}: cold {b['s'][0]:.3f} s, "
-                f"warm {warm:.3f} s ({warm / bsz:.3f} s per pair of the "
-                f"bucket of {bsz}), launches {b['launches']}, items "
-                f"{b['items']}, peak {b['peak_gib']:.2f} GiB; items bitwise "
-                f"their single-process items: {same}")
+                f"warm {[round(t, 3) for t in b['s'][1:]]} s (median "
+                f"{warm:.3f} s, {warm / bsz:.3f} s per pair of the bucket of "
+                f"{bsz}), launches {b['launches']}, items {b['items']}, peak "
+                f"{b['peak_gib']:.2f} GiB; items bitwise {what}: {same}")
             if not all(same):
                 bad.append(f"{label} rank {r['rank']}")
     for r in ranks:
@@ -1279,6 +1293,10 @@ def check_mesh(torch, scan: dict, directed: dict) -> None:
         if r["bucket"]["launches"] != {"nn_bidir": 0, "nn_directed": ring} or (
                 r["bucket"]["items"]["nn_directed"] != 2 * ring):
             bad.append(f"11d rank {r['rank']} launches")
+        if r["replicated"]["launches"] != {
+                "nn_bidir": exact, "nn_directed": 0} or (
+                r["replicated"]["items"]["nn_bidir"] != 2 * exact):
+            bad.append(f"11e rank {r['rank']} launches")
     if bad:
         raise AssertionError(f"phase 11 failed: {bad}")
 

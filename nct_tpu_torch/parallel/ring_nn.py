@@ -41,7 +41,7 @@ import torch.nn.functional as F
 
 from nct_tpu_torch.ops import cuda_nn
 from nct_tpu_torch.ops.exact_nn import nn_tables_plain, unpack_nnf
-from nct_tpu_torch.ops.patchmatch import patch_offsets
+from nct_tpu_torch.ops.patchmatch import patch_offsets, patchify
 from nct_tpu_torch.parallel.mesh import pad_to_multiple
 
 
@@ -74,34 +74,24 @@ def band_tables(x_norm: torch.Tensor, start: int, rows: int,
     with mask 0."""
     h, w, c = x_norm.shape[-3:]
     lead = tuple(x_norm.shape[:-3])
-    offsets = patch_offsets(patch_size)
-    k, half = len(offsets), patch_size // 2
-    dev = x_norm.device
-    f = torch.zeros(lead + (rows, k * c), dtype=torch.bfloat16, device=dev)
-    m = torch.zeros((rows, k), device=dev)
+    k, half = len(patch_offsets(patch_size)), patch_size // 2
     end = min(start + rows, h * w)
     if end <= start:
-        return f, m
-    y0, y1 = start // w, (end - 1) // w
-    top, bot = y0 - half, y1 + patch_size - 1 - half   # rows the taps read
-    lo, hi = max(top, 0), min(bot, h - 1)
-    pad = (half, patch_size - 1 - half, lo - top, bot - hi)
-    # bf16 before the 9-tap stack: rounding commutes with the copies, and
-    # the stack is the band's largest buffer
-    band = F.pad(x_norm[..., lo:hi + 1, :, :].float().to(torch.bfloat16),
-                 (0, 0) + pad)
-    valid = F.pad(torch.ones((hi - lo + 1, w), device=dev), pad)
-    ny = y1 - y0 + 1
-    taps = [band[..., half + dy:half + dy + ny, half + dx:half + dx + w, :]
-            for dx, dy in offsets]
-    vtaps = [valid[half + dy:half + dy + ny, half + dx:half + dx + w]
-             for dx, dy in offsets]
-    o = start - y0 * w
-    p = torch.stack(taps, dim=-2).reshape(lead + (ny * w, k * c))
-    f[..., :end - start, :] = p[..., o:o + end - start, :]
-    m[:end - start] = torch.stack(vtaps, dim=-1).reshape(ny * w, k)[
-        o:o + end - start]
-    return f, m
+        return (torch.zeros(lead + (rows, k * c), dtype=torch.bfloat16,
+                            device=x_norm.device),
+                torch.zeros((rows, k), device=x_norm.device))
+    # the image rows of the band and the halo rows its taps read: patchify
+    # of that slab is exact for the band, as each slab edge is a halo row
+    # or the image's border.  bf16 before the 9-tap stack: rounding
+    # commutes with the copies, and the stack is the band's largest buffer
+    lo = max(start // w - half, 0)
+    hi = min((end - 1) // w + patch_size - 1 - half, h - 1)
+    p, pm = patchify(x_norm[..., lo:hi + 1, :, :].float().to(torch.bfloat16),
+                     patch_size)
+    n, o, tail = end - start, start - lo * w, start + rows - end
+    f = p.reshape(lead + (-1, k * c))[..., o:o + n, :]
+    m = pm.reshape(-1, k)[o:o + n].float()
+    return F.pad(f, (0, 0, 0, tail)), F.pad(m, (0, 0, 0, tail))
 
 
 def _operands(f: torch.Tensor, m: torch.Tensor):

@@ -231,12 +231,23 @@ def test_space_mesh_pair_bitwise_single_process(world2, tiny_refs):
         np.testing.assert_array_equal(rank["pair_space"], tiny_refs["pair"])
 
 
-@pytest.mark.parametrize("mesh", ["bucket_space", "bucket_data"])
+@pytest.mark.parametrize("mesh", ["bucket_space", "bucket_space_replicated",
+                                  "bucket_data"])
 def test_mesh_bucket_bitwise_vmap(world2, tiny_refs, mesh):
-    """make_batch_transfer over a 1x2 and a 2x1 mesh: every rank returns
-    the whole bucket, bitwise the single-process vmap bucket."""
+    """make_batch_transfer over a 1x2 mesh (through the ring, and with
+    ``ring_nn=False``) and a 2x1 mesh: every rank returns the whole bucket,
+    bitwise the single-process vmap bucket."""
     for rank in world2["pipeline"]:
         np.testing.assert_array_equal(rank[mesh], tiny_refs["bucket"])
+
+
+def test_replicated_matcher_bitwise_ring(world2):
+    """``ring_nn=False`` under the 1x2 mesh (each space rank searches the
+    whole tables) is the ring's in-pipeline reference: the two buckets are
+    equal bit for bit on every rank."""
+    for rank in world2["pipeline"]:
+        np.testing.assert_array_equal(rank["bucket_space_replicated"],
+                                      rank["bucket_space"])
 
 
 def test_grid_mesh_bucket_bitwise_vmap(world4, tiny_refs):

@@ -62,8 +62,9 @@ def _errors(fn) -> str:
 
 def pipeline_cases(device: str = "cpu") -> dict:
     """Over 2 ranks: ``transfer_pair`` and a vmap bucket of 2 under a 1x2
-    space mesh, a bucket of 2 under a 2x1 data mesh, and the error paths;
-    every result as uint8 numpy."""
+    space mesh (the bucket through the ring and, with ``ring_nn=False``,
+    through each rank's whole search), a bucket of 2 under a 2x1 data mesh,
+    and the error paths; every result as uint8 numpy."""
     cnt, stl, seeds = tiny_pairs(2, 40, 48, 44, 52)
     model = vgg19.init_params()
     space = make_mesh(n_data=1, n_space=2, device=device)
@@ -75,6 +76,8 @@ def pipeline_cases(device: str = "cpu") -> dict:
     ).cpu().numpy()
     out["bucket_space"] = make_batch_transfer(TINY, space)(
         model, cnt, stl, seeds, 2.0).cpu().numpy()
+    out["bucket_space_replicated"] = make_batch_transfer(
+        TINY, space, ring_nn=False)(model, cnt, stl, seeds, 2.0).cpu().numpy()
     out["bucket_data"] = make_batch_transfer(TINY, data)(
         model, cnt, stl, seeds, 2.0).cpu().numpy()
     out["scan_error"] = _errors(
