@@ -92,7 +92,27 @@ no result, without them.  Phases, each of which raises on failure:
      step one launch of 2 items, each item bitwise its single-process
      item under float32 VGG; (c) and (d) one cold and two warm runs; (e)
      (d)'s bucket with ``ring_nn=False`` (each rank one ``nn_bidir``
-     launch of 2 items per exact level), bitwise (d)'s.
+     launch of 2 items per exact level), bitwise (d)'s;
+ 12. Caffe framework (``nct_tpu_torch.nn``), float32 with TF32 off:
+     (a) the VGG_ILSVRC_19_layers deploy net at its published widths
+     (10x3x224x224, 143.7M parameters), written with the port's NetSpec,
+     convolutions from ``models.vgg19.init_params`` and fc6-8 from
+     seeded fillers: its conv1_1..conv5_1 blobs against ``models.vgg19``'s
+     taps (max relative error <= 2e-3), the card against the CPU on one
+     224 crop (fc8 and prob within 2e-3 of the largest value, the same
+     top-5), ``Classifier.predict`` on two PNGs with 10-crop
+     oversampling (each prob row sums to 1 within 1e-5), and the warm
+     median ms of a batch of 10, images/s and TFLOP/s (and again with
+     ``cudnn.benchmark`` on); (b) the
+     bvlc_reference_caffenet deploy net (10x3x227x227: grouped
+     convolutions, LRN, InnerProduct on a 4-D bottom) card against CPU
+     and its warm ms; (c) ``tools.caffe_tool time`` on (a)'s net (CUDA
+     events per layer and the whole forward) and ``caffe_tool test`` on a
+     DummyData -> InnerProduct -> SoftmaxWithLoss + Accuracy net, 5
+     iterations; (d) every case of ``tests/torch_caffe_cases.py`` (each
+     layer type of the registry and the extra pooling / LRN modes) card
+     against CPU (rtol 1e-4, atol 1e-5); HDF5Output is not run (the card's
+     machine has no h5py).
 
 The line before the last holds {"kernels": [...]}, the one before it the
 card's name and power limit; the last line is {"ok": true, "device": ...}.
@@ -101,6 +121,7 @@ card's name and power limit; the last line is {"ok": true, "device": ...}.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1301,6 +1322,370 @@ def check_mesh(torch, scan: dict, directed: dict) -> None:
         raise AssertionError(f"phase 11 failed: {bad}")
 
 
+# phase 12: the Caffe framework's Net at the published widths of two
+# ILSVRC deploy nets (VGG_ILSVRC_19_layers_deploy.prototxt and
+# bvlc_reference_caffenet/deploy.prototxt), written with the port's NetSpec
+VGG_TAPS = ("conv1_1", "conv2_1", "conv3_1", "conv4_1", "conv5_1")
+VGG_TAP_RTOL = 2e-3    # Net taps vs models.vgg19 (tests/test_nn.py's bound)
+# card vs CPU: max |difference| over max |CPU value| of a blob, and the
+# same top-5 classes of fc8 per row
+NET_CARD_CPU_RTOL = 2e-3
+PROB_SUM_TOL = 1e-5    # each prob row of Classifier.predict sums to 1
+# phase 12d: card vs CPU of every case of tests/torch_caffe_cases.py (the
+# card's math library and summation order differ from the CPU's)
+CASE_RTOL, CASE_ATOL = 1e-4, 1e-5
+# fc weights of the two nets (bvlc_reference_caffenet/train_val.prototxt's
+# fillers); VGG-19's convolutions come from models.vgg19.init_params
+FC_FILLERS = ((0.005, 1.0), (0.005, 1.0), (0.01, 0.0))
+# the published inputs and widths (a CPU rehearsal shrinks them)
+VGG_INPUT = (10, 3, 224, 224)
+CAFFENET_INPUT = (10, 3, 227, 227)
+NET_WIDTHS = {"div": 1, "fc": 4096, "classes": 1000}
+
+
+def _fc_head(L, n, x, fc: int, classes: int) -> None:
+    """fc6 / fc7 with ReLU and Dropout, fc8, prob (both deploy nets)."""
+    for i, (name, width) in enumerate((("fc6", fc), ("fc7", fc),
+                                       ("fc8", classes))):
+        std, bias = FC_FILLERS[i]
+        n[name] = L.InnerProduct(
+            x, num_output=width,
+            weight_filler=dict(type="gaussian", std=std),
+            bias_filler=dict(type="constant", value=bias))
+        x = n[name]
+        if name != "fc8":
+            n[f"relu{name[2]}"] = L.ReLU(x, in_place=True)
+            n[f"drop{name[2]}"] = L.Dropout(x, in_place=True,
+                                            dropout_ratio=0.5)
+    n.prob = L.Softmax(x)
+
+
+def vgg19_deploy(batch=10, h=224, w=224, div=1, fc=4096, classes=1000):
+    """VGG_ILSVRC_19_layers_deploy as a NetParameter dict (``div`` narrows
+    every convolution for tests)."""
+    from nct_tpu_torch.models.vgg19 import VGG19_CONV_LAYERS
+    from nct_tpu_torch.nn import L, NetSpec
+
+    n = NetSpec()
+    n.data = L.Input(shape=dict(dim=[batch, 3, h, w]))
+    x = n.data
+    names = [name for name, _ in VGG19_CONV_LAYERS]
+    for i, (name, c) in enumerate(VGG19_CONV_LAYERS):
+        n[name] = L.Convolution(x, num_output=c // div, kernel_size=3, pad=1)
+        n[f"relu{name[4:]}"] = L.ReLU(n[name], in_place=True)
+        x = n[name]
+        if i + 1 == len(names) or names[i + 1][4] != name[4]:
+            n[f"pool{name[4]}"] = L.Pooling(x, pool="MAX", kernel_size=2,
+                                           stride=2)
+            x = n[f"pool{name[4]}"]
+    _fc_head(L, n, x, fc, classes)
+    return n.to_dict(name="VGG_ILSVRC_19_layers")
+
+
+def caffenet_deploy(batch=10, h=227, w=227, div=1, fc=4096, classes=1000):
+    """bvlc_reference_caffenet deploy as a NetParameter dict, with the
+    train_val fillers."""
+    from nct_tpu_torch.nn import L, NetSpec
+
+    def conv(x, c, k, std, bias, **kw):
+        return L.Convolution(x, num_output=c // div, kernel_size=k,
+                             weight_filler=dict(type="gaussian", std=std),
+                             bias_filler=dict(type="constant", value=bias),
+                             **kw)
+
+    def pool(x):
+        return L.Pooling(x, pool="MAX", kernel_size=3, stride=2)
+
+    n = NetSpec()
+    n.data = L.Input(shape=dict(dim=[batch, 3, h, w]))
+    n.conv1 = conv(n.data, 96, 11, 0.01, 0.0, stride=4)
+    n.relu1 = L.ReLU(n.conv1, in_place=True)
+    n.pool1 = pool(n.conv1)
+    n.norm1 = L.LRN(n.pool1, local_size=5, alpha=1e-4, beta=0.75)
+    n.conv2 = conv(n.norm1, 256, 5, 0.01, 1.0, pad=2, group=2)
+    n.relu2 = L.ReLU(n.conv2, in_place=True)
+    n.pool2 = pool(n.conv2)
+    n.norm2 = L.LRN(n.pool2, local_size=5, alpha=1e-4, beta=0.75)
+    n.conv3 = conv(n.norm2, 384, 3, 0.01, 0.0, pad=1)
+    n.relu3 = L.ReLU(n.conv3, in_place=True)
+    n.conv4 = conv(n.conv3, 384, 3, 0.01, 1.0, pad=1, group=2)
+    n.relu4 = L.ReLU(n.conv4, in_place=True)
+    n.conv5 = conv(n.conv4, 256, 3, 0.01, 1.0, pad=1, group=2)
+    n.relu5 = L.ReLU(n.conv5, in_place=True)
+    n.pool5 = pool(n.conv5)
+    _fc_head(L, n, n.pool5, fc, classes)
+    return n.to_dict(name="CaffeNet")
+
+
+def net_flops(net, input_shapes: dict) -> float:
+    """2 x the multiply-adds of the Convolution, Deconvolution and
+    InnerProduct layers of ``net`` at ``input_shapes``."""
+    shapes, _ = net.blob_shapes(input_shapes)
+    params = net.params
+    total = 0.0
+    for cfg in net.layers:
+        ltype, name = str(cfg.get("type")), str(cfg.get("name"))
+        if ltype not in ("Convolution", "Deconvolution", "InnerProduct"):
+            continue
+        w = params[name]["w"]
+        top = shapes[str(cfg.get("top"))]
+        bottom = shapes[str(cfg.get("bottom"))]
+        if ltype == "InnerProduct":
+            total += 2.0 * top[0] * w.numel()
+        elif ltype == "Convolution":       # per output element: w[0] / O
+            total += 2.0 * math.prod(top) * w[0].numel()
+        else:                              # per input element
+            total += 2.0 * math.prod(bottom) * w[0].numel()
+    return total
+
+
+def _rel_err(torch, got, want) -> float:
+    want = want.float().cpu()
+    return float((got.float().cpu() - want).abs().max()
+                 / want.abs().max().clamp(min=1e-30))
+
+
+def _warm_ms(torch, fn, runs: int = 5) -> list[float]:
+    """CUDA-event ms of ``runs`` calls after one warm call."""
+    fn()
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def _card_and_cpu(torch, spec, shapes, seed: int, params=None):
+    """(card net, CPU net) of ``spec`` with the same weights: ``params``
+    (on the card) where given, filler draws for the rest."""
+    from nct_tpu_torch.nn import Net
+
+    card = Net(spec, device="cuda")
+    for name, entry in (params or {}).items():
+        card.set_params(name, entry)
+    card.init_params(shapes, seed)
+    cpu = Net(spec, device="cpu")
+    for name, entry in card.params.items():
+        cpu.set_params(name, {k: v.cpu() for k, v in entry.items()})
+    return card, cpu
+
+
+def _compare_nets(torch, label, card, cpu, x, smi) -> None:
+    """fc8 and prob of the card net against the CPU net on ``x``."""
+    got = card.forward({"data": x}, ("fc8", "prob"))
+    want = cpu.forward({"data": x}, ("fc8", "prob"))
+    errs = {k: _rel_err(torch, got[k], want[k]) for k in ("fc8", "prob")}
+    top_card = torch.topk(got["fc8"].cpu(), 5).indices
+    top_cpu = torch.topk(want["fc8"], 5).indices
+    log(f"[caffe] {label} card vs CPU on {tuple(x.shape)}: max rel err fc8 "
+        f"{errs['fc8']:.3g} prob {errs['prob']:.3g} (<= {NET_CARD_CPU_RTOL})"
+        f"; top-5 equal {torch.equal(top_card, top_cpu)} "
+        f"(row 0 {top_cpu[0].tolist()})  [{smi}]")
+    if max(errs.values()) > NET_CARD_CPU_RTOL or not torch.equal(
+            top_card, top_cpu):
+        raise AssertionError(f"phase 12 {label}: card and CPU disagree")
+
+
+def _timed_net(torch, label, net, x, smi, peaks) -> dict:
+    """Warm median ms of a forward of batch ``x`` (5 runs after 1)."""
+    from nct_tpu_torch.utils import flops
+
+    with torch.no_grad():
+        ms = _warm_ms(torch, lambda: net.forward({"data": x}, ("prob",)))
+    med = statistics.median(ms)
+    f = net_flops(net, {"data": tuple(x.shape)})
+    f32 = flops.F32_PEAKS.get(torch.cuda.get_device_name())
+    log(f"[caffe] {label} batch {x.shape[0]}: warm median {med:.3f} ms "
+        f"(runs {[round(v, 3) for v in ms]}), {x.shape[0] / med * 1e3:.1f} "
+        f"images/s, {f / 1e9:.2f} GFLOP, {f / med / 1e9:.2f} TFLOP/s = "
+        f"{f / med / 1e-3 / peaks[0]:.4f} of device_peaks' {peaks[0] / 1e12:.0f}"
+        f" TFLOP/s (bf16)" + (f", {f / med / 1e-3 / f32:.4f} of the {f32 / 1e12:.0f}"
+                              f" TFLOP/s float32 peak" if f32 else "")
+        + f"  [{smi}]")
+    return {"ms": med, "runs_ms": ms, "gflop": f / 1e9}
+
+
+def check_caffe(torch, smi: str) -> dict:
+    """Phase 12: the port's Caffe framework on the card (12a VGG-19, 12b
+    CaffeNet, 12c the tools, 12d every other layer type)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from nct_tpu_torch.data import png
+    from nct_tpu_torch.models import vgg19
+    from nct_tpu_torch.nn import LAYER_REGISTRY, emit_prototxt
+    from nct_tpu_torch.nn.apps import Classifier, load_image
+    from nct_tpu_torch.nn.net import Net
+    from nct_tpu_torch.tools import caffe_tool
+    from nct_tpu_torch.utils import flops
+
+    from nct_tpu_torch.ops import cuda_nn
+
+    peaks = flops.device_peaks()
+    gen = torch.Generator().manual_seed(12)
+    reset_counts()
+    result = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_caffe_")
+
+    # 12a: VGG-19 deploy, convolutions from models.vgg19, fc from fillers
+    t0 = time.perf_counter()
+    spec = vgg19_deploy(*VGG_INPUT[:1], *VGG_INPUT[2:], **NET_WIDTHS)
+    model = vgg19.init_params()
+    convs = {name: {"w": conv.weight, "b": conv.bias}
+             for name, conv in model.convs.items()}
+    shapes = {"data": VGG_INPUT}
+    vgg, vgg_cpu = _card_and_cpu(torch, spec, shapes, 0, convs)
+    n_params = sum(v.numel() for e in vgg.params.values() for v in e.values())
+    log(f"[caffe] 12a VGG-19: {len(vgg.layers)} layers, {n_params} "
+        f"parameters, built in {time.perf_counter() - t0:.1f} s")
+    img = torch.randint(0, 256, VGG_INPUT[2:] + (3,), generator=gen,
+                        dtype=torch.uint8)
+    mean = torch.tensor(vgg19.BGR_MEAN)
+    x1 = (img.float() - mean).permute(2, 0, 1)[None]
+    blobs = vgg.forward({"data": x1}, VGG_TAPS)
+    taps = model.cuda()(img.cuda(), VGG_TAPS)
+    errs = {t: _rel_err(torch, blobs[t][0].permute(1, 2, 0), taps[t])
+            for t in VGG_TAPS}
+    log(f"[caffe] 12a Net taps vs models.vgg19 (f32, TF32 off): max rel err "
+        f"{ {t: float(f'{e:.3g}') for t, e in errs.items()} } "
+        f"(<= {VGG_TAP_RTOL})  [{smi}]")
+    if max(errs.values()) > VGG_TAP_RTOL:
+        raise AssertionError("phase 12a: Net taps differ from models.vgg19")
+    _compare_nets(torch, "12a VGG-19", vgg, vgg_cpu, x1, smi)
+    del vgg_cpu
+    # Classifier.predict, 10-crop oversampling of two PNGs
+    paths = []
+    side = VGG_INPUT[2] + 32
+    for i, (h, w) in enumerate(((side, side + 64), (side + 44, side))):
+        smooth = torch.nn.functional.interpolate(
+            torch.rand(1, 3, h // 16, w // 16, generator=gen) * 255,
+            size=(h, w), mode="bilinear", align_corners=False)
+        path = os.path.join(tmp, f"img{i}.png")
+        png.write(path, smooth[0].permute(1, 2, 0).round().byte().numpy())
+        paths.append(path)
+    clf = Classifier(spec, image_dims=(side, side), raw_scale=255.0,
+                     channel_swap=(2, 1, 0), mean=np.asarray(vgg19.BGR_MEAN),
+                     device="cuda")
+    for name, entry in vgg.params.items():
+        clf.net.set_params(name, entry)
+    probs = clf.predict([load_image(p) for p in paths], oversample_crops=True)
+    sums = probs.sum(axis=1)
+    log(f"[caffe] 12a Classifier.predict, 2 PNGs x 10 crops: prob shape "
+        f"{probs.shape}, row sums {sums.tolist()}, top-5 "
+        f"{np.argsort(-probs, 1)[:, :5].tolist()}")
+    if (probs.shape != (2, NET_WIDTHS["classes"])
+            or np.abs(sums - 1).max() > PROB_SUM_TOL):
+        raise AssertionError("phase 12a: Classifier rows do not sum to 1")
+    del clf
+    xb = torch.randn(VGG_INPUT, generator=gen).cuda() * 60
+    result["vgg19"] = _timed_net(torch, "12a VGG-19", vgg, xb, smi, peaks)
+    # the same batch with cuDNN's autotuned algorithms (the port's default
+    # leaves cudnn.benchmark off: its heuristics pick per shape)
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        result["vgg19_autotuned"] = _timed_net(
+            torch, "12a VGG-19 (cudnn.benchmark)", vgg, xb, smi, peaks)
+    finally:
+        torch.backends.cudnn.benchmark = prev
+
+    # 12b: CaffeNet deploy, every weight from the train_val fillers
+    shapes = {"data": CAFFENET_INPUT}
+    cspec = caffenet_deploy(*CAFFENET_INPUT[:1], *CAFFENET_INPUT[2:],
+                            **NET_WIDTHS)
+    cnet, cnet_cpu = _card_and_cpu(torch, cspec, shapes, 1)
+    xc = torch.randn(shapes["data"], generator=gen) * 60
+    _compare_nets(torch, "12b CaffeNet", cnet, cnet_cpu, xc, smi)
+    del cnet_cpu
+    result["caffenet"] = _timed_net(torch, "12b CaffeNet", cnet, xc.cuda(),
+                                    smi, peaks)
+
+    # 12c: the tools in process
+    path = os.path.join(tmp, "vgg19_deploy.prototxt")
+    with open(path, "w") as f:
+        f.write(emit_prototxt(spec))
+    log(f"[caffe] 12c caffe_tool time on 12a's net  [{smi}]")
+    rc = caffe_tool.main(["time", path, "--device", "cuda",
+                          "--iterations", "5"])
+    if rc:
+        raise AssertionError(f"phase 12c: caffe_tool time exited {rc}")
+    test_net = os.path.join(tmp, "dummy_test.prototxt")
+    with open(test_net, "w") as f:
+        f.write(DUMMY_TEST_NET)
+    rc = caffe_tool.main(["test", "--model", test_net, "--iterations", "5",
+                          "--device", "cuda"])
+    net = caffe_tool.load_net(test_net, "cuda")
+    net.init_params({}, seed=0)
+    scores = caffe_tool.score_net(net, 5)
+    log(f"[caffe] 12c caffe_tool test: exit {rc}, {scores}")
+    if rc or not (np.isfinite(scores["loss"])
+                  and 0.0 <= scores["accuracy"] <= 1.0):
+        raise AssertionError("phase 12c: caffe_tool test failed")
+
+    # 12d: every other layer type (and the extra pooling / LRN modes)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from torch_caffe_cases import case_inputs, cases
+
+    covered = {str(c.get("type")) for s in (spec, cspec)
+               for c in s["layer"]}
+    covered |= {str(c.get("type")) for c in net.layers}
+    run, bad = set(), []
+    for case in cases():
+        if case.layer_type == "HDF5Output":
+            continue
+        inputs = case_inputs(case)
+        proto = case.prototxt(inputs)
+        cpu = Net(proto, device="cpu")
+        for name, entry in (case.params or {}).items():
+            cpu.set_params(name, entry)
+        if case.init:
+            cpu.init_params({k: v.shape for k, v in inputs.items()})
+        card = Net(proto, device="cuda")
+        for name, entry in cpu.params.items():
+            card.set_params(name, entry)
+        feed = {k: torch.from_numpy(v) for k, v in inputs.items()}
+        want = cpu.forward(feed, case.outputs)
+        got = card.forward(feed, case.outputs)
+        for k in case.outputs:
+            if not torch.allclose(got[k].cpu(), want[k], rtol=CASE_RTOL,
+                                  atol=CASE_ATOL):
+                bad.append(f"{case.name}:{k}")
+        run.add(case.layer_type)
+    log(f"[caffe] 12d {len(run)} layer types, card vs CPU (rtol {CASE_RTOL}, "
+        f"atol {CASE_ATOL}): {sorted(run)}; not run on the card: "
+        f"['HDF5Output'] (no h5py there); mismatches {bad}")
+    missing = set(LAYER_REGISTRY) - run - covered - {"HDF5Output"}
+    log(f"[caffe] NN kernel launches in phase 12: {dict(cuda_nn.LAUNCHES)} "
+        f"(the Caffe framework runs none)")
+    if bad or missing:
+        raise AssertionError(f"phase 12d: mismatches {bad}, types never run "
+                             f"{sorted(missing)}")
+    return result
+
+
+DUMMY_TEST_NET = """name: "dummy_test"
+layer { name: "data" type: "DummyData" top: "data" top: "label"
+  dummy_data_param { shape { dim: 64 dim: 32 } shape { dim: 64 }
+    data_filler { type: "gaussian" std: 1.0 }
+    data_filler { type: "uniform" min: 0 max: 9.999 } } }
+layer { name: "ip" type: "InnerProduct" bottom: "data" top: "ip"
+  inner_product_param { num_output: 10 weight_filler { type: "xavier" } } }
+layer { name: "loss" type: "SoftmaxWithLoss" bottom: "ip" bottom: "label"
+  top: "loss" }
+layer { name: "accuracy" type: "Accuracy" bottom: "ip" bottom: "label"
+  top: "accuracy" }
+"""
+
+
 def main() -> int:
     import torch
 
@@ -1340,6 +1725,8 @@ def main() -> int:
     phase_done("phase 10 (vmap of every single-card Config)")
     check_mesh(torch, scan, directed)
     phase_done("phase 11 (mesh: ring, space and data meshes)")
+    check_caffe(torch, smi)
+    phase_done("phase 12 (Caffe framework: VGG-19, CaffeNet, tools, layers)")
     log(f"[time] whole run {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [bidir, directed]}))
     log(smi)

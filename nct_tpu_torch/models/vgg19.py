@@ -14,7 +14,7 @@ rounded to bf16 where the JAX package casts them, and each convolution runs
 in float32 on those values: a bf16 x bf16 product is exact in f32, so this
 is JAX's ``preferred_element_type=f32`` (an f32 tap from bf16 operands),
 where a bf16 ``F.conv2d`` would round its output to bf16.  Convolutions run
-with TF32 off (``torch.backends.cudnn.allow_tf32 = False`` for the call),
+with TF32 off (``no_tf32``: cuDNN's and cuBLAS's TF32 flags off for the call),
 so float32 means float32 on the card as on the CPU.
 """
 
@@ -64,13 +64,17 @@ def tap_channels() -> dict[str, int]:
 
 
 @contextlib.contextmanager
-def _no_tf32():
-    prev = torch.backends.cudnn.allow_tf32
+def no_tf32():
+    """float32 convolutions and products in float32, not TF32."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
 
 
 class VGG19(nn.Module):
@@ -117,7 +121,7 @@ class VGG19(nn.Module):
         mean = torch.tensor(BGR_MEAN, device=bgr_u8.device)
         x = rnd((bgr_u8.float() - mean).permute(2, 0, 1)[None])
         out: dict[str, torch.Tensor] = {}
-        with _no_tf32():
+        with no_tf32():
             for i, (name, _) in enumerate(VGG19_CONV_LAYERS):
                 conv = self.convs[name]
                 x = F.conv2d(x, rnd(conv.weight), padding=1)

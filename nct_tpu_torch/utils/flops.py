@@ -22,6 +22,11 @@ from nct_tpu_torch.models import vgg19
 DEVICE_PEAKS = {
     "NVIDIA H100 80GB HBM3": (989e12, 3.35e12),      # H100 SXM
 }
+# name -> dense float32 FLOP/s outside the tensor cores (data sheet): the
+# ceiling of a float32 convolution or product with TF32 off
+F32_PEAKS = {
+    "NVIDIA H100 80GB HBM3": 67e12,
+}
 
 
 def device_peaks(device_name: str | None = None) -> tuple[float, float]:

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from nct_tpu_torch.models.vgg19 import _no_tf32
+from nct_tpu_torch.models.vgg19 import no_tf32
 
 
 def _gaussian_kernel(size: int = 11, sigma: float = 1.5,
@@ -28,7 +28,7 @@ def _gaussian_kernel(size: int = 11, sigma: float = 1.5,
 def _filter2(img: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
     """Valid-mode 2-D correlation per channel. img: [H, W, C]."""
     x = img.permute(2, 0, 1)[:, None]                 # [C, 1, H, W]
-    with _no_tf32():
+    with no_tf32():
         out = F.conv2d(x, kern[None, None])
     return out[:, 0].permute(1, 2, 0)
 

@@ -543,3 +543,58 @@ def test_space_mesh_pair_on_card_bitwise_single(card, tmp_path):
     for rank in ranks:
         assert rank["launches"] == {"nn_bidir": 0, "nn_directed": 16}
         np.testing.assert_array_equal(rank["pair"], ranks[0]["single"])
+
+
+def _chip_smoke():
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def test_vgg19_deploy_net_matches_models_vgg19_on_card(card):
+    """The VGG-19 deploy net of chip_smoke.py phase 12 through the port's
+    ``Net`` on the card: conv1_1..conv5_1 against ``models.vgg19``'s taps
+    (float32, TF32 off; max relative error <= 2e-3)."""
+    from nct_tpu_torch.models import vgg19
+    from nct_tpu_torch.nn import Net
+
+    smoke = _chip_smoke()
+    net = Net(smoke.vgg19_deploy(1, 96, 112), device="cuda")
+    model = vgg19.init_params()
+    for name, conv in model.convs.items():
+        net.set_params(name, {"w": conv.weight, "b": conv.bias})
+    net.init_params({"data": (1, 3, 96, 112)})
+    img = torch.randint(0, 256, (96, 112, 3), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(0))
+    x = (img.float() - torch.tensor(vgg19.BGR_MEAN)).permute(2, 0, 1)[None]
+    blobs = net.forward({"data": x}, smoke.VGG_TAPS)
+    taps = model.to(card)(img.to(card), smoke.VGG_TAPS)
+    for t in smoke.VGG_TAPS:
+        got, want = blobs[t][0].permute(1, 2, 0), taps[t]
+        assert float((got - want).abs().max() / want.abs().max()) <= 2e-3
+
+
+def test_caffenet_forward_card_vs_cpu(card):
+    """One CaffeNet deploy forward (grouped convolutions, LRN, an
+    InnerProduct on a 4-D bottom): the card against the CPU."""
+    from nct_tpu_torch.nn import Net
+
+    spec = _chip_smoke().caffenet_deploy(2, 227, 227)
+    gpu = Net(spec, device="cuda")
+    gpu.init_params({"data": (2, 3, 227, 227)}, seed=1)
+    cpu = Net(spec, device="cpu")
+    for name, entry in gpu.params.items():
+        cpu.set_params(name, {k: v.cpu() for k, v in entry.items()})
+    x = torch.randn(2, 3, 227, 227,
+                    generator=torch.Generator().manual_seed(1)) * 60
+    got = gpu.forward({"data": x}, ["fc8", "prob"])
+    want = cpu.forward({"data": x}, ["fc8", "prob"])
+    for k in ("fc8", "prob"):
+        err = (got[k].cpu() - want[k]).abs().max() / want[k].abs().max()
+        assert float(err) <= 2e-3, (k, float(err))
+    assert torch.equal(torch.topk(got["fc8"].cpu(), 5).indices,
+                       torch.topk(want["fc8"], 5).indices)

@@ -260,6 +260,10 @@ def test_port_never_imports_jax():
         "import nct_tpu_torch.utils.ssim, nct_tpu_torch.utils.vis\n"
         "import nct_tpu_torch.utils.glog, nct_tpu_torch.models.caffe_io\n"
         "import nct_tpu_torch.tools.convert_vgg19\n"
+        "import nct_tpu_torch.nn, nct_tpu_torch.nn.apps\n"
+        "import nct_tpu_torch.nn.coord_map, nct_tpu_torch.nn.upgrade\n"
+        "import nct_tpu_torch.tools.caffe_tool\n"
+        "import nct_tpu_torch.tools.extract_features\n"
         "from nct_tpu_torch import pipeline\n"
         "from nct_tpu_torch.models import vgg19\n"
         "from nct_tpu_torch import Config\n"
@@ -277,11 +281,18 @@ def test_port_never_imports_jax():
         "outs = list(pipeline.transfer_sequence(vgg19.init_params(), [c, c],"
         " s, 2.0, pm, device='cpu'))\n"
         "assert len(outs) == 2\n"
+        "net = nct_tpu_torch.nn.Net('input: \"x\"\\nlayer { name: \"c\" "
+        "type: \"Convolution\" bottom: \"x\" top: \"c\" convolution_param "
+        "{ num_output: 2 kernel_size: 3 weight_filler { type: \"xavier\" } "
+        "} }', device='cpu')\n"
+        "net.init_params({'x': (1, 3, 5, 5)})\n"
+        "assert tuple(net.forward({'x': torch.ones(1, 3, 5, 5)})['c'].shape)"
+        " == (1, 2, 3, 3)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'nct_tpu'))\n"
         "assert not bad, bad\n"
     )
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
