@@ -112,7 +112,29 @@ no result, without them.  Phases, each of which raises on failure:
      iterations; (d) every case of ``tests/torch_caffe_cases.py`` (each
      layer type of the registry and the extra pooling / LRN modes) card
      against CPU (rtol 1e-4, atol 1e-5); HDF5Output is not run (the card's
-     machine has no h5py).
+     machine has no h5py);
+ 13. JPEG and training: (a) every fixture of ``tests/fixtures/jpeg``
+     decoded by ``data.jpeg`` (built from csrc/jpeg_decode.cpp with the
+     host compiler in phase 2) bitwise the sha256 of Pillow's decode in
+     ``digests.json``, and the host decode ms (and ms per megapixel) of the
+     452x680 / 600x960 pair, baseline and progressive; (b) the CLI
+     (``--device cuda``, default Config) on that pair and its progressive
+     twin and on the same pixels written as PNG, one process, each output
+     bitwise its PNG twin's, with the seconds per pair; (c) CaffeNet's
+     train_val at its published widths and solver (SGD, base_lr 0.01,
+     momentum 0.9, weight_decay 0.0005, step policy), its LMDB layer
+     replaced by ImageData over the 16 fixture JPEGs (256x256, crop 227,
+     mirror, batch 256): 20 NetSolver iterations with finite losses, 20
+     steps on one resident batch whose loss must fall, the warm CUDA-event
+     ms per iteration device only and with the host feed, images/s and
+     TFLOP/s at 3 x the forward FLOPs, then the card against the CPU over
+     3 steps at batch 8 with CPU-drawn Dropout masks (losses within rtol
+     1e-4, TF32 off); (d) ``caffe_tool train`` in a new process with a
+     snapshot at iteration 4 of 8, and a second one resuming from it: its
+     params and history bitwise the uninterrupted run's; (e) one step over
+     a 2x1 data mesh (2 gloo ranks on the card) against the
+     single-process step (rtol 1e-6).  The training path adds no kernel:
+     its products are ``F.conv2d`` / ``F.linear`` and autograd's.
 
 The line before the last holds {"kernels": [...]}, the one before it the
 card's name and power limit; the last line is {"ok": true, "device": ...}.
@@ -173,12 +195,18 @@ def device_info(torch) -> tuple[str, str]:
 
 
 def build_kernels() -> None:
+    """Build every source of csrc/ at once, one compiler each: the CUDA
+    kernels and the host JPEG decoder."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from nct_tpu_torch import _build
 
     t0 = time.perf_counter()
-    path = _build.build("nn_bidir")
+    with ThreadPoolExecutor(2) as pool:
+        path, jpeg_path = pool.map(_build.build, ("nn_bidir", "jpeg_decode"))
     log(f"[build] nn_bidir.cu (instances nn_bidir, nn_directed) -> {path} "
-        f"in {time.perf_counter() - t0:.1f} s")
+        f"and jpeg_decode.cpp (host) -> {jpeg_path} in "
+        f"{time.perf_counter() - t0:.1f} s")
     wgmma_lines = 0
     with open(path[:-3] + ".log") as f:
         for line in f:
@@ -1343,8 +1371,9 @@ CAFFENET_INPUT = (10, 3, 227, 227)
 NET_WIDTHS = {"div": 1, "fc": 4096, "classes": 1000}
 
 
-def _fc_head(L, n, x, fc: int, classes: int) -> None:
-    """fc6 / fc7 with ReLU and Dropout, fc8, prob (both deploy nets)."""
+def _fc_head(L, n, x, fc: int, classes: int, prob: bool = True) -> None:
+    """fc6 / fc7 with ReLU and Dropout, fc8, and prob unless ``prob`` is
+    False (both deploy nets and CaffeNet's train_val)."""
     for i, (name, width) in enumerate((("fc6", fc), ("fc7", fc),
                                        ("fc8", classes))):
         std, bias = FC_FILLERS[i]
@@ -1357,7 +1386,8 @@ def _fc_head(L, n, x, fc: int, classes: int) -> None:
             n[f"relu{name[2]}"] = L.ReLU(x, in_place=True)
             n[f"drop{name[2]}"] = L.Dropout(x, in_place=True,
                                             dropout_ratio=0.5)
-    n.prob = L.Softmax(x)
+    if prob:
+        n.prob = L.Softmax(x)
 
 
 def vgg19_deploy(batch=10, h=224, w=224, div=1, fc=4096, classes=1000):
@@ -1387,6 +1417,41 @@ def caffenet_deploy(batch=10, h=227, w=227, div=1, fc=4096, classes=1000):
     train_val fillers."""
     from nct_tpu_torch.nn import L, NetSpec
 
+    n = NetSpec()
+    n.data = L.Input(shape=dict(dim=[batch, 3, h, w]))
+    _caffenet_body(L, n, div)
+    _fc_head(L, n, n.pool5, fc, classes)
+    return n.to_dict(name="CaffeNet")
+
+
+# ImageNet's BGR channel means (the values train_val's mean_file holds on
+# average), in place of the published imagenet_mean.binaryproto
+IMAGENET_MEAN_BGR = (104, 117, 123)
+
+
+def caffenet_train_val(source: str, root: str, batch=256, crop=227, div=1,
+                       fc=4096, classes=1000):
+    """bvlc_reference_caffenet train_val (TRAIN phase) as a NetParameter
+    dict: its published widths, fillers and loss, with the LMDB ``Data``
+    layer replaced by ImageData over the list ``source`` (crop, mirror,
+    the BGR mean values, shuffled)."""
+    from nct_tpu_torch.nn import L, NetSpec
+
+    n = NetSpec()
+    n.data, n.label = L.ImageData(
+        ntop=2, image_data_param=dict(source=source, root_folder=root,
+                                      batch_size=batch, shuffle=True),
+        transform_param=dict(crop_size=crop, mirror=True,
+                             mean_value=list(IMAGENET_MEAN_BGR)))
+    _caffenet_body(L, n, div)
+    _fc_head(L, n, n.pool5, fc, classes, prob=False)
+    n.loss = L.SoftmaxWithLoss(n.fc8, n.label)
+    return n.to_dict(name="CaffeNet")
+
+
+def _caffenet_body(L, n, div: int) -> None:
+    """conv1 .. pool5 of bvlc_reference_caffenet on ``n.data``."""
+
     def conv(x, c, k, std, bias, **kw):
         return L.Convolution(x, num_output=c // div, kernel_size=k,
                              weight_filler=dict(type="gaussian", std=std),
@@ -1396,8 +1461,6 @@ def caffenet_deploy(batch=10, h=227, w=227, div=1, fc=4096, classes=1000):
     def pool(x):
         return L.Pooling(x, pool="MAX", kernel_size=3, stride=2)
 
-    n = NetSpec()
-    n.data = L.Input(shape=dict(dim=[batch, 3, h, w]))
     n.conv1 = conv(n.data, 96, 11, 0.01, 0.0, stride=4)
     n.relu1 = L.ReLU(n.conv1, in_place=True)
     n.pool1 = pool(n.conv1)
@@ -1413,8 +1476,6 @@ def caffenet_deploy(batch=10, h=227, w=227, div=1, fc=4096, classes=1000):
     n.conv5 = conv(n.conv4, 256, 3, 0.01, 1.0, pad=1, group=2)
     n.relu5 = L.ReLU(n.conv5, in_place=True)
     n.pool5 = pool(n.conv5)
-    _fc_head(L, n, n.pool5, fc, classes)
-    return n.to_dict(name="CaffeNet")
 
 
 def net_flops(net, input_shapes: dict) -> float:
@@ -1686,6 +1747,408 @@ layer { name: "accuracy" type: "Accuracy" bottom: "ip" bottom: "label"
 """
 
 
+def small_train_net(batch: int, dropout: bool = True,
+                    memory_data: bool = True, image_list: str | None = None,
+                    hw: int = 12) -> str:
+    """A small TRAIN net (conv, ReLU, max pool, InnerProduct, ReLU,
+    Dropout, InnerProduct, SoftmaxWithLoss) fed by MemoryData, by Input
+    layers, or by ImageData over ``image_list`` (resized to hw x hw)."""
+    if image_list:
+        data = (f'layer {{ name: "data" type: "ImageData" top: "data" '
+                f'top: "label" image_data_param {{ source: "{image_list}" '
+                f'batch_size: {batch} new_height: {hw} new_width: {hw} '
+                f'shuffle: true }} transform_param {{ scale: 0.0078125 '
+                f'mean_value: 128 }} }}\n')
+    elif memory_data:
+        data = (f'layer {{ name: "data" type: "MemoryData" top: "data" '
+                f'top: "label" memory_data_param {{ batch_size: {batch} '
+                f'channels: 3 height: {hw} width: {hw} }} }}\n')
+    else:
+        data = (f'layer {{ name: "data" type: "Input" top: "data" '
+                f'top: "label" input_param {{ shape {{ dim: {batch} dim: 3 '
+                f'dim: {hw} dim: {hw} }} shape {{ dim: {batch} }} }} }}\n')
+    drop = ('layer { name: "drop1" type: "Dropout" bottom: "ip1" top: "ip1" '
+            'dropout_param { dropout_ratio: 0.5 } }\n') if dropout else ""
+    return ('name: "small_train"\n' + data +
+            'layer { name: "conv1" type: "Convolution" bottom: "data" '
+            'top: "conv1" convolution_param { num_output: 6 kernel_size: 3 '
+            'pad: 1 weight_filler { type: "gaussian" std: 0.1 } '
+            'bias_filler { type: "constant" value: 0.1 } } }\n'
+            'layer { name: "relu1" type: "ReLU" bottom: "conv1" '
+            'top: "conv1" }\n'
+            'layer { name: "pool1" type: "Pooling" bottom: "conv1" '
+            'top: "pool1" pooling_param { pool: MAX kernel_size: 2 '
+            'stride: 2 } }\n'
+            'layer { name: "ip1" type: "InnerProduct" bottom: "pool1" '
+            'top: "ip1" inner_product_param { num_output: 16 '
+            'weight_filler { type: "xavier" } } }\n'
+            'layer { name: "relu2" type: "ReLU" bottom: "ip1" top: "ip1" }\n'
+            + drop +
+            'layer { name: "ip2" type: "InnerProduct" bottom: "ip1" '
+            'top: "ip2" inner_product_param { num_output: 4 '
+            'weight_filler { type: "xavier" } } }\n'
+            'layer { name: "loss" type: "SoftmaxWithLoss" bottom: "ip2" '
+            'bottom: "label" top: "loss" }\n')
+
+
+def _small_solver(text: str, device, mesh=None):
+    """A Solver over ``small_train_net`` text with seed-0 filler weights."""
+    from nct_tpu_torch.nn import Net, parse_prototxt
+    from nct_tpu_torch.train import (LrPolicy, OptimizerParams, Solver,
+                                     SolverParams)
+
+    net = Net(parse_prototxt(text), phase="TRAIN", device=device)
+    net.init_params(net.input_shapes, seed=0)
+    sp = SolverParams(lr=LrPolicy("fixed", base_lr=0.01),
+                      opt=OptimizerParams("sgd", momentum=0.9,
+                                          weight_decay=0.0005))
+    return Solver(net.make_loss_fn(), net.params, sp, mesh=mesh)
+
+
+def _solver_result(solver, loss) -> dict:
+    return {"loss": loss, "params": {
+        k: {b: v.detach().cpu().numpy() for b, v in e.items()}
+        for k, e in solver.params.items()}}
+
+
+def train_single(text: str, batch: dict, device) -> dict:
+    """One step of ``small_train_net`` in this process."""
+    solver = _small_solver(text, device)
+    return _solver_result(solver, solver.step(batch))
+
+
+def train_mesh_rank(text: str, batch: dict, n_data: int, device) -> dict:
+    """One rank of one step of ``small_train_net`` over an n_data x 1 data
+    mesh (run by ``parallel.mesh.launch``); every rank gets the whole
+    batch and takes its shard."""
+    from nct_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n_data=n_data, device=device)
+    solver = _small_solver(text, mesh.device, mesh)
+    return _solver_result(solver, solver.step(batch))
+
+
+# phase 13: the JPEG fixtures, CaffeNet training at its published widths
+JPEG_FIXTURES = ("tests", "fixtures", "jpeg")
+PAIR_JPEGS = (("pair_content.jpg", "pair_style.jpg"),
+              ("pair_content_progressive.jpg", "pair_style_progressive.jpg"))
+TRAIN_BATCH = 256
+TRAIN_ITERS = 20
+TRAIN_CARD_CPU_BATCH = 8
+TRAIN_CARD_CPU_STEPS = 3
+TRAIN_CARD_CPU_RTOL = 1e-4
+MESH_STEP_RTOL, MESH_STEP_ATOL = 1e-6, 1e-7
+# bvlc_reference_caffenet/solver.prototxt, max_iter cut to phase 13c's run
+# and test_interval dropped (the train_val's TEST branch reads an LMDB)
+CAFFENET_SOLVER = """base_lr: 0.01
+lr_policy: "step"
+gamma: 0.1
+stepsize: 100000
+display: 20
+max_iter: {max_iter}
+momentum: 0.9
+weight_decay: 0.0005
+snapshot: 0
+random_seed: 0
+"""
+# the published widths (a CPU rehearsal shrinks them)
+CAFFENET_TRAIN_WIDTHS = {"div": 1, "fc": 4096, "classes": 1000}
+
+
+def _fixtures_dir() -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        *JPEG_FIXTURES)
+
+
+def check_jpeg(torch, smi: str) -> dict:
+    """13a: every JPEG fixture decoded by the port against the sha256 of
+    Pillow's decode, and the host decode time of the 452x680 / 600x960
+    pair (baseline and progressive)."""
+    import hashlib
+    import os
+
+    from nct_tpu_torch.data import jpeg
+
+    fix = _fixtures_dir()
+    with open(os.path.join(fix, "digests.json")) as f:
+        digests = json.load(f)
+    bad = []
+    for name, want in sorted(digests.items()):
+        img = jpeg.read(os.path.join(fix, name))
+        if (list(img.shape) != want["shape"] or hashlib.sha256(
+                img.tobytes()).hexdigest() != want["sha256"]):
+            bad.append(name)
+    log(f"[jpeg] {len(digests) - len(bad)} / {len(digests)} fixtures bitwise "
+        f"Pillow's decode (sha256)")
+    if bad:
+        raise AssertionError(f"phase 13a: decodes differ from Pillow's: {bad}")
+    times = {}
+    for name in (n for pair in PAIR_JPEGS for n in pair):
+        with open(os.path.join(fix, name), "rb") as f:
+            data = f.read()
+        img = jpeg.decode(data)
+        runs = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            jpeg.decode(data)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(runs)
+        mp = img.shape[0] * img.shape[1] / 1e6
+        times[name] = ms
+        log(f"[jpeg] host decode {name} {img.shape[1]}x{img.shape[0]}: "
+            f"median {ms:.3f} ms of 7 = {ms / mp:.3f} ms/MP (one host thread "
+            f"of the card's machine)  [{smi}]")
+    return times
+
+
+def check_jpeg_cli(torch) -> None:
+    """13b: the CLI on the card over the JPEG pair and its progressive twin
+    and over the same pixels written as PNG: outputs bitwise equal."""
+    import os
+    import tempfile
+
+    from nct_tpu_torch import io as tio
+    from nct_tpu_torch.data import jpeg, png
+
+    fix = _fixtures_dir()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        os.makedirs(src)
+        lines, outs = [], []
+        for cnt, stl in PAIR_JPEGS:
+            for name in (cnt, stl):
+                with open(os.path.join(fix, name), "rb") as f:
+                    data = f.read()
+                with open(os.path.join(src, name), "wb") as f:
+                    f.write(data)
+                png.write(os.path.join(src, "png_" + name[:-4] + ".png"),
+                          jpeg.decode(data))
+            stems = (cnt[:-4], stl[:-4])
+            lines += [f"{cnt} {stl} 2.0",
+                      f"png_{stems[0]}.png png_{stems[1]}.png 2.0"]
+            outs.append((f"{stems[0]}_{stems[1]}_2.00.png",
+                         f"png_{stems[0]}_png_{stems[1]}_2.00.png"))
+        with open(os.path.join(src, "pairs.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "nct_tpu_torch.cli", "-i", src, "-o", dst,
+             "--device", "cuda"], capture_output=True, text=True, cwd=repo,
+            env=dict(os.environ, PYTHONPATH=repo), timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 13b: the CLI exited "
+                                 f"{proc.returncode}:\n{proc.stdout}\n"
+                                 f"{proc.stderr}")
+        per_pair = [float(v.split()[2]) for v in proc.stdout.splitlines()
+                    if v.startswith("**Finished Time:")]
+        for from_jpeg, from_png in outs:
+            a = tio.imread_bgr(os.path.join(dst, from_jpeg))
+            b = tio.imread_bgr(os.path.join(dst, from_png))
+            if a.shape != b.shape or not (a == b).all():
+                raise AssertionError(f"phase 13b: {from_jpeg} differs from "
+                                     f"{from_png}")
+    log(f"[jpeg] CLI --device cuda on 2 JPEG pairs (baseline, progressive) "
+        f"and their PNG twins: each output bitwise its PNG twin's; "
+        f"{wall:.1f} s for the process, per pair (JPEG, PNG, JPEG, PNG) "
+        f"{per_pair} s")
+
+
+def _caffenet_solver(torch, batch: int, iters: int, device):
+    """A NetSolver of CaffeNet's train_val over the ImageData fixtures and
+    the published solver (max_iter cut to ``iters``)."""
+    import os
+
+    from nct_tpu_torch.train.solver_proto import (NetSolver,
+                                                  parse_solver_prototxt)
+
+    fix = os.path.join(_fixtures_dir(), "imagedata")
+    proto = parse_solver_prototxt(CAFFENET_SOLVER.format(max_iter=iters))
+    proto.net = caffenet_train_val(os.path.join(fix, "list.txt"), fix + "/",
+                                   batch=batch, **CAFFENET_TRAIN_WIDTHS)
+    return NetSolver(proto, device=device)
+
+
+def _event_ms(torch, fn):
+    """(CUDA-event ms of one call, its result)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def check_caffenet_training(torch, smi: str) -> dict:
+    """13c: CaffeNet train_val at its published widths and solver, batch
+    256 from ImageData over the 16 fixture JPEGs: 20 NetSolver iterations
+    (finite losses), 20 steps on one resident batch (falling loss), times,
+    and the card against the CPU over 3 steps at batch 8."""
+    import math as _math
+
+    from nct_tpu_torch.utils import flops
+
+    t0 = time.perf_counter()
+    ns = _caffenet_solver(torch, TRAIN_BATCH, TRAIN_ITERS, "cuda")
+    n_params = sum(v.numel() for e in ns.net.params.values()
+                   for v in e.values())
+    log(f"[train] CaffeNet train_val, batch {TRAIN_BATCH} "
+        f"{ns.input_shapes['data']}, {n_params / 1e6:.1f}M parameters: "
+        f"set up in {time.perf_counter() - t0:.1f} s")
+    stream = ns.batches()
+    losses, feed_ms = [], []
+    for _ in range(TRAIN_ITERS):
+        ms, loss = _event_ms(torch, lambda: ns.solver.step(next(stream)))
+        feed_ms.append(ms)
+        losses.append(loss)
+    if not all(_math.isfinite(v) for v in losses):
+        raise AssertionError(f"phase 13c: non-finite loss {losses}")
+    log(f"[train] {TRAIN_ITERS} NetSolver iterations: losses "
+        f"{[round(v, 4) for v in losses]}")
+    fixed = {k: torch.as_tensor(v).cuda() for k, v in ns.next_batch().items()}
+    fixed_losses, dev_ms = [], []
+    for _ in range(TRAIN_ITERS):
+        batch = dict(fixed, __generator__=ns.step_generator(ns.solver.iter))
+        ms, loss = _event_ms(torch, lambda: ns.solver.step(batch))
+        dev_ms.append(ms)
+        fixed_losses.append(loss)
+    log(f"[train] {TRAIN_ITERS} steps on one resident batch: losses "
+        f"{[round(v, 4) for v in fixed_losses]}")
+    if not (all(_math.isfinite(v) for v in fixed_losses)
+            and fixed_losses[-1] < fixed_losses[0]):
+        raise AssertionError("phase 13c: the loss on a fixed batch does not "
+                             "fall")
+    fwd = net_flops(ns.net, ns.input_shapes)
+    f32 = flops.F32_PEAKS.get(torch.cuda.get_device_name())
+    out = {}
+    for label, runs in (("device only (resident batch)", dev_ms[2:]),
+                        ("with the ImageData host feed", feed_ms[2:])):
+        med = statistics.median(runs)
+        tf = 3 * fwd / med / 1e9
+        out[label] = med
+        log(f"[train] warm ms per iteration, {label}: median {med:.3f} of "
+            f"{len(runs)} (CUDA events; {min(runs):.3f}-{max(runs):.3f}), "
+            f"{TRAIN_BATCH / med * 1e3:.1f} images/s, {tf:.2f} TFLOP/s at "
+            f"3 x {fwd / 1e9:.1f} GFLOP forward" + (
+                f" = {tf * 1e12 / f32:.4f} of the {f32 / 1e12:.0f} TFLOP/s "
+                f"float32 peak" if f32 else "") + f"  [{smi}]")
+    del ns, stream, fixed
+    torch.cuda.empty_cache()
+
+    # the card against the CPU, Dropout masks from CPU generators
+    card = _caffenet_solver(torch, TRAIN_CARD_CPU_BATCH, 10, "cuda")
+    cpu = _caffenet_solver(torch, TRAIN_CARD_CPU_BATCH, 10, "cpu")
+    pairs = []
+    for i in range(TRAIN_CARD_CPU_STEPS):
+        got = card.solver.step(dict(card.next_batch(), __generator__=(
+            torch.Generator().manual_seed(100 + i))))
+        want = cpu.solver.step(dict(cpu.next_batch(), __generator__=(
+            torch.Generator().manual_seed(100 + i))))
+        pairs.append((got, want))
+    rel = max(abs(g - w) / abs(w) for g, w in pairs)
+    log(f"[train] card vs CPU, batch {TRAIN_CARD_CPU_BATCH}, "
+        f"{TRAIN_CARD_CPU_STEPS} steps (TF32 off): losses "
+        f"{[(round(g, 6), round(w, 6)) for g, w in pairs]}, max rel "
+        f"{rel:.3g} (<= {TRAIN_CARD_CPU_RTOL})")
+    if rel > TRAIN_CARD_CPU_RTOL:
+        raise AssertionError("phase 13c: card and CPU losses disagree")
+    return out
+
+
+def check_train_resume(torch) -> None:
+    """13d: ``caffe_tool train`` in a new process, snapshot at iteration 4
+    of 8, then a second process restoring it: the final params and
+    history bitwise the uninterrupted run's."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    fix = os.path.join(_fixtures_dir(), "imagedata")
+    with tempfile.TemporaryDirectory() as tmp:
+        net = os.path.join(tmp, "net.prototxt")
+        with open(net, "w") as f:
+            f.write(small_train_net(16, image_list=os.path.join(
+                fix, "list.txt"), hw=32).replace(
+                "shuffle: true", f'shuffle: true root_folder: "{fix}/"'))
+        for prefix in ("whole", "resumed"):
+            with open(os.path.join(tmp, f"{prefix}.prototxt"), "w") as f:
+                f.write(f'net: "{net}"\nbase_lr: 0.01\nmomentum: 0.9\n'
+                        f'weight_decay: 0.0005\nlr_policy: "fixed"\n'
+                        f'max_iter: 8\nsnapshot: 4\nsnapshot_prefix: '
+                        f'"{os.path.join(tmp, prefix)}"\nrandom_seed: 1\n')
+        t0 = time.perf_counter()
+        for prefix, extra in (("whole", []), ("resumed", [
+                "--snapshot", os.path.join(tmp, "whole_iter_4.npz")])):
+            proc = subprocess.run(
+                [sys.executable, "-m", "nct_tpu_torch.tools.caffe_tool",
+                 "train", "--solver", os.path.join(tmp, f"{prefix}.prototxt"),
+                 "--device", "cuda", "--deterministic", *extra],
+                capture_output=True, text=True, cwd=repo, timeout=300,
+                env=dict(os.environ, PYTHONPATH=repo))
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 13d: caffe_tool train exited "
+                                     f"{proc.returncode}:\n{proc.stdout}\n"
+                                     f"{proc.stderr}")
+        whole = np.load(os.path.join(tmp, "whole_iter_8.npz"))
+        resumed = np.load(os.path.join(tmp, "resumed_iter_8.npz"))
+        keys = sorted(k for k in whole.files
+                      if k.startswith(("params/", "state/")))
+        same = [k for k in keys if k in resumed.files
+                and np.array_equal(whole[k], resumed[k])]
+    log(f"[train] caffe_tool train, 8 iterations with a snapshot at 4, then "
+        f"--snapshot resume: {len(same)} / {len(keys)} params and history "
+        f"arrays bitwise the uninterrupted run ({time.perf_counter() - t0:.1f}"
+        f" s, 2 processes)")
+    if not keys or len(same) != len(keys):
+        raise AssertionError("phase 13d: the resumed run differs")
+
+
+def check_train_mesh(torch) -> None:
+    """13e: one step of ``small_train_net`` over a 2x1 data mesh (2 gloo
+    ranks on the one card) against the single-process step."""
+    import numpy as np
+
+    from nct_tpu_torch.parallel.mesh import launch
+
+    text = small_train_net(8, dropout=False, memory_data=False)
+    rng = np.random.default_rng(2)
+    batch = {"data": rng.standard_normal((8, 3, 12, 12)).astype(np.float32),
+             "label": rng.integers(0, 4, 8).astype(np.float32)}
+    single = train_single(text, batch, "cuda")
+    ranks = launch(train_mesh_rank, 2, text, batch, 2, None)
+    ok, worst = True, 0.0
+    for out in ranks:
+        ok &= math.isclose(out["loss"], single["loss"], rel_tol=MESH_STEP_RTOL)
+        for name, entry in single["params"].items():
+            for blob, want in entry.items():
+                got = out["params"][name][blob]
+                ok &= bool(np.allclose(got, want, rtol=MESH_STEP_RTOL,
+                                       atol=MESH_STEP_ATOL))
+                worst = max(worst, float(np.max(np.abs(got - want))))
+    log(f"[train] 2x1 data mesh (gloo, one card), one step: loss "
+        f"{ranks[0]['loss']:.7f} vs {single['loss']:.7f}, params max |diff| "
+        f"{worst:.3g}; within rtol {MESH_STEP_RTOL} atol {MESH_STEP_ATOL}: "
+        f"{ok}")
+    if not ok:
+        raise AssertionError("phase 13e: the data-mesh step differs")
+
+
+def check_training(torch, smi: str) -> dict:
+    """Phase 13: JPEG decoding and the Caffe training path on the card."""
+    out = {"decode_ms": check_jpeg(torch, smi)}
+    check_jpeg_cli(torch)
+    out["caffenet"] = check_caffenet_training(torch, smi)
+    check_train_resume(torch)
+    check_train_mesh(torch)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1727,6 +2190,8 @@ def main() -> int:
     phase_done("phase 11 (mesh: ring, space and data meshes)")
     check_caffe(torch, smi)
     phase_done("phase 12 (Caffe framework: VGG-19, CaffeNet, tools, layers)")
+    check_training(torch, smi)
+    phase_done("phase 13 (JPEG, CaffeNet training, resume, data mesh)")
     log(f"[time] whole run {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [bidir, directed]}))
     log(smi)

@@ -1,6 +1,43 @@
-"""Image codec and the prefetching pair loader (counterpart of
-``nct_tpu.data``'s loader)."""
+"""Image codecs, the prefetching pair loader and the data sources of the
+training path (counterpart of ``nct_tpu.data``).
+
+Host-IO data-source layer types (the BasePrefetchingDataLayer family):
+``NetSolver`` strips these from the net and streams their tops as per-step
+batches.  ``make_data_source`` maps a layer's prototxt ``type`` to a
+source with ``next_batch() -> tuple of arrays`` (images NCHW).
+"""
 
 from nct_tpu_torch.data.loader import PairLoader
 
-__all__ = ["PairLoader"]
+__all__ = ["PairLoader", "DATA_LAYER_TYPES", "make_data_source"]
+
+DATA_LAYER_TYPES = ("ImageData", "HDF5Data", "Data", "WindowData",
+                    "MemoryData")
+
+# the JAX package's sources not ported yet, and the ROADMAP item of each
+_NOT_PORTED = {
+    "Data": "the record / LMDB / LevelDB source (nct_tpu/data/records.py)",
+    "WindowData": "the WindowData source (nct_tpu/data/window_data.py)",
+    "HDF5Data": "the HDF5Data source (nct_tpu/data/hdf5_data.py)",
+}
+
+
+def make_data_source(layer_cfg: dict, phase: str = "TRAIN", seed: int = 0):
+    """The source of one data layer (the reference's layer factory
+    restricted to its data layers): ImageData (image_data_layer.cpp) and
+    MemoryData (memory_data_layer.cpp).  Data, WindowData and HDF5Data
+    raise ``NotImplementedError`` naming their ROADMAP item."""
+    ltype = str(layer_cfg.get("type"))
+    if ltype == "ImageData":
+        from nct_tpu_torch.data.image_data import ImageDataSource
+
+        return ImageDataSource(layer_cfg, phase=phase, seed=seed)
+    if ltype == "MemoryData":
+        from nct_tpu_torch.data.memory_data import MemoryDataSource
+
+        return MemoryDataSource(layer_cfg, phase=phase, seed=seed)
+    if ltype in _NOT_PORTED:
+        raise NotImplementedError(
+            f"data layer {ltype!r}: {_NOT_PORTED[ltype]} is not ported yet "
+            f"(ROADMAP.md, Queue 1 #3b.2, the remaining data sources)")
+    raise ValueError(f"not a data layer type: {ltype}")

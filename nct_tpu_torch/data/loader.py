@@ -3,10 +3,12 @@
 The reference decodes and resizes each pair serially on its main thread
 (main.cu:483-522).  ``PairLoader`` decodes every image of a pairs list on a
 thread pool ahead of the consumer, so host IO overlaps the card's work on
-the pair before.  Decoding is ``io.imread_bgr`` (PNG through ``data.png``,
-which needs no imaging library) and the longer-side cap is
-``io.cap_max_size``; ``zlib`` and numpy release the GIL in their heavy
-calls.
+the pair before.  Decoding is ``io.imread_bgr`` (PNG through ``data.png``
+and JPEG through ``data.jpeg``, neither of which needs an imaging library)
+and the longer-side cap is ``io.cap_max_size``; ``zlib``, numpy and the
+decoder's ctypes call release the GIL in their heavy work.  A file that
+cannot be read (``OSError``) makes its pair unreadable; a decoder that
+cannot be built (``RuntimeError``) is raised to the consumer.
 """
 
 from __future__ import annotations

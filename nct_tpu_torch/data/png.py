@@ -1,6 +1,6 @@
 """PNG decoder and encoder on ``zlib`` and numpy (no Pillow, no libpng).
 
-Decoding normalises every non-interlaced PNG to uint8 BGR [H, W, 3] the
+Decoding normalises every PNG to uint8 BGR [H, W, 3] the
 way the JAX package's native loader does (``native/dataloader.cpp``
 ``decode_png``): palette to RGB; gray at 1, 2 and 4 bits scaled to 8;
 tRNS and alpha dropped, not composited; 16-bit samples reduced to their
@@ -8,8 +8,11 @@ high byte; gray replicated to RGB; channels reversed to BGR.  All five
 row filters are undone: rows whose filters depend only on their own row
 or the row above (None, Sub, Up) one row at a time, and files with
 Average or Paeth rows along anti-diagonals of pixels, each of which
-depends only on the diagonal before it.  An interlaced file, or anything
-that is not a valid PNG, raises ``OSError`` naming what it is.
+depends only on the diagonal before it.  An interlaced (Adam7) file is
+seven such filtered sub-images, one per pass, each with its own filter
+bytes and its own packed rows; each pass is decoded alone and scattered
+into the full image.  Anything that is not a valid PNG raises ``OSError``
+naming what it is.
 
 Encoding writes 8-bit RGB with the Sub filter on every row.
 """
@@ -31,8 +34,6 @@ _COLOR_TYPES = {
     4: (2, (8, 16)),              # gray + alpha
     6: (4, (8, 16)),              # RGBA
 }
-_COLOR_NAMES = {0: "gray", 2: "RGB", 3: "palette", 4: "gray+alpha",
-                6: "RGBA"}
 
 
 def _chunks(data: bytes, path: str):
@@ -114,6 +115,32 @@ def _unpack(raw: np.ndarray, width: int, depth: int) -> np.ndarray:
     return (bits * weights).sum(-1, dtype=np.uint8)[:, :width]
 
 
+# Adam7 passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _sub_image(raw: bytes, pos: int, width: int, height: int, channels: int,
+               depth: int, path: str) -> tuple[np.ndarray, int]:
+    """Unfilter one filtered (sub-)image of ``height`` rows starting at
+    byte ``pos`` of the inflated data -> ([height, width * channels] uint8
+    samples, 16-bit ones reduced to their high byte and packed ones
+    unpacked but not scaled; the byte after its last row)."""
+    rowbytes = (width * channels * depth + 7) // 8
+    end = pos + height * (rowbytes + 1)
+    if len(raw) < end:
+        raise OSError(f"{path}: PNG image data is short: {len(raw)} bytes "
+                      f"where {end} are needed")
+    rows = np.frombuffer(raw, np.uint8, height * (rowbytes + 1), pos)
+    bpp = max(1, channels * depth // 8)
+    px = _unfilter(rows.reshape(height, rowbytes + 1), bpp, path)
+    if depth == 16:
+        px = px.reshape(height, width * channels, 2)[..., 0]   # high byte
+    elif depth < 8:
+        px = _unpack(px, width * channels, depth)
+    return px, end
+
+
 def decode(data: bytes, path: str = "<bytes>") -> np.ndarray:
     """PNG file bytes -> uint8 BGR [H, W, 3] (see the module docstring)."""
     if not data.startswith(SIGNATURE):
@@ -137,9 +164,9 @@ def decode(data: bytes, path: str = "<bytes>") -> np.ndarray:
     if color not in _COLOR_TYPES or depth not in _COLOR_TYPES[color][1]:
         raise OSError(f"{path}: PNG colour type {color} at bit depth {depth} "
                       f"is not a valid combination")
-    if interlace:
-        raise OSError(f"{path}: interlaced (Adam7) {_COLOR_NAMES[color]} PNG; "
-                      f"only non-interlaced PNG files are decoded")
+    if interlace not in (0, 1):
+        raise OSError(f"{path}: PNG interlace method {interlace}; only 0 "
+                      f"(none) and 1 (Adam7) exist")
     if compression or filtering:
         raise OSError(f"{path}: PNG compression method {compression} / filter "
                       f"method {filtering}; only method 0 of each exists")
@@ -148,24 +175,25 @@ def decode(data: bytes, path: str = "<bytes>") -> np.ndarray:
     if color == 3 and palette is None:
         raise OSError(f"{path}: palette PNG without a PLTE chunk")
     channels = _COLOR_TYPES[color][0]
-    rowbytes = (width * channels * depth + 7) // 8
-    bpp = max(1, channels * depth // 8)
     try:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise OSError(f"{path}: PNG image data does not inflate ({e})") from e
-    if len(raw) < height * (rowbytes + 1):
-        raise OSError(f"{path}: PNG image data is short: {len(raw)} bytes for "
-                      f"{height} rows of {rowbytes + 1}")
-    rows = np.frombuffer(raw, np.uint8, height * (rowbytes + 1))
-    px = _unfilter(rows.reshape(height, rowbytes + 1), bpp, path)
-
-    if depth == 16:
-        px = px.reshape(height, width * channels, 2)[..., 0]   # high byte
-    elif depth < 8:
-        px = _unpack(px, width, depth)
-        if color == 0:
-            px = px * np.uint8(255 // ((1 << depth) - 1))
+    if not interlace:
+        px, _ = _sub_image(raw, 0, width, height, channels, depth, path)
+    else:
+        px = np.empty((height, width * channels), np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw = -(-(width - x0) // dx) if width > x0 else 0
+            ph = -(-(height - y0) // dy) if height > y0 else 0
+            if pw == 0 or ph == 0:
+                continue        # an empty pass has no bytes, not even filters
+            sub, pos = _sub_image(raw, pos, pw, ph, channels, depth, path)
+            px.reshape(height, width, channels)[y0::dy, x0::dx] = \
+                sub.reshape(ph, pw, channels)
+    if color == 0 and depth < 8:
+        px = px * np.uint8(255 // ((1 << depth) - 1))
     px = px.reshape(height, width, channels)
     if color == 3:
         table = np.zeros((256, 3), np.uint8)    # indices past PLTE: black

@@ -2,10 +2,10 @@
 
 Images are uint8 BGR numpy arrays [H, W, 3], capped to MAX_SIZE on the
 longer side; results are written as ``<src>_<ref>_<bds%.2f>.png``.
-PNG files are read and written by ``data.png`` (zlib and numpy), so the
-CLI needs no imaging library.  Other formats go through Pillow, imported
-inside the two functions; without it they raise ``OSError`` naming the
-format.
+PNG files are read and written by ``data.png`` (zlib and numpy) and JPEG
+files are read by ``data.jpeg`` (the repo's own decoder), so the CLI needs
+no imaging library.  Other formats go through Pillow, imported inside the
+two functions; without it they raise ``OSError`` naming the format.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from nct_tpu_torch.data import png
+from nct_tpu_torch.data import jpeg, png
 from nct_tpu_torch.ops.resize import max_size_resize_dims, resize_bilinear
 
 
@@ -30,14 +30,16 @@ def _pillow(path: str, fmt: str):
 
 
 def imread_bgr(path: str) -> np.ndarray:
-    """Read an image file as uint8 BGR [H, W, 3]: PNG (told by its
-    signature) through ``data.png``, anything else through Pillow."""
+    """Read an image file as uint8 BGR [H, W, 3]: PNG and JPEG (told by
+    their signatures) through ``data.png`` and ``data.jpeg``, anything
+    else through Pillow."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(png.SIGNATURE):
         return png.decode(data, path)
-    fmt = ("JPEG" if data[:2] == b"\xff\xd8" else
-           (os.path.splitext(path)[1].lstrip(".").upper() or "unknown-format"))
+    if data.startswith(jpeg.SOI):
+        return jpeg.decode(data, path)
+    fmt = os.path.splitext(path)[1].lstrip(".").upper() or "unknown-format"
     image = _pillow(path, fmt)
     with image.open(path) as im:
         rgb = np.asarray(im.convert("RGB"), dtype=np.uint8)

@@ -5,8 +5,9 @@ Rebuilds the reference's Python application wrappers (reference:
 code/python/caffe/classifier.py, detector.py, io.py) over the port's Net.
 Blobs are NCHW, so the Transformer works as pycaffe's does: HWC images in,
 ``set_transpose`` (the apps set (2, 0, 1)) to CHW, the channel swap and
-the mean along the channel axis.  Images load through the port's PNG codec
-and resize through its OpenCV-rule bilinear resize: no Pillow, no cv2.
+the mean along the channel axis.  PNG and JPEG images load through the
+port's own decoders and resize through its OpenCV-rule bilinear resize: no
+Pillow, no cv2.
 """
 
 from __future__ import annotations
@@ -14,16 +15,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nct_tpu_torch.data import png
+from nct_tpu_torch.io import imread_bgr
 from nct_tpu_torch.ops.resize import resize_bilinear
 
 
 def load_image(filename: str, color: bool = True) -> np.ndarray:
-    """A PNG file as float32 [0, 1] HWC: RGB, or with ``color=False`` one
-    channel of ITU-R 601-2 luma in Pillow's fixed-point rounding
-    (io.py:279-305 load_image)."""
-    with open(filename, "rb") as f:
-        bgr = png.decode(f.read(), filename)
+    """An image file (PNG and JPEG without Pillow) as float32 [0, 1] HWC:
+    RGB, or with ``color=False`` one channel of ITU-R 601-2 luma in
+    Pillow's fixed-point rounding (io.py:279-305 load_image)."""
+    bgr = imread_bgr(filename)
     if color:
         return bgr[:, :, ::-1].astype(np.float32) / 255.0
     b, g, r = (bgr[:, :, i].astype(np.int64) for i in range(3))

@@ -168,15 +168,18 @@ def softmax_layer(params, cfg, x):
 @register_layer("Dropout")
 def dropout_layer(params, cfg, x):
     """TEST phase is identity; TRAIN phase (the Net passes the caller's
-    ``torch.Generator`` as ``__generator__``) applies the inverted-scale
-    Bernoulli mask of dropout_layer.cpp: keep with prob 1-ratio, scale kept
-    values by 1/(1-ratio)."""
+    ``torch.Generator``, on any device, as ``__generator__``) applies the
+    inverted-scale Bernoulli mask of dropout_layer.cpp: keep with prob
+    1-ratio, scale kept values by 1/(1-ratio)."""
     gen = params.get("__generator__")
     if gen is None:
         return x
     ratio = float(cfg.get("dropout_param", {}).get("dropout_ratio", 0.5))
     keep = 1.0 - ratio
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    # drawn on the generator's device, so a CPU generator gives a card
+    # the CPU's masks
+    mask = (torch.rand(x.shape, generator=gen, device=gen.device)
+            < keep).to(x.device)
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -15,7 +15,10 @@ setup), ForwardFromTo (:553-565, topological layer loop), blob_by_name
     ``copy_trained_layers_from`` reads caffemodel blobs as they are;
   * the net runs on ``cuda`` unless given ``device="cpu"``, and raises
     where there is no card; float32 means float32 on the card (TF32 off
-    for every convolution and product of the forward).
+    for every convolution and product of the forward);
+  * training: ``make_loss_fn`` is the weighted sum of the loss tops,
+    differentiated by autograd; ``trainable`` (which ``NetSolver`` sets)
+    makes the stored parameters require gradients.
 
 ``params_from_jax`` carries the JAX package's ``Net.params`` (NHWC / HWIO
 layouts) over to this net's layouts, so both compute the same function.
@@ -109,6 +112,7 @@ class Net(nn.Module):
                     self.input_shapes[top] = tuple(
                         int(d) for d in _as_list(s.get("dim")))
         self.layer_params = nn.ModuleDict()
+        self._trainable = False
 
     # --- weights ---------------------------------------------------------
     @property
@@ -116,6 +120,18 @@ class Net(nn.Module):
         """{layer name: {blob name: tensor}} (the tensors are the net's)."""
         return {k.replace("\x00", "."): dict(pd.items())
                 for k, pd in self.layer_params.items()}
+
+    @property
+    def trainable(self) -> bool:
+        """Whether the stored parameters require gradients (False until
+        set; ``NetSolver`` sets it on its TRAIN net)."""
+        return self._trainable
+
+    @trainable.setter
+    def trainable(self, flag: bool) -> None:
+        self._trainable = bool(flag)
+        for p in self.layer_params.parameters():
+            p.requires_grad_(self._trainable)
 
     def set_params(self, name: str, entry: dict) -> None:
         """Set a layer's parameters (tensors or arrays, Caffe layouts);
@@ -126,7 +142,8 @@ class Net(nn.Module):
                 np.asarray(v))
             if not t.is_floating_point() or t.dtype == torch.float64:
                 t = t.float()
-            pd[k] = nn.Parameter(t.to(self.device), requires_grad=False)
+            pd[k] = nn.Parameter(t.detach().to(self.device),
+                                 requires_grad=self._trainable)
         self.layer_params[_key(name)] = pd
 
     def copy_trained_layers_from(self, caffemodel_path: str) -> list[str]:
@@ -347,6 +364,29 @@ class Net(nn.Module):
                 if w:
                     out.append((t, w))
         return out
+
+    def make_loss_fn(self):
+        """loss_fn(params, batch) for ``train.Solver``: runs the DAG with
+        the given params, feeding ``batch`` (a dict) as input blobs, and
+        sums the weighted loss tops -- the role of Net::ForwardBackward
+        (the backward is autograd's).  A ``"__generator__"`` entry of the
+        batch (a ``torch.Generator``, the JAX package's ``"__rng__"``)
+        drives the step's Dropout masks."""
+        tops = self.loss_tops()
+        if not tops:
+            raise ValueError("net has no loss layers")
+        names = tuple(t for t, _ in tops)
+
+        def loss_fn(params, batch):
+            batch = dict(batch)
+            gen = batch.pop("__generator__", None)
+            blobs = self.forward(batch, names, params=params, generator=gen)
+            total = 0.0
+            for t, w in tops:
+                total = total + w * torch.sum(blobs[t])
+            return total
+
+        return loss_fn
 
     def blob_names(self) -> list[str]:
         names = set(self.inputs)

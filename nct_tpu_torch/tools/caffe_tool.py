@@ -1,10 +1,14 @@
-"""The ``caffe`` command-line equivalent on the port: test / time /
-device_query (port of ``tools/caffe_tool.py`` and ``tools/layer_time.py``).
+"""The ``caffe`` command-line equivalent on the port: train / test / time
+/ device_query (port of ``tools/caffe_tool.py`` and ``tools/layer_time.py``).
 
-Reference: tools/caffe.cpp — test:231-283 runs forward ``iterations``
-times and averages every loss and accuracy output; time() times each
-layer's forward; device_query lists the devices.
+Reference: tools/caffe.cpp — train:156-229 builds a solver from --solver
+and optionally restores --snapshot; test:231-283 runs forward
+``iterations`` times and averages every loss and accuracy output; time()
+times each layer's forward; device_query lists the devices.
 
+    python -m nct_tpu_torch.tools.caffe_tool train --solver solver.prototxt \\
+        [--snapshot s.npz] [--weights w.caffemodel|w.npz] [--mesh data=N] \\
+        [--device cuda|cpu] [--deterministic]
     python -m nct_tpu_torch.tools.caffe_tool test --model net.prototxt \\
         [--weights w.caffemodel] [--iterations N] [--device cuda|cpu]
     python -m nct_tpu_torch.tools.caffe_tool time net.prototxt [H W] \\
@@ -14,7 +18,11 @@ layer's forward; device_query lists the devices.
 Every command runs on ``cuda`` unless given ``--device cpu``, and raises
 without a card.  ``time`` times each layer alone on the blobs of one whole
 forward, then the whole forward, with CUDA events on the card (the host
-clock on the CPU).  ``train`` waits for the port's training slice.
+clock on the CPU).  ``train --mesh data=N`` runs N data-parallel ranks
+(``parallel.mesh.launch``) on the host's cards (or CPU processes with
+``--device cpu``); rank 0 prints and writes the final snapshot.
+``--deterministic`` asks cuDNN for its deterministic algorithms, so two
+runs of one solver give the same bits.
 """
 
 from __future__ import annotations
@@ -119,6 +127,54 @@ def score_net(net: Net, iterations: int) -> dict[str, float]:
     return {t: s / iterations for t, s in sums.items()}
 
 
+def _train(solver: str, snapshot, weights, device, mesh_n: int,
+           deterministic: bool):
+    """One rank of ``train`` (or the whole of it without a mesh); returns
+    (final loss, final snapshot path, restored iteration or None)."""
+    from nct_tpu_torch.train.solver_proto import NetSolver
+
+    if deterministic:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+    mesh = None
+    if mesh_n > 1:
+        from nct_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(n_data=mesh_n, device=device)
+    ns = NetSolver(solver, mesh=mesh, device=None if mesh else device)
+    if weights:
+        ns.load_weights(weights)
+    restored = None
+    if snapshot:
+        ns.restore(snapshot)
+        restored = ns.solver.iter
+    loss = ns.solve()
+    rank0 = mesh is None or mesh.coords == (0, 0)
+    path = ns.solver.snapshot() if rank0 else None
+    return loss, path, restored
+
+
+def cmd_train(args) -> int:
+    mesh_n = int(args.mesh.split("=")[-1]) if args.mesh else 1
+    if mesh_n > 1:
+        from nct_tpu_torch.parallel.mesh import launch
+
+        # each rank takes its card (the mesh's rule) or the CPU
+        cpu = args.device == "cpu"
+        loss, path, restored = launch(
+            _train, mesh_n, args.solver, args.snapshot, args.weights,
+            "cpu" if cpu else None, mesh_n, args.deterministic,
+            device="cpu" if cpu else None)[0]
+    else:
+        loss, path, restored = _train(args.solver, args.snapshot,
+                                      args.weights, args.device, 1,
+                                      args.deterministic)
+    if restored is not None:
+        print(f"restored iter {restored} from {args.snapshot}")
+    print(f"Optimization Done. loss={loss:.6f} snapshot={path}")
+    return 0
+
+
 def cmd_test(args) -> int:
     net = load_net(args.model, args.device, args.weights)
     net.init_params({}, seed=0)  # fill anything the weights didn't cover
@@ -161,7 +217,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     sub = ap.add_subparsers(dest="action", required=True)
     tr = sub.add_parser("train")
-    tr.add_argument("--solver")
+    tr.add_argument("--solver", required=True)
+    tr.add_argument("--snapshot", default=None,
+                    help="resume from an npz solver state (this port's or "
+                         "the JAX package's)")
+    tr.add_argument("--weights", default=None,
+                    help="initial weights: .caffemodel or an npz snapshot")
+    tr.add_argument("--mesh", default=None,
+                    help="data=N: split each batch over N ranks (P2PSync)")
+    tr.add_argument("--device", default="cuda")
+    tr.add_argument("--deterministic", action="store_true")
     te = sub.add_parser("test")
     te.add_argument("--model", required=True)
     te.add_argument("--weights", default=None)
@@ -177,9 +242,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if args.action == "train":
-        raise NotImplementedError(
-            "caffe_tool train: training is not ported yet (ROADMAP.md, "
-            "Queue 1: train/, NetSolver and the data-source layers)")
+        return cmd_train(args)
     if args.action == "test":
         return cmd_test(args)
     if args.action == "time":

@@ -198,11 +198,15 @@ def test_caffe_tool_time_cpu(tmp_path, capsys):
     assert len(per_layer) == 5 and total > 0
 
 
-def test_caffe_tool_train_and_device_query(capsys):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        caffe_tool.main(["train", "--solver", "s.prototxt"])
+def test_caffe_tool_train_and_device_query(capsys, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
+    # train runs on cuda unless given --device cpu (tests/
+    # test_torch_net_solver.py trains on the CPU)
+    solver = tmp_path / "s.prototxt"
+    solver.write_text('net: "net.prototxt"\nbase_lr: 0.01\n')
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        caffe_tool.main(["train", "--solver", str(solver)])
     assert caffe_tool.main(["device_query"]) == 1
     assert "no CUDA device" in capsys.readouterr().out
     with pytest.raises(RuntimeError, match="no CUDA device"):

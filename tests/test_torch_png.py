@@ -192,15 +192,70 @@ def test_encoder_round_trip_and_pillow_reads_it(tmp_path, native, hw):
     np.testing.assert_array_equal(native.imread_bgr(str(path)), img)
 
 
-def test_interlaced_raises_oserror(tmp_path):
-    rng = np.random.default_rng(0)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def write_adam7(path, samples, color, depth, rng, palette=None):
+    """An interlaced PNG: each non-empty Adam7 pass filtered on its own
+    (random filter types, a zero row above its first row)."""
+    h, w, ch = samples.shape
+    bpp = max(1, ch * depth // 8)
+    body = bytearray()
+    for x0, y0, dx, dy in ADAM7:
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        ph, pw = sub.shape[:2]
+        raw = _pack(sub.reshape(ph, pw * ch).astype(np.int64), depth)
+        prev = np.zeros(raw.shape[1], np.int64)
+        for y in range(ph):
+            kind = int(rng.integers(0, 5))
+            body.append(kind)
+            body += bytes(_filter_row(kind, raw[y], prev, bpp)
+                          .astype(np.uint8))
+            prev = raw[y]
+    out = png.SIGNATURE + _chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, color, 0, 0, 1))
+    if palette is not None:
+        out += _chunk(b"PLTE", bytes(palette.astype(np.uint8).reshape(-1)))
+    out += _chunk(b"IDAT", zlib.compress(bytes(body))) + _chunk(b"IEND", b"")
+    path.write_bytes(out)
+
+
+ADAM7_CASES = [(0, 1), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1), (3, 8),
+               (4, 8), (4, 16), (6, 8), (6, 16)]
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (3, 5), (8, 8), (20, 30)],
+                         ids=lambda hw: f"{hw[0]}x{hw[1]}")
+@pytest.mark.parametrize("case", ADAM7_CASES,
+                         ids=lambda c: "c{}-d{}".format(*c))
+def test_adam7_bitwise_vs_pillow(tmp_path, case, hw):
+    """Interlaced files decode as Pillow decodes them (1x1 and 3x5 leave
+    passes empty).  Pillow keeps 16-bit gray as 16-bit samples, so that
+    case is held to the rules and to the same samples written without
+    interlacing instead."""
+    color, depth = case
+    rng = np.random.default_rng(hw[0] * 100 + hw[1])
+    ch = CHANNELS[color]
+    n_pal = 1 << depth if color == 3 else None
+    samples = rng.integers(0, n_pal or 1 << depth, hw + (ch,))
+    palette = rng.integers(0, 256, (n_pal, 3)) if color == 3 else None
     path = tmp_path / "adam7.png"
-    write_png(path, rng.integers(0, 256, (H, W, 3)), 2, 8, [0] * H,
-              interlace=1)
-    with pytest.raises(OSError, match="interlaced"):
-        tio.imread_bgr(str(path))
-    with pytest.raises(OSError, match="interlaced"):
-        tio.imread_bgr(str(path))
+    write_adam7(path, samples, color, depth, rng, palette)
+    got = tio.imread_bgr(str(path))
+    assert got.dtype == np.uint8 and got.shape == hw + (3,)
+    np.testing.assert_array_equal(got, expected_bgr(samples, color, depth,
+                                                    palette))
+    if (color, depth) == (0, 16):
+        flat = tmp_path / "flat.png"
+        write_png(flat, samples, color, depth, [0] * hw[0])
+        np.testing.assert_array_equal(got, tio.imread_bgr(str(flat)))
+        return
+    with Image.open(path) as im:
+        pil = np.asarray(im.convert("RGB"))[..., ::-1]
+    np.testing.assert_array_equal(got, pil)
 
 
 @pytest.mark.parametrize("mutate,match", [
@@ -216,10 +271,15 @@ def test_bad_files_raise_oserror(tmp_path, mutate, match):
 
 
 def test_non_png_without_pillow_names_the_format(tmp_path, monkeypatch):
+    path = tmp_path / "x.gif"
+    path.write_bytes(b"GIF89a" + b"\0" * 16)
+    monkeypatch.setitem(__import__("sys").modules, "PIL", None)
+    with pytest.raises(OSError, match="GIF files need Pillow"):
+        tio.imread_bgr(str(path))
+    # JPEG goes to the port's own decoder, which names what is wrong
     path = tmp_path / "x.jpg"
     path.write_bytes(b"\xff\xd8\xff\xe0" + b"\0" * 16)
-    monkeypatch.setitem(__import__("sys").modules, "PIL", None)
-    with pytest.raises(OSError, match="JPEG files need Pillow"):
+    with pytest.raises(OSError, match="JPEG: "):
         tio.imread_bgr(str(path))
     with pytest.raises(OSError, match="BMP files need Pillow"):
         tio.imwrite_bgr(str(tmp_path / "y.bmp"), np.zeros((2, 2, 3), np.uint8))
