@@ -129,11 +129,14 @@ no result, without them.  Phases, each of which raises on failure:
      ms per iteration device only and with the host feed, images/s and
      TFLOP/s at 3 x the forward FLOPs, then the card against the CPU over
      3 steps at batch 8 with CPU-drawn Dropout masks (losses within rtol
-     1e-4, TF32 off); (d) ``caffe_tool train`` in a new process with a
-     snapshot at iteration 4 of 8, and a second one resuming from it: its
-     params and history bitwise the uninterrupted run's; (e) one step over
-     a 2x1 data mesh (2 gloo ranks on the card) against the
-     single-process step (rtol 1e-6).  The training path adds no kernel:
+     1e-4, TF32 off); (d) ``caffe_tool train --deterministic`` in a new
+     process with a snapshot at iteration 4 of 8, and a second one
+     resuming from it: its params and history bitwise the uninterrupted
+     run's; a third resumes without ``--deterministic``: within rtol 1e-4
+     atol 1e-6; (e) over a 2x1 data mesh (2 gloo ranks on the card)
+     against this process (rtol 1e-6): one step without and with Dropout,
+     and 3 NetSolver iterations over ImageData with Dropout in which each
+     rank decodes half of every batch.  The training path adds no kernel:
      its products are ``F.conv2d`` / ``F.linear`` and autograd's.
 
 The line before the last holds {"kernels": [...]}, the one before it the
@@ -1749,16 +1752,19 @@ layer { name: "accuracy" type: "Accuracy" bottom: "ip" bottom: "label"
 
 def small_train_net(batch: int, dropout: bool = True,
                     memory_data: bool = True, image_list: str | None = None,
-                    hw: int = 12) -> str:
+                    hw: int = 12, crop: bool = False, root: str = "") -> str:
     """A small TRAIN net (conv, ReLU, max pool, InnerProduct, ReLU,
     Dropout, InnerProduct, SoftmaxWithLoss) fed by MemoryData, by Input
-    layers, or by ImageData over ``image_list`` (resized to hw x hw)."""
+    layers, or by ImageData over ``image_list`` under ``root``: resized to
+    hw x hw, or with ``crop`` random hw x hw crops and mirror."""
     if image_list:
+        size = (f'crop_size: {hw} mirror: true ' if crop else '')
+        resize = ('' if crop else f'new_height: {hw} new_width: {hw} ')
         data = (f'layer {{ name: "data" type: "ImageData" top: "data" '
                 f'top: "label" image_data_param {{ source: "{image_list}" '
-                f'batch_size: {batch} new_height: {hw} new_width: {hw} '
-                f'shuffle: true }} transform_param {{ scale: 0.0078125 '
-                f'mean_value: 128 }} }}\n')
+                f'root_folder: "{root}" batch_size: {batch} {resize}'
+                f'shuffle: true }} transform_param {{ {size}'
+                f'scale: 0.0078125 mean_value: 128 }} }}\n')
     elif memory_data:
         data = (f'layer {{ name: "data" type: "MemoryData" top: "data" '
                 f'top: "label" memory_data_param {{ batch_size: {batch} '
@@ -1811,21 +1817,59 @@ def _solver_result(solver, loss) -> dict:
         for k, e in solver.params.items()}}
 
 
-def train_single(text: str, batch: dict, device) -> dict:
-    """One step of ``small_train_net`` in this process."""
-    solver = _small_solver(text, device)
-    return _solver_result(solver, solver.step(batch))
+MESH_NET_SOLVER_ITERS = 3
 
 
-def train_mesh_rank(text: str, batch: dict, n_data: int, device) -> dict:
-    """One rank of one step of ``small_train_net`` over an n_data x 1 data
-    mesh (run by ``parallel.mesh.launch``); every rank gets the whole
-    batch and takes its shard."""
+def _image_net_solver(image_list: str, root: str, iters: int, device,
+                      mesh=None):
+    """A NetSolver of ``small_train_net`` with Dropout over ImageData
+    (random 12 x 12 crops and mirror of the listed images, batch 8)."""
+    from nct_tpu_torch.nn import parse_prototxt
+    from nct_tpu_torch.train.solver_proto import (NetSolver,
+                                                  parse_solver_prototxt)
+
+    proto = parse_solver_prototxt(
+        f'base_lr: 0.01\nmomentum: 0.9\nweight_decay: 0.0005\n'
+        f'lr_policy: "fixed"\nmax_iter: {iters}\nrandom_seed: 4\n')
+    proto.net = parse_prototxt(small_train_net(
+        8, image_list=image_list, crop=True, root=root))
+    return NetSolver(proto, mesh=mesh, device=None if mesh else device)
+
+
+def train_cases(batch: dict, image_list: str, root: str, device,
+                mesh=None) -> dict:
+    """Phase 13e's cases, in this process or as one rank of ``mesh``:
+    one Solver step of ``small_train_net`` on ``batch`` without and with
+    Dropout (a mesh rank gets the whole batch and takes its block), and
+    MESH_NET_SOLVER_ITERS NetSolver iterations over ImageData with Dropout
+    (a mesh rank reads its block of each batch), with the images decoded."""
+    import torch
+
+    out = {}
+    for dropout in (False, True):
+        batch_in = dict(batch)
+        if dropout:
+            batch_in["__generator__"] = torch.Generator(
+                device=device).manual_seed(11)
+        solver = _small_solver(small_train_net(
+            8, dropout=dropout, memory_data=False), device, mesh)
+        out["dropout" if dropout else "plain"] = _solver_result(
+            solver, solver.step(batch_in))
+    ns = _image_net_solver(image_list, root, MESH_NET_SOLVER_ITERS, device,
+                           mesh)
+    out["net_solver"] = dict(_solver_result(ns.solver, ns.solve()),
+                             decoded=ns.data_source.decoded)
+    return out
+
+
+def train_mesh_rank(batch: dict, image_list: str, root: str, n_data: int,
+                    device) -> dict:
+    """One rank of ``train_cases`` over an n_data x 1 data mesh (run by
+    ``parallel.mesh.launch``)."""
     from nct_tpu_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh(n_data=n_data, device=device)
-    solver = _small_solver(text, mesh.device, mesh)
-    return _solver_result(solver, solver.step(batch))
+    return train_cases(batch, image_list, root, mesh.device, mesh)
 
 
 # phase 13: the JPEG fixtures, CaffeNet training at its published widths
@@ -1838,6 +1882,7 @@ TRAIN_CARD_CPU_BATCH = 8
 TRAIN_CARD_CPU_STEPS = 3
 TRAIN_CARD_CPU_RTOL = 1e-4
 MESH_STEP_RTOL, MESH_STEP_ATOL = 1e-6, 1e-7
+RESUME_DEFAULT_RTOL, RESUME_DEFAULT_ATOL = 1e-4, 1e-6
 # bvlc_reference_caffenet/solver.prototxt, max_iter cut to phase 13c's run
 # and test_interval dropped (the train_val's TEST branch reads an LMDB)
 CAFFENET_SOLVER = """base_lr: 0.01
@@ -2060,9 +2105,11 @@ def check_caffenet_training(torch, smi: str) -> dict:
 
 
 def check_train_resume(torch) -> None:
-    """13d: ``caffe_tool train`` in a new process, snapshot at iteration 4
-    of 8, then a second process restoring it: the final params and
-    history bitwise the uninterrupted run's."""
+    """13d: ``caffe_tool train --deterministic`` in a new process, snapshot
+    at iteration 4 of 8, then a second process restoring it: the final
+    params and history bitwise the uninterrupted run's.  A third process
+    restores it without ``--deterministic`` (cuDNN free to pick
+    non-deterministic algorithms): within RESUME_DEFAULT_RTOL / ATOL."""
     import os
     import tempfile
 
@@ -2074,21 +2121,22 @@ def check_train_resume(torch) -> None:
         net = os.path.join(tmp, "net.prototxt")
         with open(net, "w") as f:
             f.write(small_train_net(16, image_list=os.path.join(
-                fix, "list.txt"), hw=32).replace(
-                "shuffle: true", f'shuffle: true root_folder: "{fix}/"'))
-        for prefix in ("whole", "resumed"):
+                fix, "list.txt"), hw=32, root=fix + "/"))
+        for prefix in ("whole", "resumed", "default"):
             with open(os.path.join(tmp, f"{prefix}.prototxt"), "w") as f:
                 f.write(f'net: "{net}"\nbase_lr: 0.01\nmomentum: 0.9\n'
                         f'weight_decay: 0.0005\nlr_policy: "fixed"\n'
                         f'max_iter: 8\nsnapshot: 4\nsnapshot_prefix: '
                         f'"{os.path.join(tmp, prefix)}"\nrandom_seed: 1\n')
         t0 = time.perf_counter()
-        for prefix, extra in (("whole", []), ("resumed", [
-                "--snapshot", os.path.join(tmp, "whole_iter_4.npz")])):
+        resume = ["--snapshot", os.path.join(tmp, "whole_iter_4.npz")]
+        for prefix, extra in (("whole", ["--deterministic"]),
+                              ("resumed", ["--deterministic", *resume]),
+                              ("default", resume)):
             proc = subprocess.run(
                 [sys.executable, "-m", "nct_tpu_torch.tools.caffe_tool",
                  "train", "--solver", os.path.join(tmp, f"{prefix}.prototxt"),
-                 "--device", "cuda", "--deterministic", *extra],
+                 "--device", "cuda", *extra],
                 capture_output=True, text=True, cwd=repo, timeout=300,
                 env=dict(os.environ, PYTHONPATH=repo))
             if proc.returncode != 0:
@@ -2101,42 +2149,79 @@ def check_train_resume(torch) -> None:
                       if k.startswith(("params/", "state/")))
         same = [k for k in keys if k in resumed.files
                 and np.array_equal(whole[k], resumed[k])]
-    log(f"[train] caffe_tool train, 8 iterations with a snapshot at 4, then "
-        f"--snapshot resume: {len(same)} / {len(keys)} params and history "
-        f"arrays bitwise the uninterrupted run ({time.perf_counter() - t0:.1f}"
-        f" s, 2 processes)")
-    if not keys or len(same) != len(keys):
+        default = np.load(os.path.join(tmp, "default_iter_8.npz"))
+        close = [k for k in keys if k in default.files and np.allclose(
+            default[k], whole[k], rtol=RESUME_DEFAULT_RTOL,
+            atol=RESUME_DEFAULT_ATOL)]
+        worst = max(float(np.max(np.abs(default[k] - whole[k])))
+                    for k in keys if k in default.files)
+    log(f"[train] caffe_tool train --deterministic, 8 iterations with a "
+        f"snapshot at 4, then --snapshot resume: {len(same)} / {len(keys)} "
+        f"params and history arrays bitwise the uninterrupted run; resumed "
+        f"without --deterministic: {len(close)} / {len(keys)} within rtol "
+        f"{RESUME_DEFAULT_RTOL} atol {RESUME_DEFAULT_ATOL}, max |diff| "
+        f"{worst:.3g} ({time.perf_counter() - t0:.1f} s, 3 processes)")
+    if not keys or len(same) != len(keys) or len(close) != len(keys):
         raise AssertionError("phase 13d: the resumed run differs")
 
 
-def check_train_mesh(torch) -> None:
-    """13e: one step of ``small_train_net`` over a 2x1 data mesh (2 gloo
-    ranks on the one card) against the single-process step."""
+def mesh_case_diff(single: dict, rank: dict) -> tuple[bool, float]:
+    """(loss and params within MESH_STEP_RTOL / ATOL, params max |diff|)
+    of one rank's ``train_cases`` entry against the single process's."""
     import numpy as np
+
+    ok = math.isclose(rank["loss"], single["loss"], rel_tol=MESH_STEP_RTOL)
+    worst = 0.0
+    for name, entry in single["params"].items():
+        for blob, want in entry.items():
+            got = rank["params"][name][blob]
+            ok &= bool(np.allclose(got, want, rtol=MESH_STEP_RTOL,
+                                   atol=MESH_STEP_ATOL))
+            worst = max(worst, float(np.max(np.abs(got - want))))
+    return ok, worst
+
+
+def mesh_batch() -> dict:
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    return {"data": rng.standard_normal((8, 3, 12, 12)).astype(np.float32),
+            "label": rng.integers(0, 4, 8).astype(np.float32)}
+
+
+def check_train_mesh(torch) -> None:
+    """13e: ``train_cases`` over a 2x1 data mesh (2 gloo ranks on the one
+    card) against this process: a step without and with Dropout, and
+    NetSolver iterations over ImageData in which each rank decodes half
+    of every batch."""
+    import os
 
     from nct_tpu_torch.parallel.mesh import launch
 
-    text = small_train_net(8, dropout=False, memory_data=False)
-    rng = np.random.default_rng(2)
-    batch = {"data": rng.standard_normal((8, 3, 12, 12)).astype(np.float32),
-             "label": rng.integers(0, 4, 8).astype(np.float32)}
-    single = train_single(text, batch, "cuda")
-    ranks = launch(train_mesh_rank, 2, text, batch, 2, None)
-    ok, worst = True, 0.0
-    for out in ranks:
-        ok &= math.isclose(out["loss"], single["loss"], rel_tol=MESH_STEP_RTOL)
-        for name, entry in single["params"].items():
-            for blob, want in entry.items():
-                got = out["params"][name][blob]
-                ok &= bool(np.allclose(got, want, rtol=MESH_STEP_RTOL,
-                                       atol=MESH_STEP_ATOL))
-                worst = max(worst, float(np.max(np.abs(got - want))))
-    log(f"[train] 2x1 data mesh (gloo, one card), one step: loss "
-        f"{ranks[0]['loss']:.7f} vs {single['loss']:.7f}, params max |diff| "
-        f"{worst:.3g}; within rtol {MESH_STEP_RTOL} atol {MESH_STEP_ATOL}: "
-        f"{ok}")
+    fix = os.path.join(_fixtures_dir(), "imagedata")
+    args = (mesh_batch(), os.path.join(fix, "list.txt"), fix + "/")
+    single = train_cases(*args, "cuda")
+    ranks = launch(train_mesh_rank, 2, *args, 2, None)
+    ok = True
+    for case, what in (("plain", "one step"),
+                       ("dropout", "one step with Dropout"),
+                       ("net_solver", f"{MESH_NET_SOLVER_ITERS} NetSolver "
+                                      f"iterations over ImageData")):
+        diffs = [mesh_case_diff(single[case], r[case]) for r in ranks]
+        case_ok = all(d[0] for d in diffs)
+        line = (f"[train] 2x1 data mesh (gloo, one card), {what}: loss "
+                f"{ranks[0][case]['loss']:.7f} vs {single[case]['loss']:.7f}"
+                f", params max |diff| {max(d[1] for d in diffs):.3g}; within "
+                f"rtol {MESH_STEP_RTOL} atol {MESH_STEP_ATOL}: {case_ok}")
+        if case == "net_solver":
+            decoded = [r[case]["decoded"] for r in ranks]
+            case_ok &= all(2 * d == single[case]["decoded"] for d in decoded)
+            line += (f"; images decoded per rank {decoded} of "
+                     f"{single[case]['decoded']}")
+        log(line)
+        ok &= case_ok
     if not ok:
-        raise AssertionError("phase 13e: the data-mesh step differs")
+        raise AssertionError("phase 13e: the data-mesh run differs")
 
 
 def check_training(torch, smi: str) -> dict:

@@ -4,7 +4,9 @@ training path (counterpart of ``nct_tpu.data``).
 Host-IO data-source layer types (the BasePrefetchingDataLayer family):
 ``NetSolver`` strips these from the net and streams their tops as per-step
 batches.  ``make_data_source`` maps a layer's prototxt ``type`` to a
-source with ``next_batch() -> tuple of arrays`` (images NCHW).
+source with ``next_batch(part=None) -> tuple of arrays`` (images NCHW;
+``part = (i, n)``: the i-th of n row blocks, for one data rank),
+``state()`` (its position as {name: array}) and ``set_state(state)``.
 """
 
 from nct_tpu_torch.data.loader import PairLoader

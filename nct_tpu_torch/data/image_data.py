@@ -21,10 +21,13 @@ NCHW float32 (the JAX source's are NHWC).
 
 from __future__ import annotations
 
+import json
 import os
+import struct
 
 import numpy as np
 
+from nct_tpu_torch.data import jpeg, png
 from nct_tpu_torch.io import imread_bgr
 
 
@@ -58,6 +61,30 @@ def resize_like_native(img: np.ndarray, new_h: int, new_w: int
     v = a0 * (one - yf3) + a1 * yf3
     out = np.floor(v.astype(np.float64) + 0.5)      # v >= 0: half away
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def image_hw(path: str) -> tuple[int, int]:
+    """(height, width) of an image file from its header (PNG's IHDR, a
+    JPEG's SOF), decoding only other formats."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(png.SIGNATURE) and len(data) >= 24:
+        w, h = struct.unpack(">II", data[16:24])
+        return h, w
+    if data.startswith(jpeg.SOI):
+        pos = 2
+        while pos + 9 <= len(data):
+            if data[pos] != 0xFF:
+                break
+            marker = data[pos + 1]
+            if marker == 0xFF:              # fill byte
+                pos += 1
+                continue
+            if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+                h, w = struct.unpack(">HH", data[pos + 5:pos + 9])
+                return h, w
+            pos += 2 + struct.unpack(">H", data[pos + 2:pos + 4])[0]
+    return imread_bgr(path).shape[:2]
 
 
 def read_image(path: str, new_h: int = 0, new_w: int = 0) -> np.ndarray:
@@ -96,24 +123,38 @@ class DataTransformer:
         self.phase = phase
         self._rng = np.random.default_rng(seed)
 
-    def __call__(self, img_bgr_u8: np.ndarray) -> np.ndarray:
-        x = img_bgr_u8.astype(np.float32)
-        h, w = x.shape[:2]
+    def draw(self, h: int, w: int) -> tuple[int, int, bool]:
+        """The random choices for an h x w image, in the JAX source's
+        order: crop offsets (centred at TEST), then the mirror bit."""
+        h_off = w_off = 0
         cs = self.crop_size
-        mean_img = self.mean_image
         if cs:
             if self.phase == "TRAIN":
                 h_off = int(self._rng.integers(0, h - cs + 1))
                 w_off = int(self._rng.integers(0, w - cs + 1))
             else:
                 h_off, w_off = (h - cs) // 2, (w - cs) // 2
+        flip = bool(self.mirror and self.phase == "TRAIN"
+                    and self._rng.integers(2))
+        return h_off, w_off, flip
+
+    def __call__(self, img_bgr_u8: np.ndarray) -> np.ndarray:
+        return self.apply(img_bgr_u8, self.draw(*img_bgr_u8.shape[:2]))
+
+    def apply(self, img_bgr_u8: np.ndarray, draws) -> np.ndarray:
+        """The transform with the choices ``draw`` made."""
+        h_off, w_off, flip = draws
+        x = img_bgr_u8.astype(np.float32)
+        cs = self.crop_size
+        mean_img = self.mean_image
+        if cs:
             x = x[h_off:h_off + cs, w_off:w_off + cs]
             if mean_img is not None:
                 # the mean image at the same crop offsets
                 mean_img = mean_img[h_off:h_off + cs, w_off:w_off + cs]
         if mean_img is not None:
             x = x - mean_img          # before mirror, in source coordinates
-        if self.mirror and self.phase == "TRAIN" and self._rng.integers(2):
+        if flip:
             x = x[:, ::-1]
         if self.mean_values:
             mv = self.mean_values
@@ -152,20 +193,48 @@ class ImageDataSource:
         if idp.get("shuffle") in (True, "true"):
             self._rng.shuffle(self.lines)
         self.pos = 0
+        self.decoded = 0            # images decoded so far
         if idp.get("rand_skip"):
             self.pos = int(self._rng.integers(0, int(idp["rand_skip"])))
         self.transform = DataTransformer(
             layer_cfg.get("transform_param"), phase=phase, seed=seed)
 
-    def next_batch(self) -> tuple[np.ndarray, np.ndarray]:
+    def next_batch(self, part: tuple[int, int] | None = None
+                   ) -> tuple[np.ndarray, np.ndarray]:
+        """The next batch, or with ``part = (i, n)`` its i-th of n equal
+        row blocks: only those rows are decoded, and the random draws of
+        the others are made from their sizes, so the stream stays the
+        whole batch's."""
+        i, n = part or (0, 1)
+        if self.batch_size % n:
+            raise ValueError(f"batch of {self.batch_size} does not split "
+                             f"into {n} parts")
+        k = self.batch_size // n
         imgs, labels = [], []
-        for _ in range(self.batch_size):
+        for j in range(self.batch_size):
             path, label = self.lines[self.pos % len(self.lines)]
             self.pos += 1
-            imgs.append(self.transform(read_image(path, self.new_h,
-                                                  self.new_w)))
-            labels.append(label)
+            if i * k <= j < (i + 1) * k:
+                img = read_image(path, self.new_h, self.new_w)
+                self.decoded += 1
+                imgs.append(self.transform(img))
+                labels.append(label)
+            elif self.new_h and self.new_w:
+                self.transform.draw(self.new_h, self.new_w)
+            else:
+                self.transform.draw(*image_hw(path))
         return np.stack(imgs), np.asarray(labels, np.float32)
+
+    def state(self) -> dict[str, np.ndarray]:
+        """The stream's position: the list position and the transform's
+        generator (the list order follows from the seed)."""
+        return {"pos": np.asarray(self.pos), "rng": np.asarray(json.dumps(
+            self.transform._rng.bit_generator.state))}
+
+    def set_state(self, state: dict) -> None:
+        self.pos = int(state["pos"])
+        self.transform._rng.bit_generator.state = json.loads(
+            str(state["rng"]))
 
     def __iter__(self):
         while True:

@@ -41,7 +41,9 @@ class MemoryDataSource:
         self.data, self.labels = data, labels
         self.pos = 0
 
-    def next_batch(self):
+    def next_batch(self, part: tuple[int, int] | None = None):
+        """The next batch, or with ``part = (i, n)`` its i-th of n equal
+        row blocks."""
         if self.data is None:
             raise RuntimeError(
                 "MemoryData needs reset(data, labels) before forward "
@@ -50,7 +52,20 @@ class MemoryDataSource:
         n = len(self.data)
         idx = [(self.pos + i) % n for i in range(self.batch_size)]
         self.pos = (self.pos + self.batch_size) % n
+        if part is not None:
+            i, parts = part
+            if self.batch_size % parts:
+                raise ValueError(f"batch of {self.batch_size} does not "
+                                 f"split into {parts} parts")
+            k = self.batch_size // parts
+            idx = idx[i * k:(i + 1) * k]
         return self.data[idx], self.labels[idx]
+
+    def state(self) -> dict[str, np.ndarray]:
+        return {"pos": np.asarray(self.pos)}
+
+    def set_state(self, state: dict) -> None:
+        self.pos = int(state["pos"])
 
     def __iter__(self):
         while True:

@@ -170,15 +170,20 @@ def dropout_layer(params, cfg, x):
     """TEST phase is identity; TRAIN phase (the Net passes the caller's
     ``torch.Generator``, on any device, as ``__generator__``) applies the
     inverted-scale Bernoulli mask of dropout_layer.cpp: keep with prob
-    1-ratio, scale kept values by 1/(1-ratio)."""
+    1-ratio, scale kept values by 1/(1-ratio).  With ``__shard__ = (i,
+    n)`` the mask is drawn for n row blocks and block i is taken (one data
+    rank's share of the whole batch's mask)."""
     gen = params.get("__generator__")
     if gen is None:
         return x
     ratio = float(cfg.get("dropout_param", {}).get("dropout_ratio", 0.5))
     keep = 1.0 - ratio
+    i, n = params.get("__shard__") or (0, 1)
+    rows = x.shape[0]
     # drawn on the generator's device, so a CPU generator gives a card
     # the CPU's masks
-    mask = (torch.rand(x.shape, generator=gen, device=gen.device)
+    mask = (torch.rand((n * rows, *x.shape[1:]), generator=gen,
+                       device=gen.device)[i * rows:(i + 1) * rows]
             < keep).to(x.device)
     return torch.where(mask, x / keep, torch.zeros_like(x))
 

@@ -17,8 +17,9 @@ setup), ForwardFromTo (:553-565, topological layer loop), blob_by_name
     where there is no card; float32 means float32 on the card (TF32 off
     for every convolution and product of the forward);
   * training: ``make_loss_fn`` is the weighted sum of the loss tops,
-    differentiated by autograd; ``trainable`` (which ``NetSolver`` sets)
-    makes the stored parameters require gradients.
+    differentiated by autograd with respect to the ``params`` it is given
+    (``train.Solver`` makes them require gradients; the stored ones never
+    do).
 
 ``params_from_jax`` carries the JAX package's ``Net.params`` (NHWC / HWIO
 layouts) over to this net's layouts, so both compute the same function.
@@ -112,7 +113,6 @@ class Net(nn.Module):
                     self.input_shapes[top] = tuple(
                         int(d) for d in _as_list(s.get("dim")))
         self.layer_params = nn.ModuleDict()
-        self._trainable = False
 
     # --- weights ---------------------------------------------------------
     @property
@@ -120,18 +120,6 @@ class Net(nn.Module):
         """{layer name: {blob name: tensor}} (the tensors are the net's)."""
         return {k.replace("\x00", "."): dict(pd.items())
                 for k, pd in self.layer_params.items()}
-
-    @property
-    def trainable(self) -> bool:
-        """Whether the stored parameters require gradients (False until
-        set; ``NetSolver`` sets it on its TRAIN net)."""
-        return self._trainable
-
-    @trainable.setter
-    def trainable(self, flag: bool) -> None:
-        self._trainable = bool(flag)
-        for p in self.layer_params.parameters():
-            p.requires_grad_(self._trainable)
 
     def set_params(self, name: str, entry: dict) -> None:
         """Set a layer's parameters (tensors or arrays, Caffe layouts);
@@ -143,7 +131,7 @@ class Net(nn.Module):
             if not t.is_floating_point() or t.dtype == torch.float64:
                 t = t.float()
             pd[k] = nn.Parameter(t.detach().to(self.device),
-                                 requires_grad=self._trainable)
+                                 requires_grad=False)
         self.layer_params[_key(name)] = pd
 
     def copy_trained_layers_from(self, caffemodel_path: str) -> list[str]:
@@ -309,13 +297,17 @@ class Net(nn.Module):
     # --- execution --------------------------------------------------------
     def forward(self, inputs: dict, output_blobs: Sequence[str] | None = None,
                 params: dict | None = None,
-                generator: torch.Generator | None = None
+                generator: torch.Generator | None = None,
+                shard: tuple[int, int] | None = None
                 ) -> dict[str, torch.Tensor]:
         """Run the DAG; returns the requested blobs (default: all).
 
         Inputs (tensors or arrays) move to the net's device.  ``params``
-        overrides the net's stored parameters; ``generator`` (on the net's
-        device) drives the TRAIN-phase Dropout masks.  The loop stops after
+        overrides the net's stored parameters; ``generator`` (on any
+        device) drives the TRAIN-phase Dropout masks.  ``shard = (i, n)``
+        says the inputs are part i of n equal row blocks of a batch: each
+        mask is drawn for the whole batch and its block i taken, so n data
+        ranks together draw the one process's masks.  The loop stops after
         the last layer that produces a requested blob (ForwardFromTo)."""
         store = self.params if params is None else params
         blobs = {k: torch.as_tensor(v).to(self.device)
@@ -337,7 +329,8 @@ class Net(nn.Module):
                 lparams = store.get(str(cfg.get("name")), {})
                 if (generator is not None and ltype == "Dropout"
                         and self.phase == "TRAIN"):
-                    lparams = dict(lparams, __generator__=generator)
+                    lparams = dict(lparams, __generator__=generator,
+                                   __shard__=shard)
                 bottoms = [blobs[b] for b in _bottoms(cfg)]
                 out = fn(lparams, cfg, *bottoms)
                 outs = out if isinstance(out, (tuple, list)) else [out]
@@ -371,7 +364,8 @@ class Net(nn.Module):
         sums the weighted loss tops -- the role of Net::ForwardBackward
         (the backward is autograd's).  A ``"__generator__"`` entry of the
         batch (a ``torch.Generator``, the JAX package's ``"__rng__"``)
-        drives the step's Dropout masks."""
+        drives the step's Dropout masks, and a ``"__shard__"`` entry is
+        ``forward``'s ``shard``."""
         tops = self.loss_tops()
         if not tops:
             raise ValueError("net has no loss layers")
@@ -380,7 +374,9 @@ class Net(nn.Module):
         def loss_fn(params, batch):
             batch = dict(batch)
             gen = batch.pop("__generator__", None)
-            blobs = self.forward(batch, names, params=params, generator=gen)
+            part = batch.pop("__shard__", None)
+            blobs = self.forward(batch, names, params=params, generator=gen,
+                                 shard=part)
             total = 0.0
             for t, w in tops:
                 total = total + w * torch.sum(blobs[t])

@@ -149,9 +149,7 @@ def _train(solver: str, snapshot, weights, device, mesh_n: int,
         ns.restore(snapshot)
         restored = ns.solver.iter
     loss = ns.solve()
-    rank0 = mesh is None or mesh.coords == (0, 0)
-    path = ns.solver.snapshot() if rank0 else None
-    return loss, path, restored
+    return loss, ns.solver.snapshot(), restored
 
 
 def cmd_train(args) -> int:
@@ -226,7 +224,10 @@ def main(argv=None) -> int:
     tr.add_argument("--mesh", default=None,
                     help="data=N: split each batch over N ranks (P2PSync)")
     tr.add_argument("--device", default="cuda")
-    tr.add_argument("--deterministic", action="store_true")
+    tr.add_argument("--deterministic", action="store_true",
+                    help="cuDNN's deterministic algorithms, without which "
+                         "two runs (and a resumed run) differ in the last "
+                         "bits on the card")
     te = sub.add_parser("test")
     te.add_argument("--model", required=True)
     te.add_argument("--weights", default=None)

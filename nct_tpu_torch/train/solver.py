@@ -9,19 +9,22 @@ src/caffe/parallel.cpp (P2PSync).  Here:
     forward and the backward run with TF32 off, so float32 is float32 on
     the card;
   * data parallelism is explicit, over ``parallel.mesh``: every rank of
-    the mesh's ``data`` axis gets the whole batch, takes its shard along
-    the first axis, and the gradients are averaged over the data group
-    with one all-reduce -- the role of P2PSync's reduction, which sums and
-    divides by the solver count.  With losses that average over the batch
-    (Caffe's) and equal shards, the step is the single-process step.  The
-    JAX package gets the same from a sharding annotation;
+    the mesh's ``data`` axis takes its shard of the batch along the first
+    axis (a batch that carries ``"__shard__"`` is that shard already), and
+    the gradients are averaged over the data group with one all-reduce --
+    the role of P2PSync's reduction, which sums and divides by the solver
+    count.  With losses that average over the batch (Caffe's), equal
+    shards and Dropout masks drawn per shard of the whole batch's mask
+    (``nn.Net.forward``'s ``shard``), the step is the single-process
+    step.  The JAX package gets the same from a sharding annotation;
   * snapshot/restore write and read a flat npz with the JAX package's
     keys (``__iter__``, ``params/<layer>/<blob>``, ``state/...``) plus
-    ``__layout__``.  A snapshot without ``__layout__`` was written by the
-    JAX package's ``Solver``: its params and optimizer state go through
-    ``from_jax`` (``NetSolver`` sets the layout rules of
-    ``nn.net.params_from_jax``; a plain tree is taken as it is).  HDF5
-    needs h5py, which only the CPU host has.
+    ``__layout__`` and the entries of ``extra_state()`` (``NetSolver``'s
+    data stream); only the mesh's first rank writes.  A snapshot without
+    ``__layout__`` was written by the JAX package's ``Solver``: its params
+    and optimizer state go through ``from_jax`` (``NetSolver`` sets the
+    layout rules of ``nn.net.params_from_jax``; a plain tree is taken as
+    it is).  HDF5 needs h5py, which only the CPU host has.
 """
 
 from __future__ import annotations
@@ -78,7 +81,10 @@ def _trainable(params):
 
 
 def _shard(batch, mesh):
-    """This rank's share of every batch tensor along its first axis."""
+    """This rank's share of every batch tensor along its first axis, and
+    ``"__shard__"``: (its index, the data ranks) where there was a tensor
+    to split (a self-feeding net computes the whole batch on each
+    rank)."""
     n, i = mesh.shape["data"], mesh.index("data")
 
     def take(v):
@@ -90,7 +96,11 @@ def _shard(batch, mesh):
         k = v.shape[0] // n
         return v[i * k:(i + 1) * k]
 
-    return {k: take(v) for k, v in batch.items()}
+    out = {k: take(v) for k, v in batch.items()}
+    if any(isinstance(v, (torch.Tensor, np.ndarray)) and v.ndim
+           for v in batch.values()):
+        out["__shard__"] = (i, n)
+    return out
 
 
 def _all_mean(tensors: list[torch.Tensor], mesh) -> list[torch.Tensor]:
@@ -129,6 +139,8 @@ class Solver:
         self._mesh = mesh
         # JAX-layout params tree (numpy) -> this loss_fn's layouts
         self.from_jax = from_jax or (lambda tree: tree)
+        # more snapshot entries ({key: array}); restore returns them
+        self.extra_state: Callable[[], dict] = dict
 
     def set_params(self, params) -> None:
         """New parameters (tensors), with a fresh optimizer state."""
@@ -138,7 +150,7 @@ class Solver:
     def step(self, batch) -> float:
         """One iteration (forward, all-reduced backward, update); returns
         the loss (averaged over the data ranks)."""
-        if self._mesh is not None:
+        if self._mesh is not None and "__shard__" not in batch:
             batch = _shard(batch, self._mesh)
         leaves = tree_leaves(self.params)
         with no_tf32():     # the backward's products in float32 too
@@ -163,8 +175,9 @@ class Solver:
         """Run up to max_iter (ref Solver::Solve), snapshotting on
         schedule.  ``on_iter(solver)`` runs once before the loop (the
         reference's test_initialization) and after every step.  SIGINT /
-        SIGHUP during the loop snapshot and stop at the next iteration
-        boundary (the reference's SignalHandler)."""
+        SIGHUP during the loop snapshot and stop at the end of the
+        iteration, before the next batch is drawn (the reference's
+        SignalHandler)."""
         import signal
 
         stop_requested = []
@@ -183,13 +196,10 @@ class Solver:
         try:
             if on_iter is not None:
                 on_iter(self)
-            for batch in batches:
-                if self.iter >= self.param.max_iter:
-                    break
-                if stop_requested:
-                    path = self.snapshot()
-                    glog.warning(f"signal received; snapshotted to {path}")
-                    break
+            # no batch is drawn past max_iter or a signal, so a snapshot's
+            # data stream stands where its iteration left it
+            done = self.iter >= self.param.max_iter
+            for batch in () if done else batches:
                 loss = self.step(batch)
                 if self.param.display and self.iter % self.param.display == 0:
                     glog.info(f"Iteration {self.iter}, loss = {loss}")
@@ -199,6 +209,12 @@ class Solver:
                     self.snapshot()
                 if on_iter is not None:
                     on_iter(self)
+                if stop_requested:
+                    path = self.snapshot()
+                    glog.warning(f"signal received; snapshotted to {path}")
+                    break
+                if self.iter >= self.param.max_iter:
+                    break
         finally:
             for sig, h in old_handlers.items():
                 signal.signal(sig, h)
@@ -206,14 +222,19 @@ class Solver:
 
     # --- checkpointing -----------------------------------------------------
     def snapshot(self, path: str | None = None) -> str:
+        """Write the solver state (on the mesh's first rank only; every
+        rank holds the same) and return the path."""
         if path is None:
             ext = "h5" if self.param.snapshot_format == "hdf5" else "npz"
             path = f"{self.param.snapshot_prefix}_iter_{self.iter}.{ext}"
+        if self._mesh is not None and any(self._mesh.coords):
+            return path
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         blob = {"__iter__": np.asarray(self.iter),
                 "__layout__": np.asarray(LAYOUT)}
         blob.update(_flatten_tree(self.params, "params/"))
         blob.update(_flatten_tree(self.state, "state/"))
+        blob.update(self.extra_state())
         if path.endswith((".h5", ".hdf5")):
             h5py = _h5py()
             with h5py.File(path, "w") as f:
@@ -223,8 +244,10 @@ class Solver:
             np.savez(path, **blob)
         return path
 
-    def restore(self, path: str) -> None:
-        """Read a snapshot of this port or of the JAX package's Solver."""
+    def restore(self, path: str) -> dict:
+        """Read a snapshot of this port or of the JAX package's Solver;
+        returns its entries other than the iteration, layout, params and
+        state (those ``extra_state`` wrote)."""
         if path.endswith((".h5", ".hdf5")):
             h5py = _h5py()
             with h5py.File(path, "r") as f:
@@ -246,6 +269,9 @@ class Solver:
 
         self.params = _trainable(tree_map(to_like, self.params, params))
         self.state = tree_map(to_like, self.state, state)
+        return {k: v for k, v in data.items()
+                if k not in ("__iter__", "__layout__")
+                and not k.startswith(("params/", "state/"))}
 
 
 def _rebuild(template, leaves_iter):

@@ -125,6 +125,11 @@ class NetSolver:
     layers (MemoryData, ImageData) as per-step batches, or is fed batches
     whose keys are its input blob names.  Mirrors tools/caffe.cpp train()
     -> Solver::Solve.  Runs on ``cuda`` unless given ``device="cpu"``.
+    Over a mesh with n data ranks, each rank's stream reads (and decodes)
+    only its block of every batch.  A snapshot carries the stream's
+    position (``stream/`` entries), so a restore resumes it without
+    reading the batches already used; a snapshot without them (the JAX
+    package's) restarts the stream, as the JAX package's NetSolver does.
     """
 
     def __init__(self, solver: SolverProto | str, mesh=None,
@@ -136,7 +141,6 @@ class NetSolver:
         if mesh is not None and device is None:
             device = mesh.device
         self.net = Net(solver.net, phase="TRAIN", device=device)
-        self.net.trainable = True
         self.device = self.net.device
 
         # Data layers are host IO, not graph ops: strip them and stream
@@ -145,15 +149,22 @@ class NetSolver:
         self.data_source, self._data_tops = _strip_data_layers(
             self.net, "TRAIN", self.seed)
         self.input_shapes = dict(input_shapes or {})
+        self._part = None       # (data rank, data ranks) of a mesh
+        if mesh is not None and mesh.shape["data"] > 1:
+            self._part = (mesh.index("data"), mesh.shape["data"])
         self._first_batch = None
         if self.data_source is not None:
-            self._first_batch = tuple(self.data_source.next_batch())
-            for t, arr in zip(self._data_tops, self._first_batch):
-                self.input_shapes[t] = tuple(arr.shape)
+            self._stream_start = self.data_source.state()
+            self._first_batch = self.next_batch()
+            for t, arr in self._first_batch.items():
+                # the whole batch's shape, as the JAX package's
+                self.input_shapes[t] = (self.data_source.batch_size,
+                                        *arr.shape[1:])
         self.net.init_params(self.input_shapes, seed=self.seed)
         self.solver = Solver(self.net.make_loss_fn(), self.net.params,
                              solver.solver_params, mesh=mesh,
                              from_jax=self._from_jax)
+        self.solver.extra_state = self._stream_state
 
         # TEST-phase evaluation every test_interval iterations (ref
         # solver.cpp TestAll), with the training parameters
@@ -195,14 +206,25 @@ class NetSolver:
         self.solver.set_params(self.net.params)
         return loaded
 
+    def _stream_state(self) -> dict:
+        """The data stream's position before its next batch, as snapshot
+        entries."""
+        if self.data_source is None:
+            return {}
+        state = (self._stream_start if self._first_batch is not None
+                 else self.data_source.state())
+        return {f"stream/{k}": v for k, v in state.items()}
+
     def restore(self, path: str) -> None:
-        """``Solver.restore``, then the data layers' stream advanced past
-        the batches of the restored iterations, so a resumed run sees the
-        batches an uninterrupted one would (the JAX package's NetSolver
-        restarts the stream)."""
-        self.solver.restore(path)
-        for _ in range(self.solver.iter):
-            self.next_batch()
+        """``Solver.restore``, and the data stream set to the snapshot's
+        position (restarted where the snapshot has none)."""
+        extra = self.solver.restore(path)
+        if self.data_source is None:
+            return
+        state = {k[len("stream/"):]: v for k, v in extra.items()
+                 if k.startswith("stream/")}
+        self.data_source.set_state(state or self._stream_start)
+        self._first_batch = None
 
     def step_generator(self, it: int) -> torch.Generator:
         """The Dropout generator of iteration ``it``: seeded by the solver's
@@ -212,15 +234,15 @@ class NetSolver:
         return gen.manual_seed(self.seed * 1_000_003 + it)
 
     def next_batch(self) -> dict:
-        """The data layers' next tops (the first is the one drawn at
-        construction)."""
+        """The data layers' next tops, this rank's block of them over a
+        mesh (the first is the one drawn at construction)."""
         if self.data_source is None:
             return {}
         if self._first_batch is not None:
-            arrays, self._first_batch = self._first_batch, None
-        else:
-            arrays = tuple(self.data_source.next_batch())
-        return dict(zip(self._data_tops, arrays))
+            batch, self._first_batch = self._first_batch, None
+            return batch
+        return dict(zip(self._data_tops,
+                        self.data_source.next_batch(self._part)))
 
     def test(self) -> dict[str, float]:
         """One test pass: test_iter forwards, outputs averaged (ref
@@ -251,11 +273,13 @@ class NetSolver:
         return scores
 
     def batches(self):
-        """The self-fed batch stream: the data layers' tops and the step's
-        Dropout generator."""
+        """The self-fed batch stream: the data layers' tops (this rank's
+        block of them over a mesh) and the step's Dropout generator."""
         while True:
             batch = self.next_batch()
             batch["__generator__"] = self.step_generator(self.solver.iter)
+            if self._part is not None and self.data_source is not None:
+                batch["__shard__"] = self._part
             yield batch
 
     def solve(self, batches=None) -> float:

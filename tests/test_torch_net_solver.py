@@ -178,6 +178,48 @@ def test_image_data_batches_bitwise_jax(tmp_path, phase, resize):
         np.testing.assert_array_equal(y, jy)
 
 
+@pytest.mark.parametrize("phase", ["TRAIN", "TEST"])
+@pytest.mark.parametrize("resize", [False, True], ids=["256", "resized"])
+def test_image_data_part_is_its_block_of_the_batch(tmp_path, phase, resize):
+    """``next_batch((i, n))`` is rows [i k, (i + 1) k) of the whole batch,
+    decodes only those, and leaves the stream (position and generator)
+    where the whole batch leaves it."""
+    idp = {"source": _image_list(tmp_path), "root_folder": IMAGES + "/",
+           "batch_size": 6, "shuffle": True}
+    if resize:
+        idp.update(new_height=61, new_width=75)
+    cfg = {"type": "ImageData", "top": ["data", "label"],
+           "image_data_param": idp,
+           "transform_param": {"crop_size": 48, "mirror": True}}
+    whole = make_data_source(cfg, phase=phase, seed=4)
+    parts = {(i, n): make_data_source(cfg, phase=phase, seed=4)
+             for n in (2, 3) for i in range(n)}
+    for _ in range(3):          # 18 images: the list wraps around
+        x, y = whole.next_batch()
+        for (i, n), src in parts.items():
+            k = 6 // n
+            px, py = src.next_batch((i, n))
+            np.testing.assert_array_equal(px, x[i * k:(i + 1) * k])
+            np.testing.assert_array_equal(py, y[i * k:(i + 1) * k])
+    for (i, n), src in parts.items():
+        assert src.decoded * n == whole.decoded == 18
+        assert src.state()["pos"] == whole.state()["pos"]
+        assert src.state()["rng"] == whole.state()["rng"]
+
+
+def test_image_hw_reads_the_header(tmp_path):
+    """``image_hw`` gives each JPEG fixture's and a PNG's decoded size."""
+    from nct_tpu_torch.data import png
+    from nct_tpu_torch.data.image_data import image_hw
+    from nct_tpu_torch.io import imread_bgr
+
+    names = [os.path.join(FIXTURES, n) for n in sorted(os.listdir(FIXTURES))
+             if n.endswith(".jpg")]
+    png.write(str(tmp_path / "a.png"), np.zeros((5, 9, 3), np.uint8))
+    for path in names + [str(tmp_path / "a.png")]:
+        assert image_hw(path) == imread_bgr(path).shape[:2], path
+
+
 @pytest.mark.parametrize("ltype", ["Data", "WindowData", "HDF5Data"])
 def test_unported_data_sources_name_their_roadmap_item(ltype):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -190,8 +232,7 @@ def test_caffe_tool_train_in_process(tmp_path, capsys):
     (bitwise the uninterrupted run), and --weights from an npz."""
     net = tmp_path / "net.prototxt"
     net.write_text(chip_smoke.small_train_net(
-        16, image_list=_image_list(tmp_path), hw=16).replace(
-        'shuffle: true', f'shuffle: true root_folder: "{IMAGES}/"'))
+        16, image_list=_image_list(tmp_path), hw=16, root=IMAGES + "/"))
     solver = tmp_path / "solver.prototxt"
 
     def write(prefix, max_iter):

@@ -4,8 +4,10 @@ against the JAX package's ``nct_tpu.train`` on the same seeded inputs.
 Tolerances (float32): the lr policies and the optimizers' updates rtol
 1e-6; autograd against ``jax.grad`` rtol 1e-5; a run restored from a JAX
 snapshot against JAX's own continuation rtol 1e-5; the 2-rank data mesh
-against the single-process step rtol 1e-6.  Snapshot / restore within the
-port is bitwise.
+against the single-process step rtol 1e-6 (with and without Dropout, and
+NetSolver over ImageData, each rank decoding its half of each batch).
+Snapshot / restore within the port is bitwise, and restores the data
+stream without decoding the batches already used.
 """
 
 import os
@@ -32,6 +34,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
 import chip_smoke  # noqa: E402  (the nets and the mesh rank of phase 13)
 
 torch.set_num_threads(1)
+
+IMAGES = os.path.join(os.path.dirname(__file__), "fixtures", "jpeg",
+                      "imagedata")
 
 POLICIES = [dict(policy="fixed"), dict(policy="step", stepsize=100),
             dict(policy="exp", gamma=0.999),
@@ -269,19 +274,110 @@ def test_jax_snapshot_restored_continues_like_jax(tmp_path):
                                        rtol=1e-5, atol=1e-6)
 
 
-def test_data_mesh_step_equals_the_single_process_step(tmp_path):
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    """Phase 13e's cases (``chip_smoke.train_cases``) in this process and
+    on 2 CPU ranks of a 2x1 data mesh (one spawn for every case)."""
+    args = (chip_smoke.mesh_batch(), os.path.join(IMAGES, "list.txt"),
+            IMAGES + "/")
+    ranks = launch(chip_smoke.train_mesh_rank, 2, *args, 2, "cpu",
+                   store_dir=str(tmp_path_factory.mktemp("mesh")),
+                   device="cpu")
+    return chip_smoke.train_cases(*args, "cpu"), ranks
+
+
+def _assert_mesh_case(mesh_runs, case):
+    single, ranks = mesh_runs
+    for out in ranks:
+        assert out[case]["loss"] == pytest.approx(single[case]["loss"],
+                                                  rel=1e-6)
+        for name in single[case]["params"]:
+            for blob, want in single[case]["params"][name].items():
+                np.testing.assert_allclose(out[case]["params"][name][blob],
+                                           want, rtol=1e-6, atol=1e-7)
+
+
+def test_data_mesh_step_equals_the_single_process_step(mesh_runs):
     """2 CPU ranks over a 2x1 data mesh, each on half of a batch of 8, one
     all-reduce of the gradients: the single-process step (rtol 1e-6)."""
-    text = chip_smoke.small_train_net(8, dropout=False, memory_data=False)
-    rng = np.random.default_rng(2)
-    batch = {"data": rng.standard_normal((8, 3, 12, 12)).astype(np.float32),
-             "label": rng.integers(0, 4, 8).astype(np.float32)}
-    ranks = launch(chip_smoke.train_mesh_rank, 2, text, batch, 2, "cpu",
-                   store_dir=str(tmp_path), device="cpu")
-    single = chip_smoke.train_single(text, batch, "cpu")
+    _assert_mesh_case(mesh_runs, "plain")
+
+
+def test_data_mesh_step_with_dropout_equals_the_single_process_step(
+        mesh_runs):
+    """Each rank draws its block of the whole batch's Dropout mask, so the
+    two ranks together apply the single process's mask."""
+    _assert_mesh_case(mesh_runs, "dropout")
+
+
+def test_net_solver_over_a_data_mesh_decodes_its_half(mesh_runs):
+    """NetSolver over ImageData (random crops, mirror, Dropout) on the
+    mesh: each rank decodes half of every batch and the run equals the
+    single-process run (rtol 1e-6)."""
+    _assert_mesh_case(mesh_runs, "net_solver")
+    single, ranks = mesh_runs
+    assert single["net_solver"]["decoded"] == \
+        8 * chip_smoke.MESH_NET_SOLVER_ITERS
     for out in ranks:
-        assert out["loss"] == pytest.approx(single["loss"], rel=1e-6)
-        for name in single["params"]:
-            for blob, want in single["params"][name].items():
-                np.testing.assert_allclose(out["params"][name][blob], want,
-                                           rtol=1e-6, atol=1e-7)
+        assert 2 * out["net_solver"]["decoded"] == \
+            single["net_solver"]["decoded"]
+
+
+def _image_net_solver(max_iter, snapshot=0, prefix=None):
+    """A NetSolver of small_train_net with Dropout over ImageData (random
+    crops and mirror of the fixture JPEGs)."""
+    text = (f'base_lr: 0.01\nmomentum: 0.9\nlr_policy: "fixed"\n'
+            f'max_iter: {max_iter}\nsnapshot: {snapshot}\n'
+            f'snapshot_prefix: "{prefix}"\nrandom_seed: 6\n')
+    proto = parse_solver_prototxt(text)
+    proto.net = parse_prototxt(chip_smoke.small_train_net(
+        8, image_list=os.path.join(IMAGES, "list.txt"), crop=True,
+        root=IMAGES + "/"))
+    return NetSolver(proto, device="cpu")
+
+
+def test_image_data_resume_decodes_only_new_batches(tmp_path):
+    """A snapshot of a NetSolver over ImageData carries the stream's
+    position: the restore decodes no image, and the resumed run is
+    bitwise the uninterrupted one."""
+    whole = _image_net_solver(5)
+    whole.solve()
+    first = _image_net_solver(2, snapshot=2, prefix=tmp_path / "part")
+    first.solve()
+    path = str(tmp_path / "part_iter_2.npz")
+    with np.load(path) as f:
+        assert int(f["stream/pos"]) == 16
+    rest = _image_net_solver(5)
+    decoded = rest.data_source.decoded       # the first batch's 8
+    rest.restore(path)
+    assert rest.data_source.decoded == decoded == 8
+    rest.solve()
+    assert rest.data_source.decoded == 8 + 3 * 8
+    want, got = _params_np(whole.net.params), _params_np(rest.net.params)
+    for name in want:
+        for blob in want[name]:
+            np.testing.assert_array_equal(got[name][blob], want[name][blob])
+
+
+def test_jax_snapshot_restored_by_net_solver_restarts_like_jax(tmp_path):
+    """A JAX NetSolver snapshot (no stream entries) restored through
+    ``NetSolver.restore``: the port restarts the MemoryData stream as
+    JAX's NetSolver does, and both continue to within rtol 1e-5."""
+    jfirst, _ = _net_solver(tmp_path, 3, snapshot=3, prefix="jsnap",
+                            jax=True, dropout=False)
+    jfirst.solve()
+    path = str(tmp_path / "jsnap_iter_3.npz")
+    jrest, _ = _net_solver(tmp_path, 6, jax=True, dropout=False)
+    jrest.solver.restore(path)
+    jrest.solve()
+    trest, _ = _net_solver(tmp_path, 6, dropout=False)
+    trest.restore(path)
+    assert trest.solver.iter == 3
+    trest.solve()
+    want = trest._from_jax(jax.tree_util.tree_map(np.asarray,
+                                                  jrest.solver.params))
+    got = _params_np(trest.net.params)
+    for name in want:
+        for blob in want[name]:
+            np.testing.assert_allclose(got[name][blob], want[name][blob],
+                                       rtol=1e-5, atol=1e-6)
