@@ -136,8 +136,34 @@ no result, without them.  Phases, each of which raises on failure:
      atol 1e-6; (e) over a 2x1 data mesh (2 gloo ranks on the card)
      against this process (rtol 1e-6): one step without and with Dropout,
      and 3 NetSolver iterations over ImageData with Dropout in which each
-     rank decodes half of every batch.  The training path adds no kernel:
-     its products are ``F.conv2d`` / ``F.linear`` and autograd's.
+     rank decodes half of every batch;
+ 14. data sources and dataset tools, in a temporary directory removed at
+     the end: (a) ``tools.convert_imageset --backend records`` over a
+     5,120-line list of the 16 fixture JPEGs (labels i % 1000, 256x256,
+     shuffled, shard size 4096: two shards) and ``tools.compute_image_mean``
+     over it, with seconds, images/s and shard bytes; (b) CaffeNet's
+     train_val at its published widths from its own ``Data`` layer over
+     those shards (crop 227, mirror, the mean file, batch 256): 20 logged
+     NetSolver iterations with finite losses, the warm CUDA-event ms per
+     iteration with the feed and on a resident batch beside 13c's ImageData
+     figure, the host ms per batch of the Data and ImageData sources, then
+     the card against the CPU over 3 steps at batch 8 (rtol 1e-4); (c) the
+     first 64 records exported by ``tools.convert_db`` records2lmdb and
+     records2leveldb and by ``write_leveldb(..., as_table=True)``: a Data
+     layer over each gives the shards' batches bitwise (batch 32, 4
+     batches, wrapping); (d) CaffeNet's body with a 21-class fc8 fed by
+     WindowData (context_pad 16, crop 227, batch 128) for 5 iterations with
+     finite losses, and card against CPU over 2 steps at batch 8; (e) 3
+     NetSolver iterations over the Data source with Dropout on a 2x1 data
+     mesh (2 gloo ranks) against this process (rtol 1e-6), each rank
+     copying half of every batch, and an in-process snapshot at iteration
+     4 of 8 under ``cudnn.deterministic`` whose resume is bitwise the
+     uninterrupted run and reads no used batch again; (f)
+     ``tools.parse_log`` over (b)'s log (20 train rows),
+     ``tools.upgrade_proto`` and ``tools.draw_net`` on (b)'s train_val.
+     HDF5 is left to the CPU tests (the card's machine has no h5py).  The
+     training path adds no kernel: its products are ``F.conv2d`` /
+     ``F.linear`` and autograd's.
 
 The line before the last holds {"kernels": [...]}, the one before it the
 card's name and power limit; the last line is {"ok": true, "device": ...}.
@@ -1432,20 +1458,40 @@ def caffenet_deploy(batch=10, h=227, w=227, div=1, fc=4096, classes=1000):
 IMAGENET_MEAN_BGR = (104, 117, 123)
 
 
-def caffenet_train_val(source: str, root: str, batch=256, crop=227, div=1,
-                       fc=4096, classes=1000):
+def caffenet_train_val(source: str, root: str = "", batch=256, crop=227,
+                       div=1, fc=4096, classes=1000, data="ImageData",
+                       mean_file: str | None = None):
     """bvlc_reference_caffenet train_val (TRAIN phase) as a NetParameter
-    dict: its published widths, fillers and loss, with the LMDB ``Data``
-    layer replaced by ImageData over the list ``source`` (crop, mirror,
-    the BGR mean values, shuffled)."""
+    dict: its published widths, fillers and loss, fed by ``data``:
+    ImageData over the list ``source`` under ``root`` (crop, mirror, the
+    BGR mean values, shuffled) in place of the LMDB ``Data`` layer; the
+    published ``Data`` layer over the record shards, LMDB or LevelDB
+    ``source`` (crop, mirror, ``mean_file``); or WindowData over the
+    window file ``source`` under ``root``, as R-CNN fine-tunes CaffeNet
+    (fg / bg thresholds 0.5, fg_fraction 0.25, context_pad 16, mirror, the
+    BGR mean values)."""
     from nct_tpu_torch.nn import L, NetSpec
 
     n = NetSpec()
-    n.data, n.label = L.ImageData(
-        ntop=2, image_data_param=dict(source=source, root_folder=root,
-                                      batch_size=batch, shuffle=True),
-        transform_param=dict(crop_size=crop, mirror=True,
-                             mean_value=list(IMAGENET_MEAN_BGR)))
+    transform = dict(crop_size=crop, mirror=True)
+    if data == "Data":
+        n.data, n.label = L.Data(
+            ntop=2, data_param=dict(source=source, batch_size=batch),
+            transform_param=dict(transform, mean_file=mean_file))
+    elif data == "WindowData":
+        n.data, n.label = L.WindowData(
+            ntop=2, window_data_param=dict(
+                source=source, root_folder=root, batch_size=batch,
+                fg_threshold=0.5, bg_threshold=0.5, fg_fraction=0.25,
+                context_pad=16),
+            transform_param=dict(transform,
+                                 mean_value=list(IMAGENET_MEAN_BGR)))
+    else:
+        n.data, n.label = L.ImageData(
+            ntop=2, image_data_param=dict(source=source, root_folder=root,
+                                          batch_size=batch, shuffle=True),
+            transform_param=dict(transform,
+                                 mean_value=list(IMAGENET_MEAN_BGR)))
     _caffenet_body(L, n, div)
     _fc_head(L, n, n.pool5, fc, classes, prob=False)
     n.loss = L.SoftmaxWithLoss(n.fc8, n.label)
@@ -1752,12 +1798,20 @@ layer { name: "accuracy" type: "Accuracy" bottom: "ip" bottom: "label"
 
 def small_train_net(batch: int, dropout: bool = True,
                     memory_data: bool = True, image_list: str | None = None,
-                    hw: int = 12, crop: bool = False, root: str = "") -> str:
+                    hw: int = 12, crop: bool = False, root: str = "",
+                    records: str | None = None) -> str:
     """A small TRAIN net (conv, ReLU, max pool, InnerProduct, ReLU,
     Dropout, InnerProduct, SoftmaxWithLoss) fed by MemoryData, by Input
-    layers, or by ImageData over ``image_list`` under ``root``: resized to
-    hw x hw, or with ``crop`` random hw x hw crops and mirror."""
-    if image_list:
+    layers, by ImageData over ``image_list`` under ``root`` (resized to
+    hw x hw, or with ``crop`` random hw x hw crops and mirror), or by a
+    ``Data`` layer over the record shards, LMDB or LevelDB ``records``
+    (random hw x hw crops and mirror)."""
+    if records:
+        data = (f'layer {{ name: "data" type: "Data" top: "data" '
+                f'top: "label" data_param {{ source: "{records}" '
+                f'batch_size: {batch} }} transform_param {{ crop_size: {hw} '
+                f'mirror: true scale: 0.0078125 mean_value: 128 }} }}\n')
+    elif image_list:
         size = (f'crop_size: {hw} mirror: true ' if crop else '')
         resize = ('' if crop else f'new_height: {hw} new_width: {hw} ')
         data = (f'layer {{ name: "data" type: "ImageData" top: "data" '
@@ -2234,6 +2288,520 @@ def check_training(torch, smi: str) -> dict:
     return out
 
 
+# phase 14: Caffe's data sources and dataset tools, as Caffe's ImageNet
+# recipe runs them: convert_imageset -> a DB of Datums -> compute_image_mean
+# -> train_val's Data layer -> caffe train
+DATASET_LINES = 5120        # 20 iterations of 256 without a wrap
+DATASET_SHARD = 4096        # two shards: the cursor crosses a boundary
+DB_RECORDS = 64             # write_lmdb holds one leaf page
+DB_BATCH = 32
+DB_BATCHES = 4              # 128 rows over 64 records: the cursor wraps
+FEED_BATCHES = 3            # host feed ms per batch, Data and ImageData
+WINDOW_BATCH = 128          # R-CNN's fine-tuning batch
+WINDOW_ITERS = 5
+WINDOW_CLASSES = 21         # PASCAL VOC's 20 classes and background
+WINDOW_CARD_CPU_STEPS = 2
+DATA_MESH_BATCH = 8
+RESUME_ITERS, RESUME_AT = 8, 4
+
+
+def _image_list(path: str, n: int) -> str:
+    """A list of n lines cycling through the 16 fixture JPEGs, label
+    i % 1000."""
+    with open(path, "w") as f:
+        f.write("".join(f"img_{i % 16:02d}.jpg {i % 1000}\n"
+                        for i in range(n)))
+    return path
+
+
+def check_dataset(torch, tmp: str, smi: str) -> dict:
+    """14a: ``tools.convert_imageset --backend records`` over a 5,120-line
+    list of the fixture JPEGs (two shards), then ``tools.compute_image_mean``
+    over the same list."""
+    import os
+
+    import numpy as np
+
+    from nct_tpu_torch.data.records import RecordFile
+    from nct_tpu_torch.tools import compute_image_mean, convert_imageset
+
+    fix = os.path.join(_fixtures_dir(), "imagedata") + "/"
+    lst = _image_list(os.path.join(tmp, "train.txt"), DATASET_LINES)
+    size = ["256", "256"]
+    t0 = time.perf_counter()
+    rc = convert_imageset.main([
+        lst, os.path.join(tmp, "shards"), "--root-folder", fix,
+        "--resize-height", size[0], "--resize-width", size[1], "--shuffle",
+        "--shard-size", str(DATASET_SHARD), "--backend", "records"])
+    convert_s = time.perf_counter() - t0
+    source = os.path.join(tmp, "shards", "source.txt")
+    with open(source) as f:
+        shards = f.read().split()
+    counts = [len(RecordFile(p)) for p in shards]
+    nbytes = sum(os.path.getsize(p) for p in shards)
+    log(f"[data] convert_imageset --backend records: {DATASET_LINES} JPEGs "
+        f"(256x256) -> {len(shards)} shards of {counts} Datums, {nbytes} "
+        f"bytes, in {convert_s:.2f} s = {DATASET_LINES / convert_s:.1f} "
+        f"images/s (one host thread)  [{smi}]")
+    if rc != 0 or counts != [DATASET_SHARD, DATASET_LINES - DATASET_SHARD]:
+        raise AssertionError(f"phase 14a: convert_imageset gave {counts}")
+    mean = os.path.join(tmp, "mean.npz")
+    t0 = time.perf_counter()
+    rc = compute_image_mean.main([lst, mean, "--root-folder", fix,
+                                  "--new-height", size[0],
+                                  "--new-width", size[1]])
+    mean_s = time.perf_counter() - t0
+    m = np.load(mean)["mean"]
+    log(f"[data] compute_image_mean over the same list: {m.shape} in "
+        f"{mean_s:.2f} s = {DATASET_LINES / mean_s:.1f} images/s")
+    if rc != 0 or m.shape != (256, 256, 3) or not np.isfinite(m).all():
+        raise AssertionError("phase 14a: compute_image_mean failed")
+    return {"list": lst, "root": fix, "source": source, "shards": shards,
+            "mean": mean, "convert_s": convert_s, "mean_s": mean_s,
+            "bytes": nbytes}
+
+
+def _caffenet_data_solver(torch, source: str, mean: str, batch: int,
+                          iters: int, device):
+    """A NetSolver of CaffeNet's train_val with its own ``Data`` layer over
+    ``source`` and the published solver (max_iter cut to ``iters``), a
+    log line every iteration."""
+    from nct_tpu_torch.train.solver_proto import (NetSolver,
+                                                  parse_solver_prototxt)
+
+    proto = parse_solver_prototxt(CAFFENET_SOLVER.format(
+        max_iter=iters).replace("display: 20", "display: 1"))
+    proto.net = caffenet_train_val(source, batch=batch, data="Data",
+                                   mean_file=mean, **CAFFENET_TRAIN_WIDTHS)
+    return NetSolver(proto, device=device)
+
+
+def check_data_training(torch, ds: dict, tmp: str, feed_13c: dict | None,
+                        smi: str) -> dict:
+    """14b: CaffeNet train_val from its own Data layer over 14a's shards
+    and mean: 20 NetSolver iterations (logged), warm ms per iteration
+    with the feed and device only, the host ms per batch of the Data and
+    ImageData sources, and the card against the CPU."""
+    import math as _math
+    import os
+
+    import numpy as np
+
+    from nct_tpu_torch.data import make_data_source
+    from nct_tpu_torch.data.records import decode_datum
+    from nct_tpu_torch.tools import parse_log
+    from nct_tpu_torch.utils import glog
+
+    t0 = time.perf_counter()
+    ns = _caffenet_data_solver(torch, ds["source"], ds["mean"], TRAIN_BATCH,
+                               TRAIN_ITERS, "cuda")
+    log(f"[data] CaffeNet train_val from its Data layer, batch {TRAIN_BATCH}"
+        f" {ns.input_shapes['data']}: set up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    events = []
+
+    def tick(solver):       # after each step, whose loss the host has read
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+    log_path = os.path.join(tmp, "train.log")
+    with open(log_path, "w") as f:
+        glog.set_stream(f)
+        try:
+            ns.solver.solve(ns.batches(), on_iter=tick)
+        finally:
+            glog.set_stream(None)
+    torch.cuda.synchronize()
+    feed_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    rows, _ = parse_log.parse_log(log_path)
+    losses = [r["loss"] for r in rows]
+    log(f"[data] {TRAIN_ITERS} NetSolver iterations: losses "
+        f"{[round(v, 4) for v in losses]}; the cursor at "
+        f"{ns.data_source.pos} of {ns.data_source.total} records")
+    if len(losses) != TRAIN_ITERS or not all(_math.isfinite(v)
+                                             for v in losses):
+        raise AssertionError(f"phase 14b: losses {losses}")
+    fixed = {k: torch.as_tensor(v).cuda() for k, v in ns.next_batch().items()}
+    dev_ms = []
+    for _ in range(TRAIN_ITERS):
+        batch = dict(fixed, __generator__=ns.step_generator(ns.solver.iter))
+        ms, loss = _event_ms(torch, lambda: ns.solver.step(batch))
+        dev_ms.append(ms)
+        if not _math.isfinite(loss):
+            raise AssertionError("phase 14b: non-finite loss on a resident "
+                                 "batch")
+    out = {}
+    for label, runs in (("device only (resident batch)", dev_ms[2:]),
+                        ("with the Data host feed", feed_ms[2:])):
+        med = statistics.median(runs)
+        out[label] = med
+        log(f"[data] warm ms per iteration, {label}: median {med:.3f} of "
+            f"{len(runs)} ({min(runs):.3f}-{max(runs):.3f}), "
+            f"{TRAIN_BATCH / med * 1e3:.1f} images/s  [{smi}]")
+    if feed_13c:
+        log(f"[data] 13c, the same net with the ImageData feed: "
+            f"{feed_13c['with the ImageData host feed']:.3f} ms per "
+            f"iteration, device only "
+            f"{feed_13c['device only (resident batch)']:.3f} ms")
+    del ns, fixed
+    torch.cuda.empty_cache()
+
+    # the host feed alone: one batch of 256 from each source, same crop,
+    # mirror and seed (the Data layer subtracts the mean file, ImageData
+    # the mean values)
+    transform = {"crop_size": 227, "mirror": True}
+    data = make_data_source({"type": "Data", "data_param": {
+        "source": ds["source"], "batch_size": TRAIN_BATCH},
+        "transform_param": dict(transform, mean_file=ds["mean"])})
+    image = make_data_source({"type": "ImageData", "image_data_param": {
+        "source": ds["list"], "root_folder": ds["root"],
+        "batch_size": TRAIN_BATCH, "shuffle": True},
+        "transform_param": dict(transform,
+                                mean_value=list(IMAGENET_MEAN_BGR))})
+    for label, src in (("Data (record shards)", data),
+                       ("ImageData (JPEG decode)", image)):
+        runs = []
+        for _ in range(FEED_BATCHES):
+            t0 = time.perf_counter()
+            src.next_batch()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median(runs)
+        out[f"host {label}"] = med
+        log(f"[data] host feed, {label}: median {med:.3f} ms per batch of "
+            f"{TRAIN_BATCH} ({[round(v, 1) for v in runs]}), "
+            f"{TRAIN_BATCH / med * 1e3:.1f} images/s (one host thread)")
+    # the Data feed's batch split into its steps, on the next 256 records
+    rows = range(data.pos, data.pos + TRAIN_BATCH)
+    t = [time.perf_counter()]
+    payloads = [data._read(i % data.total) for i in rows]
+    t.append(time.perf_counter())
+    images = [decode_datum(p)[0] for p in payloads]
+    t.append(time.perf_counter())
+    crops = [data.transform(img) for img in images]
+    t.append(time.perf_counter())
+    np.stack(crops)
+    t.append(time.perf_counter())
+    split = [round((b - a) * 1e3, 1) for a, b in zip(t, t[1:])]
+    log(f"[data] one Data batch split, ms: read {split[0]}, decode_datum "
+        f"{split[1]}, transform (float, crop, mean file, mirror, CHW) "
+        f"{split[2]}, stack {split[3]}")
+
+    card = _caffenet_data_solver(torch, ds["source"], ds["mean"],
+                                 TRAIN_CARD_CPU_BATCH, 10, "cuda")
+    cpu = _caffenet_data_solver(torch, ds["source"], ds["mean"],
+                                TRAIN_CARD_CPU_BATCH, 10, "cpu")
+    rel = _card_cpu_steps(torch, card, cpu, TRAIN_CARD_CPU_STEPS)
+    if rel > TRAIN_CARD_CPU_RTOL:
+        raise AssertionError("phase 14b: card and CPU losses disagree")
+    out["log"] = log_path
+    return out
+
+
+def _card_cpu_steps(torch, card, cpu, steps: int) -> float:
+    """Max relative difference of the losses of ``steps`` steps of two
+    NetSolvers, Dropout masks from CPU generators."""
+    pairs = []
+    for i in range(steps):
+        got = card.solver.step(dict(card.next_batch(), __generator__=(
+            torch.Generator().manual_seed(100 + i))))
+        want = cpu.solver.step(dict(cpu.next_batch(), __generator__=(
+            torch.Generator().manual_seed(100 + i))))
+        pairs.append((got, want))
+    rel = max(abs(g - w) / abs(w) for g, w in pairs)
+    log(f"[data] card vs CPU, batch {card.data_source.batch_size}, {steps} "
+        f"steps (TF32 off): losses "
+        f"{[(round(g, 6), round(w, 6)) for g, w in pairs]}, max rel "
+        f"{rel:.3g} (<= {TRAIN_CARD_CPU_RTOL})")
+    return rel
+
+
+def check_db_sources(torch, ds: dict, tmp: str) -> None:
+    """14c: the first 64 records exported with ``tools.convert_db``
+    (records2lmdb, records2leveldb) and with ``write_leveldb(...,
+    as_table=True)``: a Data layer over each gives the shards' batches
+    bitwise, at batch 32 for 4 batches."""
+    import os
+
+    import numpy as np
+
+    from nct_tpu_torch.data import make_data_source
+    from nct_tpu_torch.data.leveldb_reader import write_leveldb
+    from nct_tpu_torch.data.records import RecordFile, RecordWriter
+    from nct_tpu_torch.tools import convert_db
+
+    first = RecordFile(ds["shards"][0])
+    shard = os.path.join(tmp, "first64.ncr")
+    with RecordWriter(shard) as w:
+        for i in range(DB_RECORDS):
+            w.write(first.read(i))
+    envs = {"LMDB (records2lmdb)": os.path.join(tmp, "lmdb"),
+            "LevelDB log (records2leveldb)": os.path.join(tmp, "leveldb"),
+            "LevelDB table (write_leveldb as_table)":
+                os.path.join(tmp, "leveldb_table")}
+    t0 = time.perf_counter()
+    rcs = [convert_db.main(["records2lmdb", shard,
+                            envs["LMDB (records2lmdb)"]]),
+           convert_db.main(["records2leveldb", shard,
+                            envs["LevelDB log (records2leveldb)"]])]
+    write_leveldb(envs["LevelDB table (write_leveldb as_table)"],
+                  [(f"{i:08d}".encode(), first.read(i))
+                   for i in range(DB_RECORDS)], as_table=True)
+    log(f"[data] {DB_RECORDS} records exported to LMDB, LevelDB (log) and "
+        f"LevelDB (table) in {time.perf_counter() - t0:.2f} s")
+
+    def cfg(source):
+        return {"type": "Data", "data_param": {"source": source,
+                                               "batch_size": DB_BATCH},
+                "transform_param": {"crop_size": 227, "mirror": True,
+                                    "mean_file": ds["mean"]}}
+
+    ref = make_data_source(cfg(shard))
+    want = [ref.next_batch() for _ in range(DB_BATCHES)]
+    bad = [rc for rc in rcs if rc != 0]
+    for label, env in envs.items():
+        t0 = time.perf_counter()
+        src = make_data_source(cfg(env))
+        got = [src.next_batch() for _ in range(DB_BATCHES)]
+        same = all(np.array_equal(a, b) for g, w in zip(got, want)
+                   for a, b in zip(g, w))
+        size = sum(os.path.getsize(os.path.join(env, f))
+                   for f in os.listdir(env))
+        log(f"[data] Data layer over {label} ({size} bytes): {DB_BATCHES} "
+            f"batches of {DB_BATCH} in {time.perf_counter() - t0:.2f} s, "
+            f"bitwise the shard's: {same}")
+        if not same:
+            bad.append(label)
+    if bad:
+        raise AssertionError(f"phase 14c: {bad}")
+
+
+def _window_file(path: str, seed: int = 14) -> str:
+    """Three foreground and five background windows on each fixture JPEG
+    (foreground labels 1-20)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lines = []
+    for i in range(16):
+        lines += [f"# {i}", f"img_{i:02d}.jpg", "3", "256", "256", "8"]
+        for j in range(8):
+            w, h = (int(v) for v in rng.integers(40, 200, 2))
+            x1, y1 = int(rng.integers(0, 256 - w)), int(rng.integers(0, 256 - h))
+            fg = j < 3
+            overlap = 0.5 + 0.5 * rng.random() if fg else 0.5 * rng.random()
+            label = 1 + (i + j) % (WINDOW_CLASSES - 1) if fg else 0
+            lines.append(f"{label} {overlap:.4f} {x1} {y1} {x1 + w - 1} "
+                         f"{y1 + h - 1}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def _window_solver(torch, window_file: str, root: str, batch: int,
+                   device):
+    from nct_tpu_torch.train.solver_proto import (NetSolver,
+                                                  parse_solver_prototxt)
+
+    proto = parse_solver_prototxt(CAFFENET_SOLVER.format(max_iter=100))
+    widths = dict(CAFFENET_TRAIN_WIDTHS, classes=WINDOW_CLASSES)
+    proto.net = caffenet_train_val(window_file, root, batch=batch,
+                                   data="WindowData", **widths)
+    return NetSolver(proto, device=device)
+
+
+def check_window_training(torch, ds: dict, tmp: str, smi: str) -> None:
+    """14d: CaffeNet's body with a 21-class fc8 fed by WindowData over the
+    fixture JPEGs (context_pad 16, crop 227), 5 iterations at batch 128 on
+    the card, then the card against the CPU over 2 steps at batch 8."""
+    import math as _math
+    import os
+
+    wf = _window_file(os.path.join(tmp, "windows.txt"))
+    ns = _window_solver(torch, wf, ds["root"], WINDOW_BATCH, "cuda")
+    stream = ns.batches()
+    losses, runs = [], []
+    for _ in range(WINDOW_ITERS):
+        t0 = time.perf_counter()
+        losses.append(ns.solver.step(next(stream)))
+        runs.append((time.perf_counter() - t0) * 1e3)
+    log(f"[data] WindowData CaffeNet ({WINDOW_CLASSES} classes), batch "
+        f"{WINDOW_BATCH} {ns.input_shapes['data']}: {WINDOW_ITERS} "
+        f"iterations, losses {[round(v, 4) for v in losses]}, ms per "
+        f"iteration with the feed {[round(v, 1) for v in runs]}, "
+        f"{ns.data_source.decoded} windows warped  [{smi}]")
+    if not all(_math.isfinite(v) for v in losses):
+        raise AssertionError(f"phase 14d: losses {losses}")
+    del ns, stream
+    torch.cuda.empty_cache()
+    card = _window_solver(torch, wf, ds["root"], TRAIN_CARD_CPU_BATCH, "cuda")
+    cpu = _window_solver(torch, wf, ds["root"], TRAIN_CARD_CPU_BATCH, "cpu")
+    if _card_cpu_steps(torch, card, cpu, WINDOW_CARD_CPU_STEPS) \
+            > TRAIN_CARD_CPU_RTOL:
+        raise AssertionError("phase 14d: card and CPU losses disagree")
+
+
+def data_net_solver(records: str, iters: int, device, mesh=None,
+                    snapshot_prefix: str | None = None):
+    """A NetSolver of ``small_train_net`` with Dropout over a Data layer on
+    ``records`` (random 12 x 12 crops and mirror, batch 8), a snapshot
+    every RESUME_AT iterations where ``snapshot_prefix`` is given."""
+    from nct_tpu_torch.nn import parse_prototxt
+    from nct_tpu_torch.train.solver_proto import (NetSolver,
+                                                  parse_solver_prototxt)
+
+    snap = (f'snapshot: {RESUME_AT}\nsnapshot_prefix: "{snapshot_prefix}"\n'
+            if snapshot_prefix else "")
+    proto = parse_solver_prototxt(
+        f'base_lr: 0.01\nmomentum: 0.9\nweight_decay: 0.0005\n'
+        f'lr_policy: "fixed"\nmax_iter: {iters}\nrandom_seed: 4\n' + snap)
+    proto.net = parse_prototxt(small_train_net(DATA_MESH_BATCH,
+                                               records=records))
+    return NetSolver(proto, mesh=mesh, device=None if mesh else device)
+
+
+def data_mesh_rank(records: str, n_data: int, device) -> dict:
+    """One rank of MESH_NET_SOLVER_ITERS ``data_net_solver`` iterations
+    over an n_data x 1 data mesh (run by ``parallel.mesh.launch``)."""
+    from nct_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n_data=n_data, device=device)
+    ns = data_net_solver(records, MESH_NET_SOLVER_ITERS, mesh.device, mesh)
+    return dict(_solver_result(ns.solver, ns.solve()),
+                decoded=ns.data_source.decoded)
+
+
+def check_data_mesh_and_resume(torch, ds: dict, tmp: str) -> None:
+    """14e: MESH_NET_SOLVER_ITERS iterations over the Data source with
+    Dropout on a 2x1 data mesh (2 gloo ranks on the card) against this
+    process, each rank copying half of every batch; then a snapshot at
+    iteration 4 of 8 and a resume from it, bitwise the uninterrupted run
+    and reading none of its used batches again."""
+    import os
+
+    import numpy as np
+
+    from nct_tpu_torch.parallel.mesh import launch
+
+    records = ds["source"]
+    ns = data_net_solver(records, MESH_NET_SOLVER_ITERS, "cuda")
+    single = dict(_solver_result(ns.solver, ns.solve()),
+                  decoded=ns.data_source.decoded)
+    ranks = launch(data_mesh_rank, MESH_RANKS, records, MESH_RANKS, None)
+    diffs = [mesh_case_diff(single, r) for r in ranks]
+    decoded = [r["decoded"] for r in ranks]
+    ok = all(d[0] for d in diffs) and all(
+        MESH_RANKS * d == single["decoded"] for d in decoded)
+    log(f"[data] 2x1 data mesh (gloo, one card), {MESH_NET_SOLVER_ITERS} "
+        f"NetSolver iterations over the Data source with Dropout: loss "
+        f"{ranks[0]['loss']:.7f} vs {single['loss']:.7f}, params max |diff| "
+        f"{max(d[1] for d in diffs):.3g}; within rtol {MESH_STEP_RTOL} atol "
+        f"{MESH_STEP_ATOL}; records copied per rank {decoded} of "
+        f"{single['decoded']}: {ok}")
+    if not ok:
+        raise AssertionError("phase 14e: the data-mesh run differs")
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        whole = data_net_solver(records, RESUME_ITERS, "cuda",
+                                snapshot_prefix=os.path.join(tmp, "whole"))
+        whole.solve()
+        resumed = data_net_solver(records, RESUME_ITERS, "cuda",
+                                  snapshot_prefix=os.path.join(tmp, "resumed"))
+        resumed.restore(os.path.join(tmp, f"whole_iter_{RESUME_AT}.npz"))
+        before = resumed.data_source.decoded
+        resumed.solve()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    read = resumed.data_source.decoded - before
+    want = _solver_result(whole.solver, 0.0)["params"]
+    got = _solver_result(resumed.solver, 0.0)["params"]
+    same = [f"{k}/{b}" for k, e in want.items() for b in e
+            if np.array_equal(got[k][b], e[b])]
+    n_blobs = sum(len(e) for e in want.values())
+    state_same = all(np.array_equal(v, whole.data_source.state()[k])
+                     for k, v in resumed.data_source.state().items())
+    log(f"[data] snapshot at iteration {RESUME_AT} of {RESUME_ITERS} "
+        f"(cudnn.deterministic), resumed in process: {len(same)} / "
+        f"{n_blobs} params bitwise the uninterrupted run; the resume read "
+        f"{read} records (= {RESUME_ITERS - RESUME_AT} batches of "
+        f"{DATA_MESH_BATCH}) and ends at the same stream position: "
+        f"{state_same}")
+    if (len(same) != n_blobs or not state_same
+            or read != (RESUME_ITERS - RESUME_AT) * DATA_MESH_BATCH):
+        raise AssertionError("phase 14e: the resumed run differs")
+
+
+def check_data_tools(torch, ds: dict, tmp: str, log_path: str) -> None:
+    """14f: ``tools.parse_log`` over 14b's log, ``tools.upgrade_proto`` and
+    ``tools.draw_net`` on 14b's train_val."""
+    import csv
+    import importlib.util
+    import os
+
+    from nct_tpu_torch.nn import emit_prototxt
+    from nct_tpu_torch.tools import draw_net, parse_log, upgrade_proto
+
+    out = os.path.join(tmp, "logs")
+    os.makedirs(out)
+    rc = parse_log.main([log_path, out])
+    with open(os.path.join(out, "train.log.train")) as f:
+        rows = list(csv.DictReader(f))
+    log(f"[data] parse_log over 14b's log: {len(rows)} train rows, columns "
+        f"{list(rows[0]) if rows else []}")
+    if rc != 0 or len(rows) != TRAIN_ITERS:
+        raise AssertionError("phase 14f: parse_log")
+    text = emit_prototxt(caffenet_train_val(
+        ds["source"], batch=TRAIN_BATCH, data="Data", mean_file=ds["mean"],
+        **CAFFENET_TRAIN_WIDTHS))
+    net = os.path.join(tmp, "train_val.prototxt")
+    with open(net, "w") as f:
+        f.write(text)
+    upgraded = os.path.join(tmp, "upgraded.prototxt")
+    rcs = [upgrade_proto.main(["net", net, upgraded])]
+    for fmt in ("dot", "text"):
+        rcs.append(draw_net.main([net, os.path.join(tmp, f"net.{fmt}"),
+                                  "--format", fmt, "--phase", "TRAIN"]))
+    with open(upgraded) as f:
+        same = f.read() == text
+    with open(os.path.join(tmp, "net.dot")) as f:
+        boxes = f.read().count("shape=box")
+    n_layers = text.count("\nlayer {")
+    log(f"[data] upgrade_proto on the train_val: unchanged {same}; draw_net:"
+        f" {boxes} layer nodes of {n_layers} layers, and the text table")
+    if any(rcs) or not same or boxes != n_layers:
+        raise AssertionError("phase 14f: upgrade_proto / draw_net")
+    if importlib.util.find_spec("h5py") is None:
+        log("[data] HDF5Data and convert_imageset --backend hdf5 not run: "
+            "this machine has no h5py (tests/test_torch_window_hdf5.py and "
+            "tests/test_torch_data_tools.py run them on the CPU)")
+    else:
+        log("[data] HDF5Data and convert_imageset --backend hdf5 are run by "
+            "tests/test_torch_window_hdf5.py and "
+            "tests/test_torch_data_tools.py on the CPU, not here")
+
+
+def check_data_path(torch, smi: str, feed_13c: dict | None = None) -> dict:
+    """Phase 14: the Caffe data sources and dataset tools on the card
+    (``feed_13c``: phase 13c's ms per iteration, printed beside 14b's)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        t0 = time.perf_counter()
+        ds = check_dataset(torch, tmp, smi)
+        out = check_data_training(torch, ds, tmp, feed_13c, smi)
+        check_db_sources(torch, ds, tmp)
+        check_window_training(torch, ds, tmp, smi)
+        check_data_mesh_and_resume(torch, ds, tmp)
+        check_data_tools(torch, ds, tmp, out["log"])
+        log(f"[data] phase 14 in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2275,8 +2843,10 @@ def main() -> int:
     phase_done("phase 11 (mesh: ring, space and data meshes)")
     check_caffe(torch, smi)
     phase_done("phase 12 (Caffe framework: VGG-19, CaffeNet, tools, layers)")
-    check_training(torch, smi)
+    training = check_training(torch, smi)
     phase_done("phase 13 (JPEG, CaffeNet training, resume, data mesh)")
+    check_data_path(torch, smi, training["caffenet"])
+    phase_done("phase 14 (data sources and dataset tools)")
     log(f"[time] whole run {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [bidir, directed]}))
     log(smi)

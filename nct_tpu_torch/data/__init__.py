@@ -16,30 +16,32 @@ __all__ = ["PairLoader", "DATA_LAYER_TYPES", "make_data_source"]
 DATA_LAYER_TYPES = ("ImageData", "HDF5Data", "Data", "WindowData",
                     "MemoryData")
 
-# the JAX package's sources not ported yet, and the ROADMAP item of each
-_NOT_PORTED = {
-    "Data": "the record / LMDB / LevelDB source (nct_tpu/data/records.py)",
-    "WindowData": "the WindowData source (nct_tpu/data/window_data.py)",
-    "HDF5Data": "the HDF5Data source (nct_tpu/data/hdf5_data.py)",
-}
-
 
 def make_data_source(layer_cfg: dict, phase: str = "TRAIN", seed: int = 0):
     """The source of one data layer (the reference's layer factory
-    restricted to its data layers): ImageData (image_data_layer.cpp) and
-    MemoryData (memory_data_layer.cpp).  Data, WindowData and HDF5Data
-    raise ``NotImplementedError`` naming their ROADMAP item."""
+    restricted to its data layers): ImageData (image_data_layer.cpp),
+    HDF5Data (hdf5_data_layer.cpp), Data -- record shards, LMDB or LevelDB
+    (data_layer.cpp + util/db_*.cpp) -- WindowData (window_data_layer.cpp)
+    and MemoryData (memory_data_layer.cpp)."""
     ltype = str(layer_cfg.get("type"))
     if ltype == "ImageData":
         from nct_tpu_torch.data.image_data import ImageDataSource
 
         return ImageDataSource(layer_cfg, phase=phase, seed=seed)
+    if ltype == "HDF5Data":
+        from nct_tpu_torch.data.hdf5_data import HDF5DataSource
+
+        return HDF5DataSource(layer_cfg, phase=phase, seed=seed)
+    if ltype == "Data":
+        from nct_tpu_torch.data.records import RecordShardSource
+
+        return RecordShardSource(layer_cfg, phase=phase, seed=seed)
+    if ltype == "WindowData":
+        from nct_tpu_torch.data.window_data import WindowDataSource
+
+        return WindowDataSource(layer_cfg, phase=phase, seed=seed)
     if ltype == "MemoryData":
         from nct_tpu_torch.data.memory_data import MemoryDataSource
 
         return MemoryDataSource(layer_cfg, phase=phase, seed=seed)
-    if ltype in _NOT_PORTED:
-        raise NotImplementedError(
-            f"data layer {ltype!r}: {_NOT_PORTED[ltype]} is not ported yet "
-            f"(ROADMAP.md, Queue 1 #3b.2, the remaining data sources)")
     raise ValueError(f"not a data layer type: {ltype}")

@@ -122,14 +122,15 @@ class NetSolver:
     """``caffe train`` in one object: solver prototxt -> trained net.
 
     The net feeds itself (DummyData tops), streams the tops of its data
-    layers (MemoryData, ImageData) as per-step batches, or is fed batches
-    whose keys are its input blob names.  Mirrors tools/caffe.cpp train()
-    -> Solver::Solve.  Runs on ``cuda`` unless given ``device="cpu"``.
-    Over a mesh with n data ranks, each rank's stream reads (and decodes)
-    only its block of every batch.  A snapshot carries the stream's
-    position (``stream/`` entries), so a restore resumes it without
-    reading the batches already used; a snapshot without them (the JAX
-    package's) restarts the stream, as the JAX package's NetSolver does.
+    layers (MemoryData, ImageData, Data, WindowData, HDF5Data) as per-step
+    batches, or is fed batches whose keys are its input blob names.
+    Mirrors tools/caffe.cpp train() -> Solver::Solve.  Runs on ``cuda``
+    unless given ``device="cpu"``.  Over a mesh with n data ranks, each
+    rank's stream reads (and decodes) only its block of every batch.  A
+    snapshot carries the stream's position (``stream/`` entries), so a
+    restore resumes it without reading the batches already used; a
+    snapshot without them (the JAX package's) restarts the stream, as the
+    JAX package's NetSolver does.
     """
 
     def __init__(self, solver: SolverProto | str, mesh=None,
