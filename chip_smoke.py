@@ -26,15 +26,15 @@ no result, without them.  Phases, each of which raises on failure:
      the first; plus a small pair run on the card and on the CPU (plain
      path), which must agree;
   5. PatchMatch: ``Config(fine_strategy="patchmatch")`` on the same pair
-     (exact L0-L3, PatchMatch at L4), one cold and two warm runs with the
+     (exact L0-L3, PatchMatch at L4), one cold and one warm run with the
      checks of phase 4; then a 3-frame ``transfer_sequence`` under
      ``Config(exact_nn_levels=0, fine_strategy="patchmatch")``, whose
      frames 2-3 must start from the previous frame's level-0 fields;
   6. profiler: ``nct_tpu_torch.tools.profile_stages`` at its real shapes,
      the path of the directed kernel;
   7. solver variants: (7a) ``Config.reference_parity()`` on the same pair
-     (PatchMatch at every level, block-Jacobi PCG), one cold and two warm
-     runs, no NN kernel launch; (7b) ``Config(knn_memberships=3,
+     (PatchMatch at every level, block-Jacobi PCG), one cold and one warm
+     run, no NN kernel launch; (7b) ``Config(knn_memberships=3,
      nl_transpose="scatter", wls_precond="jacobi")``, one cold and two warm
      runs, 4 ``nn_bidir`` launches per pair (every output of 7a and 7b
      bitwise equal to the first); a stage split of one more warm
@@ -72,10 +72,11 @@ no result, without them.  Phases, each of which raises on failure:
      checks: (a) ``Config(fine_strategy="patchmatch")``, B = 4 (4
      ``nn_bidir`` launches of 16 items, batched PatchMatch at L4); (b)
      ``Config.reference_parity()``, B = 2 (PatchMatch at every level,
-     block-Jacobi at tol 1e-6; no NN launch), with a stage split of one
-     more bucket; (c) ``Config(knn_memberships=3, nl_transpose="scatter",
+     block-Jacobi at tol 1e-6; no NN launch); (c)
+     ``Config(knn_memberships=3, nl_transpose="scatter",
      wls_precond="jacobi")``, B = 4 (4 launches of 16 items, the folded
-     P = 3 merge, the scatter transpose, Jacobi WLS);
+     P = 3 merge, the scatter transpose, Jacobi WLS); one cold and one
+     warm bucket each;
  11. mesh: 2 ranks spawned by ``parallel.mesh.launch``, both on the one
      card (gloo): (a) ``ring_exact_nn`` a -> b and b -> a at the L0-L3
      shapes, random and integer features, bitwise equal to
@@ -163,8 +164,26 @@ no result, without them.  Phases, each of which raises on failure:
      ``tools.upgrade_proto`` and ``tools.draw_net`` on (b)'s train_val.
      HDF5 is left to the CPU tests (the card's machine has no h5py).  The
      training path adds no kernel: its products are ``F.conv2d`` /
-     ``F.linear`` and autograd's.
-
+     ``F.linear`` and autograd's;
+ 15. benchmark tools (``nct_tpu_torch/tools``), seeded VGG-19 at full
+     width.  First ``nn_bidir`` against its plain version at the L0-L3
+     shapes of the 700 and 1000 px pairs, random features (AGREE_MIN,
+     DIST_TOL) and integer ones (bitwise), as phase 3 at the 452 px
+     pair's.  Then (a) ``python3 -m nct_tpu_torch.tools.bench --reps 3``
+     in a new process on ``bench.py``'s 452x680 / 600x960 pair (one cold
+     and 3 warm pairs, a warm and a timed scan batch of 4), its last line
+     parsed, ``correct`` true; (b) ``bench.run`` at 700 px (465x700 /
+     437x700: the stage-1 subset in one direction) and 1000 px (665x1000
+     / 625x1000: both directions), one cold and 2 warm pairs each, with
+     peak device memory, the counts set to 0 before each run; in (a) and
+     (b) 4 ``nn_bidir`` launches in each pair and 4 per pair in the run;
+     (c) ``bench_batch`` over a bucket of 4, vmap and scan; (d)
+     ``bench_serving`` of 4 requests, sync, pipelined and on a 1x1 mesh;
+     (e) ``bench_sequence`` of 4 frames, the default Config and
+     ``exact_nn_levels=0``; (f) the ``roofline`` table.  Every tool checks
+     its own outputs and raises; each prints its JSON line.
+     ``nn_bidir``'s record gains the shapes held against plain and the
+     bench's launches by geometry.
 The line before the last holds {"kernels": [...]}, the one before it the
 card's name and power limit; the last line is {"ok": true, "device": ...}.
 """
@@ -282,6 +301,49 @@ def reset_counts() -> None:
         cuda_nn.LAUNCH_ITEMS[name] = 0
 
 
+def _tables(torch, gen, shape, integer: bool):
+    """Seeded patch tables of both images at one level shape (Ha, Wa, Hb,
+    Wb, C), as the kernels take them and as the plain versions take them
+    (masks as 0/1 columns): (fa, ma, fb, mb, ma01, mb01)."""
+    from nct_tpu_torch.ops import cuda_nn
+
+    ha, wa, hb, wb, c = shape
+    fa, ma = cuda_nn.padded_tables(_features(torch, gen, ha, wa, c, integer), 3)
+    fb, mb = cuda_nn.padded_tables(_features(torch, gen, hb, wb, c, integer), 3)
+    bits = torch.arange(9, device="cuda")
+    ma01 = ((ma[:, None] >> bits) & 1).float()
+    mb01 = ((mb[:, None] >> bits) & 1).float()
+    return fa, ma, fb, mb, ma01, mb01
+
+
+def _at_match(torch, f_from, m_from, f_to, m_to, idx, n):
+    """f32 distance at the kernel's matches, row by row."""
+    dots = (f_from[:n].float() * f_to[idx].float()).sum(-1)
+    cnt = (m_from[:n] * m_to[idx]).sum(-1)
+    return torch.where(cnt > 0, -dots / cnt.clamp(min=1),
+                       torch.full_like(dots, float("inf")))
+
+
+def _bidir_vs_plain(torch, tab, got, ref, na: int, nb: int):
+    """``nn_bidir``'s keys ``got`` against the plain ``ref`` on the tables
+    ``tab``: (bitwise equal, least share of equal indices over the two
+    directions, largest f32 distance at the kernel's match above the plain
+    minimum, max |d err|)."""
+    fa, _, fb, _, ma01, mb01 = tab
+    d_ab, i_ab, r_dab, r_iab = (t[:na] for t in (got[0], got[1], ref[0], ref[1]))
+    d_ba, i_ba, r_dba, r_iba = (t[:nb] for t in (got[2], got[3], ref[2], ref[3]))
+    same = (torch.equal(i_ab, r_iab) and torch.equal(i_ba, r_iba)
+            and torch.equal(d_ab, r_dab) and torch.equal(d_ba, r_dba))
+    agree = min((i_ab == r_iab).float().mean().item(),
+                (i_ba == r_iba).float().mean().item())
+    m_ab = _at_match(torch, fa, ma01, fb, mb01, i_ab, na)
+    m_ba = _at_match(torch, fb, mb01, fa, ma01, i_ba, nb)
+    slack = max((m_ab - r_dab).max().item(), (m_ba - r_dba).max().item())
+    err = max((d_ab - r_dab).abs().max().item(),
+              (d_ba - r_dba).abs().max().item())
+    return same, agree, slack, err
+
+
 def _gemm_ms(torch, fa, fb) -> float:
     """CUDA-event time of the bf16 products alone: one cuBLAS ``torch.mm``
     per chunk of A rows, chunked so that the bf16 output fits 2 GiB."""
@@ -325,16 +387,12 @@ def check_kernels(torch) -> tuple[dict, dict]:
     for lvl, (ha, wa, hb, wb, c) in enumerate(NN_SHAPES):
         na, nb = ha * wa, hb * wb
         for integer in (False, True):
-            fa, ma = cuda_nn.padded_tables(
-                _features(torch, gen, ha, wa, c, integer), 3)
-            fb, mb = cuda_nn.padded_tables(
-                _features(torch, gen, hb, wb, c, integer), 3)
+            tab = _tables(torch, gen, NN_SHAPES[lvl], integer)
+            fa, ma, fb, mb, ma01, mb01 = tab
             got = cuda_nn.nn_bidir_tables(fa, ma, fb, mb)
             got_dir = cuda_nn.nn_directed_tables(fa, ma, fb, mb)
             torch.cuda.synchronize()
-            # the plain versions on the same tables (masks as 0/1 columns)
-            ma01 = ((ma[:, None] >> torch.arange(9, device="cuda")) & 1).float()
-            mb01 = ((mb[:, None] >> torch.arange(9, device="cuda")) & 1).float()
+            # the plain versions on the same tables
             ref = nn_bidir_tables_plain(fa, ma01, fb, mb01)
             ref_dir = nn_tables_plain(fa, ma01, fb, mb01)
             row_same = (torch.equal(got_dir[0], got[0])
@@ -344,40 +402,22 @@ def check_kernels(torch) -> tuple[dict, dict]:
             if not row_same:
                 raise AssertionError(f"L{lvl}: nn_directed differs from the "
                                      f"row result of nn_bidir")
-            d_ab, i_ab, d_ba, i_ba = (t for t in got)
-            r_dab, r_iab, r_dba, r_iba = ref
-            d_ab, i_ab, r_dab, r_iab = (t[:na] for t in (d_ab, i_ab, r_dab, r_iab))
-            d_ba, i_ba, r_dba, r_iba = (t[:nb] for t in (d_ba, i_ba, r_dba, r_iba))
+            same, agree, slack, err = _bidir_vs_plain(torch, tab, got, ref,
+                                                      na, nb)
             dd_ab, di_ab = (t[:na] for t in got_dir)
             rd_ab, ri_ab = (t[:na] for t in ref_dir)
             if integer:
-                same = (torch.equal(i_ab, r_iab) and torch.equal(i_ba, r_iba)
-                        and torch.equal(d_ab, r_dab) and torch.equal(d_ba, r_dba))
                 same_dir = torch.equal(di_ab, ri_ab) and torch.equal(dd_ab, rd_ab)
                 log(f"[kernel] L{lvl} integer case: bitwise equal={same}, "
                     f"directed bitwise equal={same_dir} "
-                    f"({r_dab.unique().numel()} distinct row minima over "
-                    f"{na} rows)")
+                    f"({ref[0][:na].unique().numel()} distinct row minima "
+                    f"over {na} rows)")
                 if not (same and same_dir):
                     raise AssertionError(f"L{lvl}: integer case not bitwise equal")
                 continue
-            agree_ab = (i_ab == r_iab).float().mean().item()
-            agree_ba = (i_ba == r_iba).float().mean().item()
             agree_dir = (di_ab == ri_ab).float().mean().item()
-
-            def at_match(f_from, m_from, f_to, m_to, idx, n):
-                """f32 distance at the kernel's matches, row by row."""
-                dots = (f_from[:n].float() * f_to[idx].float()).sum(-1)
-                cnt = (m_from[:n] * m_to[idx]).sum(-1)
-                return torch.where(cnt > 0, -dots / cnt.clamp(min=1),
-                                   torch.full_like(dots, float("inf")))
-            m_ab = at_match(fa, ma01, fb, mb01, i_ab, na)
-            m_ba = at_match(fb, mb01, fa, ma01, i_ba, nb)
-            m_dir = at_match(fa, ma01, fb, mb01, di_ab, na)
-            slack = max((m_ab - r_dab).max().item(), (m_ba - r_dba).max().item())
+            m_dir = _at_match(torch, fa, ma01, fb, mb01, di_ab, na)
             slack_dir = (m_dir - rd_ab).max().item()
-            err = max((d_ab - r_dab).abs().max().item(),
-                      (d_ba - r_dba).abs().max().item())
             err_dir = (dd_ab - rd_ab).abs().max().item()
             gemm = _gemm_ms(torch, fa, fb)
             flops = 2.0 * na * nb * (9 * c + 9)
@@ -385,7 +425,7 @@ def check_kernels(torch) -> tuple[dict, dict]:
                     ("nn_bidir",
                      lambda: cuda_nn.nn_bidir_tables(fa, ma, fb, mb),
                      lambda: nn_bidir_tables_plain(fa, ma01, fb, mb01),
-                     min(agree_ab, agree_ba), slack, err),
+                     agree, slack, err),
                     ("nn_directed",
                      lambda: cuda_nn.nn_directed_tables(fa, ma, fb, mb),
                      lambda: nn_tables_plain(fa, ma01, fb, mb01),
@@ -537,7 +577,7 @@ def check_patchmatch(torch) -> None:
     model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
     cnt, stl = _pair(torch, gen, CONTENT_HW, STYLE_HW, smooth=False)
     config = Config(fine_strategy="patchmatch")
-    _timed_pairs(torch, "patchmatch", model, config, cnt, stl, 3,
+    _timed_pairs(torch, "patchmatch", model, config, cnt, stl, 2,
                  {"nn_bidir": config.exact_nn_levels, "nn_directed": 0})
 
     # a panning shot: each frame is the previous one moved 2 px right
@@ -657,7 +697,7 @@ def check_variants(torch) -> None:
     model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
     cnt, stl = _pair(torch, gen, CONTENT_HW, STYLE_HW, smooth=False)
     parity = Config.reference_parity()
-    _timed_pairs(torch, "parity", model, parity, cnt, stl, 3,
+    _timed_pairs(torch, "parity", model, parity, cnt, stl, 2,
                  {"nn_bidir": 0, "nn_directed": 0})
     _stage_split(torch, "parity", model, parity, cnt, stl)
     variants = Config(knn_memberships=3, nl_transpose="scatter",
@@ -1091,9 +1131,9 @@ def _scan_items(torch, model, config, cnt_b, stl_b, seeds) -> dict:
 
 # phase 10: (label, Config, bucket size, warm runs, stage split)
 VMAP_CONFIGS = (
-    ("10a-pm", "patchmatch", 4, 2, False),
-    ("10b-parity", "parity", 2, 1, True),
-    ("10c-variants", "variants", 4, 2, False),
+    ("10a-pm", "patchmatch", 4, 1, False),
+    ("10b-parity", "parity", 2, 1, False),
+    ("10c-variants", "variants", 4, 1, False),
 )
 
 
@@ -2802,6 +2842,151 @@ def check_data_path(torch, smi: str, feed_13c: dict | None = None) -> dict:
     return out
 
 
+# phase 15: the benchmark tools (nct_tpu_torch/tools) at the real widths
+BENCH_PROCESS_REPS = 3
+BENCH_SIZES = (700, 1000)
+BENCH_SIZE_REPS = 2
+BENCH_BATCH = 4
+BENCH_BATCH_REPS = 2
+BENCH_SERVING_N = 4
+BENCH_FRAMES = 4
+ROOFLINE_REPS = 2
+
+
+def level_shapes(hw_c, hw_s) -> list[tuple[int, ...]]:
+    """(Ha, Wa, Hb, Wb, C) of the exact-NN levels for a content of ``hw_c``
+    and a style of ``hw_s``, as the pipeline's VGG-19 taps give them."""
+    from nct_tpu_torch import Config
+    from nct_tpu_torch.models import vgg19
+
+    cfg = Config()
+    dims_a, dims_b = vgg19.feature_dims(*hw_c), vgg19.feature_dims(*hw_s)
+    chans = vgg19.tap_channels()
+    return [(*dims_a[tap], *dims_b[tap], chans[tap])
+            for tap in cfg.vgg_layers()[:cfg.exact_nn_levels]]
+
+
+def check_bench_nn_shapes(torch, rec: dict) -> None:
+    """Phase 15's kernel check: ``nn_bidir`` against its plain version at
+    the L0-L3 shapes of the 700 and 1000 px pairs (phase 3 holds it at the
+    452 px pair's), random features to AGREE_MIN / DIST_TOL and integer
+    ones bitwise; adds the shapes and errors to the record."""
+    from nct_tpu_torch.ops import cuda_nn
+    from nct_tpu_torch.ops.exact_nn import nn_bidir_tables_plain
+    from nct_tpu_torch.tools import bench
+
+    if level_shapes(CONTENT_HW, STYLE_HW) != list(NN_SHAPES):
+        raise AssertionError("phase 15: level_shapes disagrees with "
+                             "NN_SHAPES at the 452 px pair")
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version in full f32
+    gen = torch.Generator().manual_seed(15)
+    checked = {}
+    for size in BENCH_SIZES:
+        cnt, stl = bench.load_pair(size)
+        shapes = level_shapes(cnt.shape[:2], stl.shape[:2])
+        for lvl, shape in enumerate(shapes):
+            na, nb = shape[0] * shape[1], shape[2] * shape[3]
+            for integer in (False, True):
+                tab = _tables(torch, gen, shape, integer)
+                got = cuda_nn.nn_bidir_tables(*tab[:4])
+                ref = nn_bidir_tables_plain(tab[0], tab[4], tab[2], tab[5])
+                same, agree, slack, err = _bidir_vs_plain(torch, tab, got,
+                                                          ref, na, nb)
+                case = "integer" if integer else "random"
+                log(f"[nn_bidir] {size} px L{lvl} {case} Na={na} Nb={nb} "
+                    f"C={shape[4]}: bitwise equal={same}, agree "
+                    f"{agree:.5f}, match slack {slack:.2e}, max |d err| "
+                    f"{err:.2e}")
+                if (not same if integer
+                        else agree < AGREE_MIN or slack > DIST_TOL):
+                    raise AssertionError(f"phase 15: nn_bidir disagrees with "
+                                         f"plain at {size} px L{lvl} ({case})")
+                if not integer:
+                    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                    checked[f"{size}px_L{lvl}"] = {
+                        "shape": list(shape), "agree": agree,
+                        "match_slack": slack, "max_abs_err": err}
+    rec["bench_shapes_vs_plain"] = checked
+
+
+def _tool_result(label: str, result: dict) -> dict:
+    log(f"[{label}] " + json.dumps(result))
+    return result
+
+
+def check_bench_tools(torch, bidir: dict) -> None:
+    """Phase 15: ``nn_bidir`` at the 700 and 1000 px shapes, then each
+    benchmark tool of the port on the seeded pair at full VGG-19 width;
+    adds to ``bidir`` the bench's launches per pair and per run (counted
+    from 0) by geometry and every launch of 15b-15f."""
+    import os
+
+    from nct_tpu_torch import Config
+    from nct_tpu_torch.ops import cuda_nn
+    from nct_tpu_torch.tools import (bench, bench_batch, bench_sequence,
+                                     bench_serving, roofline)
+
+    t0 = time.perf_counter()
+    check_bench_nn_shapes(torch, bidir)
+    log(f"[bench] nn_bidir vs plain at the 700 and 1000 px shapes in "
+        f"{time.perf_counter() - t0:.1f} s")
+    levels = Config().exact_nn_levels
+    repo = os.path.dirname(os.path.abspath(__file__))
+    counts = {}
+
+    def correct(label: str, res: dict, pairs: int, launches: int) -> None:
+        """The tool's own checks held, ``levels`` launches in each pair and
+        ``pairs`` pairs' worth in the run, counted from 0 here."""
+        key = "{}x{}".format(*res["geometry"]["content"])
+        counts[key] = {"per_pair": res["nn_bidir_launches_per_pair"],
+                       "run": launches}
+        if not (res["correct"] and res["nn_bidir_launches_per_pair"] == levels
+                and res["nn_bidir_launches"] == launches == pairs * levels
+                and res["device"]["name"] == torch.cuda.get_device_name(0)):
+            raise AssertionError(f"phase 15 {label}: {launches} launches "
+                                 f"counted, {res}")
+
+    # (a) the bench in a new process, as a user runs it: its counts start
+    # at 0 with the process; one cold, the warm reps, a warm and a timed
+    # scan of SCAN_ITEMS pairs each
+    proc = subprocess.run(
+        [sys.executable, "-m", "nct_tpu_torch.tools.bench", "--reps",
+         str(BENCH_PROCESS_REPS)], capture_output=True, text=True, cwd=repo,
+        env=dict(os.environ, PYTHONPATH=repo), timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 15a: the bench exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    res = _tool_result("bench 15a", json.loads(
+        proc.stdout.strip().splitlines()[-1]))
+    pairs = 1 + BENCH_PROCESS_REPS + 2 * bench.SCAN_ITEMS
+    correct("15a", res, pairs, res["nn_bidir_launches"])
+    # (b) the upscaled and capped geometries, in this process
+    for size in BENCH_SIZES:
+        reset_counts()
+        res = bench.run(size=size, reps=BENCH_SIZE_REPS, scan=False)
+        launches = cuda_nn.LAUNCHES["nn_bidir"]
+        _tool_result(f"bench 15b {size}", res)
+        correct(f"15b {size}", res, 1 + BENCH_SIZE_REPS, launches)
+    log(f"[bench] nn_bidir launches counted from 0: {json.dumps(counts)}")
+    # (c)-(f)
+    reset_counts()
+    _tool_result("bench_batch 15c", bench_batch.run(
+        batch=BENCH_BATCH, mode="both", reps=BENCH_BATCH_REPS))
+    _tool_result("bench_serving 15d", bench_serving.run(
+        n=BENCH_SERVING_N, mesh=True))
+    for pm in (False, True):
+        _tool_result("bench_sequence 15e", bench_sequence.run(
+            n=BENCH_FRAMES, pm=pm))
+    rc = roofline.main(["--reps", str(ROOFLINE_REPS)])
+    launches = cuda_nn.LAUNCHES["nn_bidir"]
+    log(f"[bench] nn_bidir launches in 15c-15f: {launches}; phase 15 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if rc != 0 or launches == 0:
+        raise AssertionError("phase 15: the roofline, or no nn_bidir launch")
+    bidir["bench_launches"] = counts
+    bidir["bench_tools_launches"] = launches
+
+
 def main() -> int:
     import torch
 
@@ -2847,6 +3032,8 @@ def main() -> int:
     phase_done("phase 13 (JPEG, CaffeNet training, resume, data mesh)")
     check_data_path(torch, smi, training["caffenet"])
     phase_done("phase 14 (data sources and dataset tools)")
+    check_bench_tools(torch, bidir)
+    phase_done("phase 15 (benchmark tools)")
     log(f"[time] whole run {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [bidir, directed]}))
     log(smi)

@@ -13,6 +13,8 @@ time, host waits inside a stage included) and the host clock on the CPU.
 Prints one ``name: X ms`` line per stage and, last, one JSON object with
 every stage.  ``--device`` defaults to ``cuda`` and fails without a card;
 ``--small`` shrinks every shape so that a CPU test can drive the tool.
+A level's operands and stage calls (``LevelStages``) and the WLS call
+(``wls_solve``) are shared with ``tools/roofline``.
 """
 
 from __future__ import annotations
@@ -44,6 +46,91 @@ SHAPES = {
 }
 
 
+WLS_LAMBDA = 0.024 * 16.0
+
+
+class LevelStages:
+    """Seeded operands of the stages of one level (A ah x aw, B bh x bw,
+    C channels), drawn from ``g`` in the order the stages first need them,
+    and the stages as callables.  ``roofline`` times the same stages on
+    the same kind of operands."""
+
+    def __init__(self, shape, g: torch.Generator, device: torch.device,
+                 cfg: Config):
+        ah, aw, bh, bw, c = shape
+        self.shape, self.g, self.device, self.cfg = shape, g, device, cfg
+        self.fa = self.put(torch.randn((ah, aw, c), generator=g)
+                           .to(torch.bfloat16))
+        self.fb = self.put(torch.randn((bh, bw, c), generator=g)
+                           .to(torch.bfloat16))
+        self.fa_n, self.fb_n = (
+            features.l2_normalize(x.float())[0].to(torch.bfloat16)
+            for x in (self.fa, self.fb))
+        self.ann0 = nnf.init_scaled_identity(ah, aw, bh, bw, device)
+        self.bnn0 = nnf.init_scaled_identity(bh, bw, ah, aw, device)
+        self._graph_in = None
+
+    def put(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.device)
+
+    def window_refine(self):
+        return window_refine(self.fa_n, self.fb_n, self.ann0,
+                             self.cfg.window_radius,
+                             self.cfg.window_shortlist)[0]
+
+    def nn_directed(self):
+        return cuda_nn.exact_nn(self.fa_n, self.fb_n, 3)
+
+    def nn_bidir(self):
+        return cuda_nn.exact_nn_bidir(self.fa_n, self.fb_n, 3)
+
+    def bds_vote(self, ann):
+        return bds.bds_vote(self.fb.float(), ann, self.bnn0, 1.0, 2.0, 3)
+
+    def graph_inputs(self):
+        """(Lab guide, k-means labels, candidate ids), drawn on first use."""
+        if self._graph_in is None:
+            ah, aw = self.shape[:2]
+            lab = self.put(torch.rand((ah, aw, 3), generator=self.g))
+            cand = self.put(torch.randint(0, ah * aw, (10, min(2048, ah * aw)),
+                                          generator=self.g))
+            plabels = self.put(torch.randint(0, 10, (ah, aw),
+                                              generator=self.g))
+            self._graph_in = (lab, plabels, cand)
+        return self._graph_in
+
+    def knn_graph(self):
+        lab, plabels, cand = self.graph_inputs()
+        return knn.knn_graph(lab, plabels, cand, 8)
+
+    def nonlocal_solve(self, graph, iters: int, nf: float):
+        """The nonlocal multigrid PCG over ``graph`` (``knn_graph()``'s
+        output) as a callable, from a near-constant start as the
+        cross-level upsample gives."""
+        ah, aw = self.shape[:2]
+        lab, _, cand = self.graph_inputs()
+        ids, wts, slots = graph
+        conf = self.put(0.2 + 0.8 * torch.rand((ah, aw), generator=self.g))
+        a0 = self.put(torch.ones((ah, aw, 3)))
+        b0 = self.put(torch.zeros((ah, aw, 3)))
+        glab = self.put(torch.rand((ah, aw, 3), generator=self.g))
+        cfg = self.cfg
+        return lambda: solve_nonlocal(
+            a0, b0, lab, glab, conf, ids, wts, nf, iters=iters,
+            tol=cfg.cg_tol, candidates=cand, nbr_slots=slots,
+            precond_kind=cfg.nl_precond)
+
+
+def wls_solve(h: int, w: int, g: torch.Generator, device: torch.device,
+              iters: int, cfg: Config):
+    """The full-resolution WLS PCG on a seeded guide as a callable."""
+    cnt_lab = torch.rand((h, w, 3), generator=g).to(device)
+    a_up = torch.ones((h, w, 3), device=device)
+    b_up = torch.zeros((h, w, 3), device=device)
+    return lambda: solve_wls(a_up, b_up, cnt_lab, WLS_LAMBDA, iters=iters,
+                             precond_kind=cfg.wls_precond)
+
+
 def run(device: torch.device | str = "cuda", reps: int = 3,
         small: bool = False) -> dict[str, float]:
     """Time every stage; returns {stage name: ms} and prints each line."""
@@ -56,77 +143,45 @@ def run(device: torch.device | str = "cuda", reps: int = 3,
     cfg = Config()
     stages: dict[str, float] = {}
 
-    def put(x):
-        return x.to(device)
-
     def timed(name, fn):
         out, stages[name] = time_call(fn, reps, device)
         print(f"{name}: {stages[name]:.3f} ms", flush=True)
         return out
 
     model = vgg19.init_params(torch.Generator().manual_seed(19)).to(device)
-    cnt = put(torch.randint(0, 256, (h, w, 3), generator=g, dtype=torch.uint8))
+    cnt = torch.randint(0, 256, (h, w, 3), generator=g,
+                        dtype=torch.uint8).to(device)
     timed("vgg_5taps", lambda: model(cnt))
 
     for lvl, (ah, aw, bh, bw, c, rs) in levels.items():
         print(f"== level {lvl}: A {ah}x{aw}, B {bh}x{bw}, C={c} ==",
               flush=True)
-        fa = put(torch.randn((ah, aw, c), generator=g).to(torch.bfloat16))
-        fb = put(torch.randn((bh, bw, c), generator=g).to(torch.bfloat16))
-        fa_n = features.l2_normalize(fa.float())[0].to(torch.bfloat16)
-        fb_n = features.l2_normalize(fb.float())[0].to(torch.bfloat16)
-        ann0 = nnf.init_scaled_identity(ah, aw, bh, bw, device)
-        bnn0 = nnf.init_scaled_identity(bh, bw, ah, aw, device)
-
-        def refine():
-            return window_refine(fa_n, fb_n, ann0, cfg.window_radius,
-                                 cfg.window_shortlist)[0]
-
+        lv = LevelStages((ah, aw, bh, bw, c), g, device, cfg)
         if lvl <= 3:
-            timed(f"exact_nn_L{lvl}", lambda: exact_nn_plain(fa_n, fb_n, 3))
-            ann = timed(f"nn_directed_L{lvl}",
-                        lambda: cuda_nn.exact_nn(fa_n, fb_n, 3))[0]
-            timed(f"nn_bidir_L{lvl}",
-                  lambda: cuda_nn.exact_nn_bidir(fa_n, fb_n, 3))
+            timed(f"exact_nn_L{lvl}",
+                  lambda: exact_nn_plain(lv.fa_n, lv.fb_n, 3))
+            ann = timed(f"nn_directed_L{lvl}", lv.nn_directed)[0]
+            timed(f"nn_bidir_L{lvl}", lv.nn_bidir)
             if lvl == 3:
-                timed(f"window_refine_L{lvl}", refine)
+                timed(f"window_refine_L{lvl}", lv.window_refine)
         else:
-            ann = timed(f"window_refine_L{lvl}", refine)
+            ann = timed(f"window_refine_L{lvl}", lv.window_refine)
             iters = cfg.pm_iters_fine
             n_mags = max(len(random_search_mags(rs, bh, bw)), 1)
-            u = put(torch.rand((iters, n_mags, ah, aw, 2), generator=g))
+            u = torch.rand((iters, n_mags, ah, aw, 2), generator=g).to(device)
             timed(f"patchmatch{iters}_ab_L{lvl}",
-                  lambda: patchmatch(fa_n, fb_n, ann0, u, iters, rs, 3))
+                  lambda: patchmatch(lv.fa_n, lv.fb_n, lv.ann0, u, iters, rs,
+                                     3))
 
-        timed(f"bds_vote_L{lvl}",
-              lambda: bds.bds_vote(fb.float(), ann, bnn0, 1.0, 2.0, 3))
-
-        lab = put(torch.rand((ah, aw, 3), generator=g))
-        m = min(2048, ah * aw)
-        cand = put(torch.randint(0, ah * aw, (10, m), generator=g))
-        plabels = put(torch.randint(0, 10, (ah, aw), generator=g))
-        ids, wts, slots = timed(
-            f"knn_graph_L{lvl}", lambda: knn.knn_graph(lab, plabels, cand, 8))
-
-        conf = put(0.2 + 0.8 * torch.rand((ah, aw), generator=g))
-        # a near-constant start, as the cross-level upsample gives
-        a0 = put(torch.ones((ah, aw, 3)))
-        b0 = put(torch.zeros((ah, aw, 3)))
-        glab = put(torch.rand((ah, aw, 3), generator=g))
-        nf = float(h * w) / (ah * aw)
+        timed(f"bds_vote_L{lvl}", lambda: lv.bds_vote(ann))
+        graph = timed(f"knn_graph_L{lvl}", lv.knn_graph)
         iters = cfg.cg_iters_final_mg if lvl == 4 else cfg.cg_iters_mg
         timed(f"nonlocal_mg{iters}_tol{cfg.cg_tol:g}_L{lvl}",
-              lambda: solve_nonlocal(
-                  a0, b0, lab, glab, conf, ids, wts, nf, iters=iters,
-                  tol=cfg.cg_tol, candidates=cand, nbr_slots=slots))
+              lv.nonlocal_solve(graph, iters, float(h * w) / (ah * aw)))
 
     print("== WLS at full res ==", flush=True)
-    cnt_lab = put(torch.rand((h, w, 3), generator=g))
-    a_up = put(torch.ones((h, w, 3)))
-    b_up = put(torch.zeros((h, w, 3)))
     timed(f"wls_cg{cfg.wls_cg_iters}_fullres",
-          lambda: solve_wls(a_up, b_up, cnt_lab, 0.024 * 16.0,
-                            iters=cfg.wls_cg_iters))
+          wls_solve(h, w, g, device, cfg.wls_cg_iters, cfg))
     return stages
 
 
