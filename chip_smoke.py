@@ -76,7 +76,7 @@ no result, without them.  Phases, each of which raises on failure:
      ``Config(knn_memberships=3, nl_transpose="scatter",
      wls_precond="jacobi")``, B = 4 (4 launches of 16 items, the folded
      P = 3 merge, the scatter transpose, Jacobi WLS); one cold and one
-     warm bucket each;
+     warm bucket each (10b the cold one only);
  11. mesh: 2 ranks spawned by ``parallel.mesh.launch``, both on the one
      card (gloo): (a) ``ring_exact_nn`` a -> b and b -> a at the L0-L3
      shapes, random and integer features, bitwise equal to
@@ -85,15 +85,19 @@ no result, without them.  Phases, each of which raises on failure:
      per direction beside one ``nn_bidir``, the host staging and the
      matcher's peak bytes beside the single-card search's; (b) the default
      pair under ``Config(space_mesh=mesh, vgg_compute_dtype="float32")``,
-     one cold and two warm runs, 16 ``nn_directed`` and no ``nn_bidir``
-     launch per pair per rank, both ranks bitwise equal to the
-     single-process pair; (c) ``make_batch_transfer(Config(), mesh)`` over
-     a 2x1 data mesh on phase 8b's 4 pairs, every item bitwise its 8b
-     scan item; (d) a vmap bucket of 2 under the 1x2 space mesh, each ring
-     step one launch of 2 items, each item bitwise its single-process
-     item under float32 VGG; (c) and (d) one cold and two warm runs; (e)
-     (d)'s bucket with ``ring_nn=False`` (each rank one ``nn_bidir``
-     launch of 2 items per exact level), bitwise (d)'s;
+     which runs every stage on row bands (``pipeline.row_sharded``), one
+     cold and one warm run, 16 ``nn_directed`` and no ``nn_bidir`` launch
+     per pair per rank, both ranks equal, bitwise the single-process pair,
+     with the (nl, wls) iterations of both; (c) ``make_batch_transfer(
+     Config(), mesh)`` over a 2x1 data mesh on phase 8b's 4 pairs, every
+     item bitwise its 8b scan item; (d) a vmap bucket of 2 under the 1x2
+     space mesh (row bands), each ring step one launch of 2 items, each
+     item bitwise its single-process item under float32 VGG; (c) one cold
+     and two warm runs, (d) one cold and one warm, every warm output
+     bitwise the cold one; (e) (d)'s bucket with ``ring_nn=False`` (each
+     rank one ``nn_bidir`` launch of 2 items per exact level on the
+     gathered levels), one cold run, bitwise (d)'s; the band exchanges'
+     calls and host ms per rank;
  12. Caffe framework (``nct_tpu_torch.nn``), float32 with TF32 off:
      (a) the VGG_ILSVRC_19_layers deploy net at its published widths
      (10x3x224x224, 143.7M parameters), written with the port's NetSpec,
@@ -125,7 +129,7 @@ no result, without them.  Phases, each of which raises on failure:
      train_val at its published widths and solver (SGD, base_lr 0.01,
      momentum 0.9, weight_decay 0.0005, step policy), its LMDB layer
      replaced by ImageData over the 16 fixture JPEGs (256x256, crop 227,
-     mirror, batch 256): 20 NetSolver iterations with finite losses, 20
+     mirror, batch 256): 12 NetSolver iterations with finite losses, 12
      steps on one resident batch whose loss must fall, the warm CUDA-event
      ms per iteration device only and with the host feed, images/s and
      TFLOP/s at 3 x the forward FLOPs, then the card against the CPU over
@@ -140,11 +144,11 @@ no result, without them.  Phases, each of which raises on failure:
      rank decodes half of every batch;
  14. data sources and dataset tools, in a temporary directory removed at
      the end: (a) ``tools.convert_imageset --backend records`` over a
-     5,120-line list of the 16 fixture JPEGs (labels i % 1000, 256x256,
-     shuffled, shard size 4096: two shards) and ``tools.compute_image_mean``
+     3,072-line list of the 16 fixture JPEGs (labels i % 1000, 256x256,
+     shuffled, shard size 2048: two shards) and ``tools.compute_image_mean``
      over it, with seconds, images/s and shard bytes; (b) CaffeNet's
      train_val at its published widths from its own ``Data`` layer over
-     those shards (crop 227, mirror, the mean file, batch 256): 20 logged
+     those shards (crop 227, mirror, the mean file, batch 256): 12 logged
      NetSolver iterations with finite losses, the warm CUDA-event ms per
      iteration with the feed and on a resident batch beside 13c's ImageData
      figure, the host ms per batch of the Data and ImageData sources, then
@@ -160,7 +164,7 @@ no result, without them.  Phases, each of which raises on failure:
      copying half of every batch, and an in-process snapshot at iteration
      4 of 8 under ``cudnn.deterministic`` whose resume is bitwise the
      uninterrupted run and reads no used batch again; (f)
-     ``tools.parse_log`` over (b)'s log (20 train rows),
+     ``tools.parse_log`` over (b)'s log (12 train rows),
      ``tools.upgrade_proto`` and ``tools.draw_net`` on (b)'s train_val.
      HDF5 is left to the CPU tests (the card's machine has no h5py).  The
      training path adds no kernel: its products are ``F.conv2d`` /
@@ -169,21 +173,33 @@ no result, without them.  Phases, each of which raises on failure:
      width.  First ``nn_bidir`` against its plain version at the L0-L3
      shapes of the 700 and 1000 px pairs, random features (AGREE_MIN,
      DIST_TOL) and integer ones (bitwise), as phase 3 at the 452 px
-     pair's.  Then (a) ``python3 -m nct_tpu_torch.tools.bench --reps 3``
+     pair's.  Then (a) ``python3 -m nct_tpu_torch.tools.bench --reps 2``
      in a new process on ``bench.py``'s 452x680 / 600x960 pair (one cold
-     and 3 warm pairs, a warm and a timed scan batch of 4), its last line
+     and 2 warm pairs, a warm and a timed scan batch of 4), its last line
      parsed, ``correct`` true; (b) ``bench.run`` at 700 px (465x700 /
      437x700: the stage-1 subset in one direction) and 1000 px (665x1000
-     / 625x1000: both directions), one cold and 2 warm pairs each, with
+     / 625x1000: both directions), one cold and one warm pair each, with
      peak device memory, the counts set to 0 before each run; in (a) and
      (b) 4 ``nn_bidir`` launches in each pair and 4 per pair in the run;
      (c) ``bench_batch`` over a bucket of 4, vmap and scan; (d)
      ``bench_serving`` of 4 requests, sync, pipelined and on a 1x1 mesh;
-     (e) ``bench_sequence`` of 4 frames, the default Config and
+     (e) ``bench_sequence`` of 3 frames, the default Config and
      ``exact_nn_levels=0``; (f) the ``roofline`` table.  Every tool checks
      its own outputs and raises; each prints its JSON line.
      ``nn_bidir``'s record gains the shapes held against plain and the
-     bench's launches by geometry.
+     bench's launches by geometry;
+ 16. row bands at full width: the bench's 665x1000 / 625x1000 pair under
+     ``Config(space_mesh=mesh, vgg_compute_dtype="float32")`` over a 1x2
+     mesh (2 gloo ranks on the card): one cold and one warm run, then a
+     single-process run of the same call on rank 0; per rank the seconds,
+     the launches (16 ``nn_directed``, no ``nn_bidir``), the host ms and
+     calls of the halos, reductions, gathers and exchanges
+     (``parallel.mesh.COMM``), ``max_memory_allocated`` in total and by
+     stage (``StagePeaks`` wraps the pipeline's stage functions here) and
+     the (nl, wls) iterations; the ranks equal, the warm run bitwise the
+     cold one, each rank bitwise the single process and its peak at most
+     0.65x the single process's; then one run over a
+     1x4 mesh for the per-rank peaks.
 The line before the last holds {"kernels": [...]}, the one before it the
 card's name and power limit; the last line is {"ok": true, "device": ...}.
 """
@@ -1083,19 +1099,18 @@ def _vmap_bucket(torch, label, model, config, cnt_b, stl_b, seeds, scan,
         raise AssertionError(f"[{label}] items {broken} break the batch "
                              f"contract")
     mp = bsz * CONTENT_HW[0] * CONTENT_HW[1] / 1e6
-    warm = statistics.median(times[1:])
+    which = "warm" if warm_runs else "cold"
+    t = statistics.median(times[1:] or times)
     log(f"[{label}] bucket of {bsz} pairs {CONTENT_HW[0]}x{CONTENT_HW[1]} / "
-        f"{STYLE_HW[0]}x{STYLE_HW[1]}: cold {times[0]:.3f} s "
-        f"({times[0] / bsz:.3f} s per pair), warm "
-        f"{[round(t, 3) for t in times[1:]]} s ({warm / bsz:.3f} s per "
-        f"pair, {mp / warm:.4f} MP/s); scan of the same items "
-        f"{scan['s']:.3f} s ({scan['s'] / bsz:.3f} s per pair, "
-        f"{mp / scan['s']:.4f} MP/s); {scan['s'] / warm:.2f}x; bitwise "
-        f"share per item {[round(v, 4) for v in shares]}; peak device "
-        f"memory {peak:.2f} GiB")
+        f"{STYLE_HW[0]}x{STYLE_HW[1]}: {_timed(times)}; {which} "
+        f"{t / bsz:.3f} s per pair, {mp / t:.4f} MP/s; scan of the same "
+        f"items {scan['s']:.3f} s ({scan['s'] / bsz:.3f} s per pair, "
+        f"{mp / scan['s']:.4f} MP/s); {scan['s'] / t:.2f}x the {which} "
+        f"bucket; bitwise share per item {[round(v, 4) for v in shares]}; "
+        f"peak device memory {peak:.2f} GiB")
     return {"launches": want["nn_bidir"], "items": want_items["nn_bidir"],
-            "warm_s_per_pair": warm / bsz, "scan_s_per_pair": scan["s"] / bsz,
-            "peak_gib": peak}
+            f"{which}_s_per_pair": t / bsz,
+            "scan_s_per_pair": scan["s"] / bsz, "peak_gib": peak}
 
 
 def check_vmap_bucket(torch, scan: dict) -> dict:
@@ -1132,7 +1147,7 @@ def _scan_items(torch, model, config, cnt_b, stl_b, seeds) -> dict:
 # phase 10: (label, Config, bucket size, warm runs, stage split)
 VMAP_CONFIGS = (
     ("10a-pm", "patchmatch", 4, 1, False),
-    ("10b-parity", "parity", 2, 1, False),
+    ("10b-parity", "parity", 2, 0, False),
     ("10c-variants", "variants", 4, 1, False),
 )
 
@@ -1174,8 +1189,11 @@ def check_batch_profiler(torch) -> None:
         raise AssertionError(f"batch profiler: stages {bad} not timed")
 
 
-# phase 11: the ranks of the mesh phases (gloo, both on the one card)
+# phase 11: the ranks of the mesh phases (gloo, both on the one card), and
+# the runs of 11b's pair and 11d's bucket on row bands (one cold, one warm;
+# 11e's bucket runs once, cold)
 MESH_RANKS = 2
+MESH_PAIR_RUNS = 2
 
 
 def _ring_check(torch, mesh, a, b, timing=None) -> dict:
@@ -1219,13 +1237,19 @@ def _ring_check(torch, mesh, a, b, timing=None) -> dict:
     return rec
 
 
+def _iters(trace) -> list:
+    """(nl, wls) iterations per level of a "stats" trace."""
+    return [(int(t["nl_iters"]), int(t["wls_iters"])) for t in trace]
+
+
 def _mesh_runs(torch, runs: int, fn) -> dict:
     """``runs`` synchronised runs of ``fn`` (the first cold), each with the
     kernel counts set to 0 just before it and read just after; every
-    output must equal the first."""
+    output must equal the first.  ``fn`` returns the output or (output,
+    "stats" trace); the first run's iterations per level are kept."""
     from nct_tpu_torch.ops import cuda_nn
 
-    times, launches, first = [], None, None
+    times, launches, first, iters = [], None, None, None
     torch.cuda.reset_peak_memory_stats()
     for run in range(runs):
         torch.cuda.synchronize()
@@ -1234,6 +1258,9 @@ def _mesh_runs(torch, runs: int, fn) -> dict:
         out = fn()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        if isinstance(out, tuple):
+            out, trace = out
+            iters = iters or _iters(trace)
         counts = (dict(cuda_nn.LAUNCHES), dict(cuda_nn.LAUNCH_ITEMS))
         if run == 0:
             first, launches = out, counts
@@ -1241,8 +1268,24 @@ def _mesh_runs(torch, runs: int, fn) -> dict:
             raise AssertionError(f"run {run} differs from run 0 in its "
                                  f"output or launches {counts}")
     return {"out": first.cpu(), "s": times, "launches": launches[0],
-            "items": launches[1],
+            "items": launches[1], "iters": iters,
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def bitwise(torch, got, want) -> tuple[bool, int, int]:
+    """(equal, values that differ, max |diff|) of two uint8 results."""
+    diff = (got.cpu().int() - want.cpu().int()).abs()
+    return (torch.equal(got.cpu(), want.cpu()), int((diff > 0).sum()),
+            int(diff.max()))
+
+
+def _timed(times: list) -> str:
+    """"cold x s, warm [...] s (median m s)", or "cold x s (no warm run)"
+    when the phase ran once."""
+    if len(times) == 1:
+        return f"cold {times[0]:.3f} s (no warm run)"
+    return (f"cold {times[0]:.3f} s, warm {[round(t, 3) for t in times[1:]]}"
+            f" s (median {statistics.median(times[1:]):.3f} s)")
 
 
 def mesh_rank(cnt_b, stl_b, seeds) -> dict:
@@ -1255,6 +1298,7 @@ def mesh_rank(cnt_b, stl_b, seeds) -> dict:
 
     from nct_tpu_torch import Config, pipeline
     from nct_tpu_torch.models import vgg19
+    from nct_tpu_torch.parallel import mesh as mesh_mod
     from nct_tpu_torch.parallel.batch import make_batch_transfer
     from nct_tpu_torch.parallel.mesh import make_mesh
     from nct_tpu_torch.parallel.ring_nn import RingTiming
@@ -1291,11 +1335,14 @@ def mesh_rank(cnt_b, stl_b, seeds) -> dict:
     f32 = Config(vgg_compute_dtype="float32")
     sharded = dataclasses.replace(f32, space_mesh=space)
     dist.barrier()
-    out["pair"] = _mesh_runs(torch, 3, lambda: pipeline.transfer_pair(
-        model, cnt, stl, 2.0, sharded, seed=7))
+    out["pair"] = _mesh_runs(torch, MESH_PAIR_RUNS,
+                             lambda: pipeline.transfer_pair(
+                                 model, cnt, stl, 2.0, sharded, seed=7,
+                                 return_intermediates="stats"))
     if lead:
-        out["pair_single"] = pipeline.transfer_pair(
-            model, cnt, stl, 2.0, f32, seed=7).cpu()
+        single, trace = pipeline.transfer_pair(
+            model, cnt, stl, 2.0, f32, seed=7, return_intermediates="stats")
+        out["pair_single"] = (single.cpu(), _iters(trace))
     torch.cuda.empty_cache()
 
     # 11c: phase 8b's 4 pairs over a 2x1 data mesh, 2 per rank as vmap
@@ -1306,20 +1353,23 @@ def mesh_rank(cnt_b, stl_b, seeds) -> dict:
 
     # 11d: a bucket of 2 under the 1x2 space mesh, vmap (float32 VGG)
     dist.barrier()
-    out["bucket"] = _mesh_runs(torch, 3, lambda: make_batch_transfer(
-        Config(), space)(model, cnt_b[:2], stl_b[:2], seeds[:2], 2.0))
+    out["bucket"] = _mesh_runs(torch, MESH_PAIR_RUNS,
+                               lambda: make_batch_transfer(Config(), space)(
+                                   model, cnt_b[:2], stl_b[:2], seeds[:2],
+                                   2.0))
     torch.cuda.empty_cache()
 
     # 11e: 11d's bucket with ring_nn=False: each rank searches the whole
     # tables with nn_bidir, and must give the ring's bucket bit for bit
     dist.barrier()
-    out["replicated"] = _mesh_runs(torch, 2, lambda: make_batch_transfer(
+    out["replicated"] = _mesh_runs(torch, 1, lambda: make_batch_transfer(
         Config(), space, ring_nn=False)(
             model, cnt_b[:2], stl_b[:2], seeds[:2], 2.0))
     if lead:
         out["bucket_single"] = [pipeline.transfer_pair(
             model, cnt_b[i], stl_b[i], 2.0, f32, seed=seeds[i]).cpu()
             for i in range(2)]
+    out["comm"] = dict(mesh_mod.COMM)
     return out
 
 
@@ -1367,19 +1417,20 @@ def check_mesh(torch, scan: dict, directed: dict) -> None:
                     f"the single-card search's "
                     f"{timed['bidir_peak_bytes'] / 2 ** 20:.1f} MiB")
                 directed.setdefault("ring_step_ms_L3", []).append(steps)
-    single = ranks[0]["pair_single"]
+    single, single_iters = ranks[0]["pair_single"]
     mp = CONTENT_HW[0] * CONTENT_HW[1] / 1e6
     for r in ranks:
         p = r["pair"]
         warm = statistics.median(p["s"][1:])
-        same = torch.equal(p["out"], single)
+        held, n_diff, max_diff = bitwise(torch, p["out"], single)
         log(f"[mesh] 11b rank {r['rank']} space mesh 1x{MESH_RANKS} pair "
-            f"452x680 / 600x960: cold {p['s'][0]:.3f} s, warm "
-            f"{[round(t, 3) for t in p['s'][1:]]} s (median {warm:.3f} s, "
-            f"{mp / warm:.4f} MP/s), launches per pair {p['launches']}, "
-            f"peak {p['peak_gib']:.2f} GiB; bitwise the single-process pair: "
-            f"{same}")
-        if not same or p["launches"] != per_pair:
+            f"452x680 / 600x960 (row bands): {_timed(p['s'])}, "
+            f"{mp / warm:.4f} MP/s warm, launches per pair {p['launches']}, "
+            f"peak {p['peak_gib']:.2f} GiB; bitwise the single-process pair "
+            f"{held} ({n_diff} values differ, max |diff| {max_diff}); "
+            f"(nl, wls) iterations {p['iters']}, single process "
+            f"{single_iters}")
+        if not held or p["launches"] != per_pair:
             bad.append(f"11b rank {r['rank']}")
         if not torch.equal(p["out"], ranks[0]["pair"]["out"]):
             bad.append(f"11b rank {r['rank']} differs from rank 0")
@@ -1387,23 +1438,34 @@ def check_mesh(torch, scan: dict, directed: dict) -> None:
     for label, key, bsz, want in (
             ("11c data mesh 2x1", "data", 4,
              [o.cpu() for o in scan["outs"]]),
-            ("11d space mesh 1x2 bucket", "bucket", 2,
+            ("11d space mesh 1x2 bucket (row bands)", "bucket", 2,
              ranks[0]["bucket_single"]),
             ("11e space mesh 1x2 bucket, ring_nn=False", "replicated", 2,
              ranks[0]["bucket"]["out"])):
         for r in ranks:
             b = r[key]
-            same = [torch.equal(b["out"][i], want[i]) for i in range(bsz)]
-            warm = statistics.median(b["s"][1:])
-            what = ("the ring's bucket" if key == "replicated"
-                    else "their single-process items")
-            log(f"[mesh] {label} rank {r['rank']}: cold {b['s'][0]:.3f} s, "
-                f"warm {[round(t, 3) for t in b['s'][1:]]} s (median "
-                f"{warm:.3f} s, {warm / bsz:.3f} s per pair of the bucket of "
-                f"{bsz}), launches {b['launches']}, items {b['items']}, peak "
-                f"{b['peak_gib']:.2f} GiB; items bitwise {what}: {same}")
+            rules = [bitwise(torch, b["out"][i], want[i]) for i in range(bsz)]
+            same = [h for h, _, _ in rules]
+            what = ("bitwise the ring's bucket" if key == "replicated"
+                    else "bitwise their single-process items")
+            s_pair = statistics.median(b["s"][1:] or b["s"]) / bsz
+            log(f"[mesh] {label} rank {r['rank']}: {_timed(b['s'])}, "
+                f"{s_pair:.3f} s per pair of the bucket of {bsz} "
+                f"({'warm' if len(b['s']) > 1 else 'cold'}), launches "
+                f"{b['launches']}, items {b['items']}, peak "
+                f"{b['peak_gib']:.2f} GiB; items {what}: {same} (values "
+                f"differing {[n for _, n, _ in rules]})")
             if not all(same):
                 bad.append(f"{label} rank {r['rank']}")
+            if not all(torch.equal(b["out"][i], ranks[0][key]["out"][i])
+                       for i in range(bsz)):
+                bad.append(f"{label} rank {r['rank']} differs from rank 0")
+    for r in ranks:
+        c = r["comm"]
+        log(f"[mesh] rank {r['rank']} band exchanges over phase 11: "
+            + ", ".join(f"{k} {c[k + '_calls']} calls {c[k + '_s'] * 1e3:.1f}"
+                        f" ms" for k in ("halo", "reduce", "gather",
+                                         "exchange")))
     for r in ranks:
         if r["data"]["launches"] != {"nn_bidir": exact, "nn_directed": 0} or (
                 r["data"]["items"]["nn_bidir"] != 2 * exact):
@@ -1971,7 +2033,7 @@ JPEG_FIXTURES = ("tests", "fixtures", "jpeg")
 PAIR_JPEGS = (("pair_content.jpg", "pair_style.jpg"),
               ("pair_content_progressive.jpg", "pair_style_progressive.jpg"))
 TRAIN_BATCH = 256
-TRAIN_ITERS = 20
+TRAIN_ITERS = 12
 TRAIN_CARD_CPU_BATCH = 8
 TRAIN_CARD_CPU_STEPS = 3
 TRAIN_CARD_CPU_RTOL = 1e-4
@@ -2124,7 +2186,7 @@ def _event_ms(torch, fn):
 
 def check_caffenet_training(torch, smi: str) -> dict:
     """13c: CaffeNet train_val at its published widths and solver, batch
-    256 from ImageData over the 16 fixture JPEGs: 20 NetSolver iterations
+    256 from ImageData over the 16 fixture JPEGs: 12 NetSolver iterations
     (finite losses), 20 steps on one resident batch (falling loss), times,
     and the card against the CPU over 3 steps at batch 8."""
     import math as _math
@@ -2331,8 +2393,8 @@ def check_training(torch, smi: str) -> dict:
 # phase 14: Caffe's data sources and dataset tools, as Caffe's ImageNet
 # recipe runs them: convert_imageset -> a DB of Datums -> compute_image_mean
 # -> train_val's Data layer -> caffe train
-DATASET_LINES = 5120        # 20 iterations of 256 without a wrap
-DATASET_SHARD = 4096        # two shards: the cursor crosses a boundary
+DATASET_LINES = 3072        # TRAIN_ITERS iterations of 256 without a wrap
+DATASET_SHARD = 2048        # two shards: the cursor crosses a boundary
 DB_RECORDS = 64             # write_lmdb holds one leaf page
 DB_BATCH = 32
 DB_BATCHES = 4              # 128 rows over 64 records: the cursor wraps
@@ -2355,7 +2417,7 @@ def _image_list(path: str, n: int) -> str:
 
 
 def check_dataset(torch, tmp: str, smi: str) -> dict:
-    """14a: ``tools.convert_imageset --backend records`` over a 5,120-line
+    """14a: ``tools.convert_imageset --backend records`` over a 3,072-line
     list of the fixture JPEGs (two shards), then ``tools.compute_image_mean``
     over the same list."""
     import os
@@ -2419,7 +2481,7 @@ def _caffenet_data_solver(torch, source: str, mean: str, batch: int,
 def check_data_training(torch, ds: dict, tmp: str, feed_13c: dict | None,
                         smi: str) -> dict:
     """14b: CaffeNet train_val from its own Data layer over 14a's shards
-    and mean: 20 NetSolver iterations (logged), warm ms per iteration
+    and mean: 12 NetSolver iterations (logged), warm ms per iteration
     with the feed and device only, the host ms per batch of the Data and
     ImageData sources, and the card against the CPU."""
     import math as _math
@@ -2843,14 +2905,14 @@ def check_data_path(torch, smi: str, feed_13c: dict | None = None) -> dict:
 
 
 # phase 15: the benchmark tools (nct_tpu_torch/tools) at the real widths
-BENCH_PROCESS_REPS = 3
+BENCH_PROCESS_REPS = 2
 BENCH_SIZES = (700, 1000)
-BENCH_SIZE_REPS = 2
+BENCH_SIZE_REPS = 1
 BENCH_BATCH = 4
-BENCH_BATCH_REPS = 2
+BENCH_BATCH_REPS = 1
 BENCH_SERVING_N = 4
-BENCH_FRAMES = 4
-ROOFLINE_REPS = 2
+BENCH_FRAMES = 3
+ROOFLINE_REPS = 1
 
 
 def level_shapes(hw_c, hw_s) -> list[tuple[int, ...]]:
@@ -2987,6 +3049,198 @@ def check_bench_tools(torch, bidir: dict) -> None:
     bidir["bench_tools_launches"] = launches
 
 
+# phase 16: the 1000 px pair (the JAX package's MAX_SIZE geometry) under a
+# space mesh on row bands, 2 gloo ranks on the card, then 4 for their peaks
+SHARD_SIZE = 1000
+SHARD_RANKS = (2, 4)
+SHARD_PEAK_RATIO_MAX = 0.65
+
+
+class StagePeaks:
+    """Peak device bytes by pipeline stage in this process: each stage
+    function of ``pipeline`` (both the band and the single-process ones)
+    and the functions they call, wrapped while ``installed``; a stage's
+    peak is ``max_memory_allocated`` over its call, and an outer stage's
+    includes its inner stages' peaks (``reset_peak_memory_stats`` at each
+    entry, the outer's running peak carried past it)."""
+
+    def __init__(self, torch):
+        from nct_tpu_torch import pipeline
+        from nct_tpu_torch.models import vgg19
+
+        self.torch = torch
+        self.targets = (
+            ("setup", pipeline, "_band_setup"), ("setup", pipeline, "_setup"),
+            ("match", pipeline, "_band_level_match"),
+            ("match", pipeline, "_level_match"),
+            ("solve", pipeline, "_band_level_solve"),
+            ("solve", pipeline, "_level_solve"),
+            ("vgg", vgg19.VGG19, "forward"),
+            ("nn", pipeline, "ring_band_nn"),
+            ("nn", pipeline.cuda_nn, "exact_nn_bidir"),
+            ("window_refine", pipeline, "window_refine"),
+            ("bds", pipeline.bds, "bds_vote_band"),
+            ("bds", pipeline.bds, "bds_vote"),
+            ("knn_graph", pipeline.knn, "knn_graph"),
+            ("solve_nonlocal", pipeline, "solve_nonlocal"),
+            ("solve_wls", pipeline, "solve_wls"))
+        self.peaks, self.stack = {}, []
+
+    def run(self, name: str, fn, *args, **kwargs):
+        cuda = self.torch.cuda
+        if self.stack:
+            self.stack[-1] = max(self.stack[-1], cuda.max_memory_allocated())
+        cuda.reset_peak_memory_stats()
+        self.stack.append(0)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            peak = max(cuda.max_memory_allocated(), self.stack.pop())
+            self.peaks[name] = max(self.peaks.get(name, 0), peak)
+            if self.stack:
+                self.stack[-1] = max(self.stack[-1], peak)
+
+    def install(self) -> list:
+        saved = []
+        for name, owner, attr in self.targets:
+            fn = getattr(owner, attr)
+            saved.append((owner, attr, fn))
+
+            def wrapped(*a, _fn=fn, _name=name, **k):
+                return self.run(_name, _fn, *a, **k)
+            setattr(owner, attr, wrapped)
+        return saved
+
+    @staticmethod
+    def uninstall(saved: list) -> None:
+        for owner, attr, fn in reversed(saved):
+            setattr(owner, attr, fn)
+
+    def gib(self) -> dict:
+        return {k: round(v / 2 ** 30, 3) for k, v in self.peaks.items()}
+
+
+def _shard_pair(torch, peaks, model, cnt, stl, config) -> dict:
+    """One synchronised, counted and staged ``transfer_pair``."""
+    from nct_tpu_torch import pipeline
+    from nct_tpu_torch.ops import cuda_nn
+    from nct_tpu_torch.parallel import mesh as mesh_mod
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_counts()
+    for k in mesh_mod.COMM:
+        mesh_mod.COMM[k] = 0
+    peaks.peaks = {}
+    saved = peaks.install()
+    t0 = time.perf_counter()
+    try:
+        out, trace = peaks.run("total", pipeline.transfer_pair, model, cnt,
+                               stl, 2.0, config, seed=7,
+                               return_intermediates="stats")
+        torch.cuda.synchronize()
+    finally:
+        StagePeaks.uninstall(saved)
+    return {"s": time.perf_counter() - t0, "out": out.cpu(),
+            "launches": dict(cuda_nn.LAUNCHES), "iters": _iters(trace),
+            "comm": dict(mesh_mod.COMM), "peak_gib": peaks.gib()}
+
+
+def shard_rank(n_space: int, runs: int, single: bool) -> dict:
+    """Phase 16 in one rank of an ``n_space``-rank gloo world on the one
+    card: ``runs`` row-sharded pairs (the first cold) and, on rank 0 when
+    ``single``, the single-process pair after them."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from nct_tpu_torch import Config
+    from nct_tpu_torch.models import vgg19
+    from nct_tpu_torch.parallel.mesh import make_mesh
+    from nct_tpu_torch.tools import bench
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(n_data=1, n_space=n_space)
+    model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
+    cnt, stl = bench.load_pair(SHARD_SIZE)
+    f32 = Config(vgg_compute_dtype="float32")
+    peaks = StagePeaks(torch)
+    out = {"rank": mesh.index("space"), "runs": [],
+           "geometry": (cnt.shape[:2], stl.shape[:2])}
+    for _ in range(runs):
+        dist.barrier()
+        out["runs"].append(_shard_pair(
+            torch, peaks, model, cnt, stl,
+            dataclasses.replace(f32, space_mesh=mesh)))
+    dist.barrier()
+    if single and mesh.index("space") == 0:
+        out["single"] = _shard_pair(torch, peaks, model, cnt, stl, f32)
+    return out
+
+
+def check_shard(torch, smi: str) -> None:
+    """Phase 16: the 1000 px pair on row bands over 1x2 (one cold and one
+    warm run, against a single-process run of the same call) and over 1x4
+    (one run, for the per-rank peak)."""
+    from nct_tpu_torch import Config
+    from nct_tpu_torch.parallel.mesh import launch
+
+    t0 = time.perf_counter()
+    bad = []
+    exact = Config().exact_nn_levels
+    for n in SHARD_RANKS:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        first = n == SHARD_RANKS[0]
+        ranks = launch(shard_rank, n, n, 2 if first else 1, first)
+        want = {"nn_bidir": 0, "nn_directed": 2 * n * exact}
+        (hc, wc), (hs, ws) = ranks[0]["geometry"]
+        label = f"[shard] 1x{n} {hc}x{wc} / {hs}x{ws}"
+        single = ranks[0].get("single")
+        if single:
+            log(f"{label} single process ({smi}): {single['s']:.3f} s, "
+                f"launches {single['launches']}, (nl, wls) iterations "
+                f"{single['iters']}, peak GiB by stage {single['peak_gib']}")
+        for r in ranks:
+            for i, run in enumerate(r["runs"]):
+                c = run["comm"]
+                log(f"{label} rank {r['rank']} run {i} "
+                    f"({'cold' if i == 0 else 'warm'}; {smi}): "
+                    f"{run['s']:.3f} s, launches {run['launches']}, "
+                    f"(nl, wls) iterations {run['iters']}, host ms "
+                    + ", ".join(f"{k} {c[k + '_s'] * 1e3:.1f} ({c[k + '_calls']}"
+                                f" calls)" for k in ("halo", "reduce",
+                                                     "gather", "exchange"))
+                    + f"; peak GiB by stage {run['peak_gib']}")
+                if run["launches"] != want:
+                    bad.append(f"1x{n} rank {r['rank']} run {i} launches")
+                if not torch.equal(run["out"], ranks[0]["runs"][i]["out"]):
+                    bad.append(f"1x{n} rank {r['rank']} run {i} differs from "
+                               f"rank 0")
+                if i and not torch.equal(run["out"], r["runs"][0]["out"]):
+                    bad.append(f"1x{n} rank {r['rank']} warm run differs "
+                               f"from the cold one")
+            if single:
+                held, n_diff, max_diff = bitwise(torch, r["runs"][0]["out"],
+                                                 single["out"])
+                ratio = (r["runs"][0]["peak_gib"]["total"]
+                         / single["peak_gib"]["total"])
+                log(f"{label} rank {r['rank']} bitwise the single process "
+                    f"{held} ({n_diff} values differ, max |diff| "
+                    f"{max_diff}); peak {ratio:.3f}x the single process's "
+                    f"(at most {SHARD_PEAK_RATIO_MAX}; {smi})")
+                if not held:
+                    bad.append(f"1x{n} rank {r['rank']} against the single "
+                               f"process")
+                if ratio > SHARD_PEAK_RATIO_MAX:
+                    bad.append(f"1x{n} rank {r['rank']} peak {ratio:.3f}x")
+        log(f"[shard] 1x{n} done at {time.perf_counter() - t0:.1f} s with "
+            f"the spawn")
+    if bad:
+        raise AssertionError(f"phase 16 failed: {bad}")
+
+
 def main() -> int:
     import torch
 
@@ -3034,6 +3288,8 @@ def main() -> int:
     phase_done("phase 14 (data sources and dataset tools)")
     check_bench_tools(torch, bidir)
     phase_done("phase 15 (benchmark tools)")
+    check_shard(torch, smi)
+    phase_done("phase 16 (1000 px pair on row bands, 1x2 and 1x4 meshes)")
     log(f"[time] whole run {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [bidir, directed]}))
     log(smi)

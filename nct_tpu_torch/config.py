@@ -65,7 +65,7 @@ class Config:
     nl_in_cap: int = 128
     nl_transpose: str = "auto"
     knn_memberships: int = 1
-    space_mesh: object = None    # parallel.mesh.Mesh: ring at exact levels
+    space_mesh: object = None    # parallel.mesh.Mesh (pipeline.row_sharded)
     space_axis: str = "space"
 
     @classmethod

@@ -16,6 +16,14 @@ is JAX's ``preferred_element_type=f32`` (an f32 tap from bf16 operands),
 where a bf16 ``F.conv2d`` would round its output to bf16.  Convolutions run
 with TF32 off (``no_tf32``: cuDNN's and cuBLAS's TF32 flags off for the call),
 so float32 means float32 on the card as on the CPU.
+
+Under a space mesh, ``forward(..., band=)`` runs the body on one band of
+the input's rows (``parallel.mesh.RowBand``): each 3x3 convolution takes a
+one-row halo from the neighbouring bands (zero rows at the image's edges,
+the convolution's own padding), and each pool works on its band alone,
+which starts on an even row (the band rule's 16-row units).  A
+convolution over a band may add in another order than over the whole
+image: taps within float32 rounding (rtol 1e-5) of the whole image's rows.
 """
 
 from __future__ import annotations
@@ -98,17 +106,19 @@ class VGG19(nn.Module):
     @torch.no_grad()
     def forward(self, bgr_u8: torch.Tensor,
                 taps: tuple[str, ...] = PIPELINE_TAPS,
-                compute_dtype: torch.dtype = torch.float32
-                ) -> dict[str, torch.Tensor]:
+                compute_dtype: torch.dtype = torch.float32,
+                band=None) -> dict[str, torch.Tensor]:
         """uint8 BGR [H, W, 3] -> {tap: [H', W', C] float32}.
 
         A batch [B, H, W, 3] gives [B, H', W', C] taps, each item's
         convolutions run on their own: a batched convolution sums in
         another order, every later stage of a pair reads these taps, and
         so each item keeps its own pair's bits.  The body is
-        compute-bound; the batch would save little there."""
+        compute-bound; the batch would save little there.  With ``band``
+        (the input grid's ``RowBand``) ``bgr_u8`` holds the band's rows
+        and each tap the band's rows of its grid."""
         if bgr_u8.dim() == 4:
-            items = [self(x, taps, compute_dtype) for x in bgr_u8]
+            items = [self(x, taps, compute_dtype, band) for x in bgr_u8]
             return {k: torch.stack([t[k] for t in items]) for k in items[0]}
         bf16 = compute_dtype == torch.bfloat16
 
@@ -124,7 +134,12 @@ class VGG19(nn.Module):
         with no_tf32():
             for i, (name, _) in enumerate(VGG19_CONV_LAYERS):
                 conv = self.convs[name]
-                x = F.conv2d(x, rnd(conv.weight), padding=1)
+                if band is None:
+                    x = F.conv2d(x, rnd(conv.weight), padding=1)
+                else:
+                    x, top, bottom = band.halo(x, 1, 1, dim=2)
+                    x = F.conv2d(F.pad(x, (0, 0, 1 - top, 1 - bottom)),
+                                 rnd(conv.weight), padding=(0, 1))
                 x = torch.relu(x + rnd(conv.bias)[None, :, None, None])
                 if name in needed:
                     out[name] = x[0].permute(1, 2, 0).contiguous()
@@ -133,6 +148,8 @@ class VGG19(nn.Module):
                 x = rnd(x)
                 if name in _POOL_AFTER:
                     x = F.max_pool2d(x, 2, 2, ceil_mode=True)
+                    if band is not None:
+                        band = band.coarsen()
         return out
 
 

@@ -30,19 +30,28 @@ def init_scaled_identity(ah: int, aw: int, bh: int, bw: int,
 
 
 def upsample(nnf_half: torch.Tensor, ah: int, aw: int, bh: int,
-             bw: int) -> torch.Tensor:
+             bw: int, rows: tuple[int, int, int, int] | None = None
+             ) -> torch.Tensor:
     """Coarse-to-fine NNF upsampling preserving match offsets scaled by the
-    resolution ratio."""
+    resolution ratio.  ``rows`` = (half_row0, ah_half, y0, y1) upsamples
+    a band: ``nnf_half`` holds rows [half_row0, ..) of the ``ah_half``-row
+    coarse field (every row the band's rows read, a neighbour's too), and
+    the result is rows [y0, y1) of the whole field, bit for bit."""
     ah_half, aw_half = nnf_half.shape[-3], nnf_half.shape[-2]
+    half_row0, y0, y1 = 0, 0, ah
+    if rows is not None:
+        half_row0, ah_half, y0, y1 = rows
     aw_ratio = aw / aw_half
     ah_ratio = ah / ah_half
 
     xs, ys = _grid(ah, aw, nnf_half.device)
+    xs, ys = xs[y0:y1], ys[y0:y1]
     xf, yf = xs.float(), ys.float()
     ax_half = torch.clamp(((xf + 0.5) / aw_ratio).int(), 0, aw_half - 1)
     ay_half = torch.clamp(((yf + 0.5) / ah_ratio).int(), 0, ah_half - 1)
 
-    coarse = nnf_half[..., ay_half.long(), ax_half.long(), :]  # [ah, aw, 2]
+    coarse = nnf_half[..., ay_half.long() - half_row0, ax_half.long(),
+                      :]                                   # [ah, aw, 2]
     bx_half = coarse[..., 0].float()
     by_half = coarse[..., 1].float()
 

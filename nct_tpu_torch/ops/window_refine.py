@@ -15,7 +15,10 @@ by bf16 IN bf16 and sums the products in f32, while the stage-3 rescore
 takes f32 products of the bf16 values (``preferred_element_type``).
 A batch (a leading axis on every operand) folds into the rows of the strip
 and patch tables, as the JAX package's ``_window_refine_folded`` does:
-each item's gathers read its own rows through a per-item offset.  The
+each item's gathers read its own rows through a per-item offset.  With
+``gather_taps`` the same rows are gathered tap by tap from B itself, so
+that no table of B's size is built (a row band refined against a whole
+style level); the values, and so the result, are the same.  The
 JAX package's box-sum lowering switch is a TPU lowering of the same box
 sum and is not ported.
 """
@@ -25,7 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from nct_tpu_torch.ops.patchmatch import patchify
+from nct_tpu_torch.ops.patchmatch import patch_offsets, patchify
 
 
 def _box_sum(x: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -56,6 +59,33 @@ def _shift_set(radius: int):
     return dxs, dense, rings
 
 
+def _gather_rolled(b: torch.Tensor, idx: torch.Tensor, dxs, wb: int,
+                   boff) -> torch.Tensor:
+    """Rows of the "strip table" of b [-1, C] (its x-rolled copies, one per
+    dx, concatenated) at flat indices ``idx``, gathered tap by tap so that
+    no table of B's size is built: [..., len(dxs), C]."""
+    y, x = idx // wb, idx % wb
+    return torch.stack([b[boff + y * wb + (x + dx) % wb] for dx in dxs],
+                       dim=-2)
+
+
+def _patch_rows(b_pad: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
+                hb: int, wb: int, patch_size: int, boff):
+    """``patchify(b)`` rows at (cx, cy), gathered tap by tap from b
+    zero-padded by patch_size // 2 (b_pad [-1, C]): ([..., K*C] values,
+    [..., K] 0/1 validity)."""
+    half = patch_size // 2
+    wp = wb + 2 * half
+    vals, masks = [], []
+    for dx, dy in patch_offsets(patch_size):
+        ty, tx = cy + dy, cx + dx
+        vals.append(b_pad[boff + (ty + half) * wp + tx + half])
+        masks.append((ty >= 0) & (ty < hb) & (tx >= 0) & (tx < wb))
+    v = torch.stack(vals, dim=-2)
+    return (v.reshape(v.shape[:-2] + (-1,)),
+            torch.stack(masks, dim=-1).float())
+
+
 def window_refine(
     a_norm: torch.Tensor,
     b_norm: torch.Tensor,
@@ -64,25 +94,30 @@ def window_refine(
     shortlist: int = 8,
     patch_size: int = 3,
     stage1_channels: int = 0,
+    halo: tuple[int, int] = (0, 0),
+    gather_taps: bool = False,
 ):
     """Refine nnf0 (a->b) within a +-radius window.
 
     a_norm [Ha,Wa,C], b_norm [Hb,Wb,C]; nnf0 [Ha,Wa,2] int32 (x, y), or
     each with a leading batch axis.  ``stage1_channels`` > 0 ranks stage 1
     on the first that many channels.  Returns (nnf [Ha,Wa,2] int32, annd
-    [Ha,Wa] f32 full patch metric).
+    [Ha,Wa] f32 full patch metric).  ``halo`` = (top, bottom): a_norm and
+    nnf0 hold a band of A's rows with that many of its neighbours' rows
+    above and below (none at the image's edges; the box sum and the
+    patches read them), and the result covers the band's rows only, bit
+    for bit those rows of the whole refine; b_norm is whole.
+    ``gather_taps``: gather B's strip rows and patches tap by tap instead
+    of through B-sized strip and patch tables (less memory, slower).
     """
     ha, wa, c = a_norm.shape[-3:]
     hb, wb = b_norm.shape[-3], b_norm.shape[-2]
     lead = tuple(a_norm.shape[:-3])
     nb = hb * wb
     dev = a_norm.device
-    if lead:
-        boff = torch.arange(lead[0], device=dev)[:, None, None] * nb
-
-    def rows(idx):
-        """Item-local B pixel ids -> rows of the (batch-folded) tables."""
-        return idx + boff if lead else idx
+    top, bottom = halo
+    boff = (torch.arange(lead[0], device=dev)[:, None, None] * nb if lead
+            else 0)
 
     a16 = a_norm.to(torch.bfloat16)
     b16 = b_norm.to(torch.bfloat16)
@@ -100,19 +135,25 @@ def window_refine(
     cs = c if stage1_channels <= 0 else min(stage1_channels, c)
     a1 = a16[..., :cs]
     b1 = b16[..., :cs]
+    if not gather_taps:
+        strip = torch.cat([torch.roll(b1, shifts=-dx, dims=-2) for dx in dxs],
+                          dim=-1).reshape(-1, nd * cs)
+    b1 = b1.reshape(-1, cs)
     idx0 = by0 * wb + bx0
-    strip = torch.cat([torch.roll(b1, shifts=-dx, dims=-2) for dx in dxs],
-                      dim=-1).reshape(-1, nd * cs)
     d_rows = []
     for dy in dxs:
-        idx = rows(torch.clamp(idx0 + dy * wb, 0, nb - 1))
-        g = strip[idx.reshape(-1)].reshape(lead + (ha, wa, nd, cs))
+        idx = torch.clamp(idx0 + dy * wb, 0, nb - 1)
+        if gather_taps:
+            g = _gather_rolled(b1, idx, dxs, wb, boff)
+        else:
+            g = strip[(idx + boff).reshape(-1)].reshape(
+                lead + (ha, wa, nd, cs))                    # [Ha, Wa, nd, Cs]
         d = -torch.sum(a1[..., None, :] * g, dim=-1, dtype=torch.float32)
         d_rows.append(d.movedim(-1, 0))                     # [nd, Ha, Wa]
     ring_idx = torch.stack(
-        [rows(torch.clamp(idx0 + dy * wb + dx, 0, nb - 1))
+        [boff + torch.clamp(idx0 + dy * wb + dx, 0, nb - 1)
          for dx, dy in rings])
-    gr = b1.reshape(-1, cs)[ring_idx]                       # [R, Ha, Wa, Cs]
+    gr = b1[ring_idx]                                       # [R, Ha, Wa, Cs]
     d_rows.append(-torch.sum(a1[None] * gr, dim=-1, dtype=torch.float32))
     d_center = torch.cat(d_rows, dim=0)                     # [S2, Ha, Wa]
     grid = (1,) * bx0.dim()
@@ -123,11 +164,15 @@ def window_refine(
     inf = torch.tensor(float("inf"), device=dev)
     d_center = torch.where(valid, d_center, inf)
 
-    # ---- patch-approximate scores: box sum of the centre distances
+    # ---- patch-approximate scores: box sum of the centre distances (a
+    # band's halo rows feed its edge rows, then leave)
     finite = torch.isfinite(d_center)
     num = _box_sum(torch.where(finite, d_center, 0.0), patch_size)
     cnt = _box_sum(finite.float(), patch_size)
     d_patch = torch.where(cnt > 0, num / cnt, inf)
+    rows = ha - top - bottom
+    d_patch = d_patch[..., top:top + rows, :]
+    bx0, by0 = bx0[..., top:top + rows, :], by0[..., top:top + rows, :]
 
     # ---- shortlist: S best shifts per pixel (first minimum on ties)
     work = d_patch
@@ -140,18 +185,30 @@ def window_refine(
 
     # ---- stage 3: full patch metric on the shortlist (+ incumbent)
     pa, pam = patchify(a16, patch_size)
-    pb, pbm = patchify(b16, patch_size)
     k = pa.shape[-2]
-    pa_f = pa.reshape(lead + (ha, wa, k * c)).float()
-    pb_flat = pb.reshape(-1, k * c)
-    pam_f = pam.float()
-    pbm_flat = pbm.reshape(nb, k)
+    pa_f = pa[..., top:top + rows, :, :, :].reshape(
+        lead + (rows, wa, k * c)).float()
+    pam_f = pam[top:top + rows].float()
+    if gather_taps:
+        half = patch_size // 2
+        b_pad = F.pad(b16, (0, 0, half, half, half, half)).reshape(-1, c)
+        pboff = boff // nb * ((hb + 2 * half) * (wb + 2 * half))
+
+        def patch_rows(cand_x, cand_y):
+            return _patch_rows(b_pad, cand_x, cand_y, hb, wb, patch_size,
+                               pboff)
+    else:
+        pb, pbm = patchify(b16, patch_size)
+        pb_flat = pb.reshape(-1, k * c)
+        pbm_flat = pbm.reshape(nb, k)
+
+        def patch_rows(cand_x, cand_y):
+            flat = torch.clamp(cand_y * wb + cand_x, 0, nb - 1)
+            return pb_flat[flat + boff], pbm_flat[flat].float()
 
     def full_eval(cand_x, cand_y):
-        flat = torch.clamp(cand_y * wb + cand_x, 0, nb - 1)
-        g = pb_flat[rows(flat)].float()                     # [Ha, Wa, K*C]
-        gm = pbm_flat[flat].float()                         # [Ha, Wa, K]
-        num = -torch.sum(pa_f * g, dim=-1)
+        g, gm = patch_rows(cand_x, cand_y)          # [Ha, Wa, K*C], [.., K]
+        num = -torch.sum(pa_f * g.float(), dim=-1)
         cnt = torch.sum(pam_f * gm, dim=-1)
         return torch.where(cnt > 0, num / torch.clamp(cnt, min=1.0), 1.0)
 

@@ -17,9 +17,10 @@ Over a ``parallel.mesh.Mesh`` (SPMD: every rank calls the returned
 function with the whole bucket) the bucket splits by items over the data
 axis, each data row runs its items as one vmap pass, and the results are
 gathered so that every rank returns the whole bucket, like JAX's global
-array.  The space axis row-shards the exact levels' matcher
-(``parallel.ring_nn``); the other stages run replicated on each space
-rank.
+array.  The space axis splits each pair by rows (``pipeline.row_sharded``:
+every stage on row bands for the default family, the exact levels through
+the ring over the bands); other configurations keep the replicated stages
+with the ring at the exact levels.
 """
 
 from __future__ import annotations
@@ -54,9 +55,10 @@ def make_batch_transfer(config: Config, mesh: Mesh | None = None,
     (ValueError), and under space sharding the VGG forward runs in float32
     (the JAX package's rule, from an XLA partitioner fault with row-sharded
     bf16 convolutions; the port keeps it so its output is the JAX mesh
-    path's).  ``ring_nn``: the exact levels search through the ring over
-    the space axis; False has every space rank search the whole tables
-    itself (the JAX auto-partitioned matcher's replication).
+    path's).  ``ring_nn``: the exact levels search through the ring over the
+    space axis; False has every space rank search the whole (gathered)
+    levels itself with ``nn_bidir`` and keep its bands of the fields (the
+    JAX auto-partitioned matcher's replication).
     """
     if mode not in ("auto", "scan", "vmap"):
         raise ValueError(f"mode={mode!r}")
@@ -69,9 +71,8 @@ def make_batch_transfer(config: Config, mesh: Mesh | None = None,
         raise ValueError("the scan mode runs on one card; a mesh takes "
                          "mode='vmap'")
     if mesh is not None and mesh.shape["space"] > 1:
-        config = dataclasses.replace(config, vgg_compute_dtype="float32")
-        if ring_nn:
-            config = dataclasses.replace(config, space_mesh=mesh)
+        config = dataclasses.replace(config, vgg_compute_dtype="float32",
+                                     space_mesh=mesh)
     if mode == "vmap":
         pipeline.check_config(config)
     if device is None and mesh is not None:
@@ -100,7 +101,7 @@ def make_batch_transfer(config: Config, mesh: Mesh | None = None,
         rows = slice(mesh.index("data") * per, (mesh.index("data") + 1) * per)
         out = pipeline.transfer_batch(model, cnt_b[rows], stl_b[rows],
                                       bds_weight, config, seeds[rows],
-                                      device=device)
+                                      device=device, ring_nn=ring_nn)
         return mesh.gather(out, "data", 0)
 
     return vmap if mode == "vmap" else scan

@@ -15,9 +15,19 @@ n_space)`` of the ranks in order, with one process group per space row
 the same rows of different pairs).  What JAX's ``NamedSharding`` helpers
 (``batch_sharding``, ``batch_row_sharding``, ``replicated``) annotated is
 explicit code here: the data axis splits a bucket by items
-(``parallel.batch``), and the space axis splits the matcher's patch tables
-by rows (``parallel.ring_nn``); every other stage runs replicated on each
-space rank.
+(``parallel.batch``), and the space axis splits a pair by rows.
+
+Row bands (the counterpart of GSPMD's row sharding over ``space``):
+``image_bands`` splits an input image's rows into one band per space rank,
+with boundaries on multiples of ``UNIT_ROWS`` (16 = 2**4, one factor of
+two per ceil-mode pool before ``conv5_1``), so that every VGG grid, pyramid
+level and solver grid of the pair starts each band on a whole row;
+``RowBand`` is one grid's split seen from one rank, with the exchanges the
+band stages need: ``halo`` (edge rows swapped with the bands above and
+below), ``reduce_sum`` (partials gathered and added in rank order, so every
+rank gets the same bits), ``gather`` (the bands' rows concatenated) and
+``exchange`` (variable-size messages to each rank).  ``COMM`` counts their
+calls and host seconds.
 
 Backend rule: ``"nccl"`` when every rank of the host has a card of its
 own, ``"gloo"`` otherwise (ranks that share a card, or ranks on the CPU);
@@ -34,6 +44,7 @@ import datetime
 import math
 import os
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -42,6 +53,12 @@ import torch.distributed as dist
 AXES = ("data", "space")
 # a collective that waits this long has lost a rank: fail instead of hanging
 INIT_TIMEOUT = datetime.timedelta(minutes=3)
+# band boundaries of an input image fall on multiples of this many rows
+UNIT_ROWS = 16
+# calls and host seconds of the band exchanges, by kind (set to 0 freely)
+COMM = {f"{kind}_{what}": 0 if what == "calls" else 0.0
+        for kind in ("halo", "reduce", "gather", "exchange")
+        for what in ("calls", "s")}
 
 
 @dataclasses.dataclass(eq=False)
@@ -88,6 +105,235 @@ class Mesh:
         """The global ranks of this rank's group along ``axis``, in order."""
         i, j = self.coords
         return (self.grid[i] if axis == "space" else self.grid[:, j]).tolist()
+
+
+def _staged(mesh: "Mesh", t: torch.Tensor) -> bool:
+    """gloo moves host memory only: a card's tensor goes through the host."""
+    return mesh.backend == "gloo" and t.device.type == "cuda"
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host
+
+
+def _p2p(mesh: "Mesh", axis: str, sends: dict, recvs: dict) -> None:
+    """Point-to-point sends and receives along ``axis``: {axis index:
+    tensor}; one message each way per peer (a card's tensors staged
+    through pinned host buffers under gloo)."""
+    ranks = mesh.ranks(axis)
+    group = mesh.group(axis)
+    staged = {}
+    ops = []
+    for j, t in sends.items():
+        src = _to_host(t) if _staged(mesh, t) else t.contiguous()
+        ops.append(dist.P2POp(dist.isend, src, ranks[j], group))
+    for j, t in recvs.items():
+        dst = t
+        if _staged(mesh, t):
+            dst = staged[j] = torch.empty(t.shape, dtype=t.dtype,
+                                          pin_memory=True)
+        ops.append(dist.P2POp(dist.irecv, dst, ranks[j], group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    for j, host in staged.items():
+        recvs[j].copy_(host)
+
+
+def _all_gather(mesh: "Mesh", axis: str, t: torch.Tensor) -> list:
+    """Every rank's ``t`` (equal shapes) along ``axis``, in axis order, on
+    ``t``'s device."""
+    src = t.cpu() if _staged(mesh, t) else t.contiguous()
+    parts = [torch.empty_like(src) for _ in range(mesh.shape[axis])]
+    dist.all_gather(parts, src, group=mesh.group(axis))
+    return [p.to(t.device) for p in parts]
+
+
+def image_bands(h: int, n: int, unit: int = UNIT_ROWS) -> list[int]:
+    """Row boundaries [0, b_1, .., b_{n-1}, h] of ``n`` bands of an image
+    of ``h`` rows: each inner boundary a multiple of ``unit``, as near the
+    even split as that allows, every band at least one unit (the last takes
+    the ceil-mode overhang).  Raises ValueError when the image has fewer
+    units than ``n``, naming the least height."""
+    units = -(-h // unit)
+    if n > units:
+        raise ValueError(f"a space axis of {n} ranks needs images of at "
+                         f"least {unit * (n - 1) + 1} rows; got {h}")
+    bounds = [0]
+    for k in range(1, n):
+        b = math.floor(k * h / (n * unit) + 0.5)
+        bounds.append(max(bounds[-1] + 1, min(b, units - (n - k))))
+    return [b * unit for b in bounds] + [h]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RowBand:
+    """One grid's row split over ``mesh``'s ``axis``, seen from one rank:
+    band j holds rows [starts[j], starts[j+1]) of ``h`` (the last to ``h``).
+
+    ``of_image(bounds, shift, h)`` is the band of the grid at input /
+    2**shift (a VGG tap or pyramid level with ceil dims ``h``).  Tensors of
+    a band hold its rows on dimension ``dim`` (an image [..., rows, W, C]
+    on -3, a map [..., rows, W] on -2); leading axes are a batch.
+    """
+
+    mesh: Mesh
+    axis: str
+    starts: tuple
+    h: int
+
+    @classmethod
+    def of_image(cls, mesh: Mesh, axis: str, bounds: list, shift: int,
+                 h: int) -> "RowBand":
+        return cls(mesh, axis, tuple(b >> shift for b in bounds[:-1]), h)
+
+    @property
+    def n(self) -> int:
+        return len(self.starts)
+
+    @property
+    def r(self) -> int:
+        return self.mesh.index(self.axis)
+
+    def span(self, j: int) -> tuple[int, int]:
+        """Rows [start, stop) of band j."""
+        stop = self.starts[j + 1] if j + 1 < self.n else self.h
+        return self.starts[j], stop
+
+    @property
+    def start(self) -> int:
+        return self.starts[self.r]
+
+    @property
+    def stop(self) -> int:
+        return self.span(self.r)[1]
+
+    @property
+    def rows(self) -> int:
+        return self.stop - self.start
+
+    def take(self, t: torch.Tensor, dim: int = -3) -> torch.Tensor:
+        """This rank's rows of a whole-grid tensor."""
+        return t.narrow(dim, self.start, self.rows)
+
+    def owner(self, rows: torch.Tensor) -> torch.Tensor:
+        """The band (rank index) holding each global row of ``rows``."""
+        bounds = torch.tensor(self.starts[1:], device=rows.device,
+                              dtype=rows.dtype)
+        return torch.bucketize(rows, bounds, right=True)
+
+    def coarsen(self) -> "RowBand | None":
+        """The band of the grid at half resolution (ceil dims), or None
+        when a band would start on an odd row or lose its last row."""
+        if any(s % 2 for s in self.starts) or any(
+                self.span(j)[1] - self.span(j)[0] < 2
+                for j in range(self.n - 1)):
+            return None
+        return RowBand(self.mesh, self.axis,
+                       tuple(s // 2 for s in self.starts), -(-self.h // 2))
+
+    def halo(self, t: torch.Tensor, above: int, below: int,
+             dim: int = -3) -> tuple[torch.Tensor, int, int]:
+        """``t`` (this band's rows on ``dim``) with ``above`` rows of the
+        band above and ``below`` rows of the band below concatenated on;
+        none at the image's top or bottom edge.  Returns (extended tensor,
+        rows added above, rows added below).  Every rank of the axis calls
+        it with the same counts; a neighbour with fewer rows raises."""
+        t0 = time.perf_counter()
+        r, n = self.r, self.n
+        for j, need in ((r - 1, above), (r + 1, below)):
+            if 0 <= j < n and need > self.span(j)[1] - self.span(j)[0]:
+                raise ValueError(f"a halo of {need} rows reaches past band "
+                                 f"{j} of {self.starts} (h {self.h})")
+        sends, recvs = {}, {}
+        if r > 0 and below:
+            sends[r - 1] = t.narrow(dim, 0, below)
+        if r < n - 1 and above:
+            sends[r + 1] = t.narrow(dim, t.shape[dim] - above, above)
+        top = above if r > 0 else 0
+        bottom = below if r < n - 1 else 0
+        shape = list(t.shape)
+        if top:
+            shape[dim] = top
+            recvs[r - 1] = t.new_empty(shape)
+        if bottom:
+            shape[dim] = bottom
+            recvs[r + 1] = t.new_empty(shape)
+        _p2p(self.mesh, self.axis, sends, recvs)
+        parts = ([recvs[r - 1]] if top else []) + [t] + (
+            [recvs[r + 1]] if bottom else [])
+        out = torch.cat(parts, dim=dim) if len(parts) > 1 else t
+        COMM["halo_calls"] += 1
+        COMM["halo_s"] += time.perf_counter() - t0
+        return out, top, bottom
+
+    def gather(self, t: torch.Tensor, dim: int = -3) -> torch.Tensor:
+        """Every band's rows of ``t`` concatenated on ``dim``: the whole
+        grid, on every rank."""
+        t0 = time.perf_counter()
+        most = max(self.span(j)[1] - self.span(j)[0] for j in range(self.n))
+        pad = list(t.shape)
+        pad[dim] = most - t.shape[dim]
+        src = torch.cat([t, t.new_zeros(pad)], dim=dim) if pad[dim] else t
+        parts = _all_gather(self.mesh, self.axis, src)
+        out = torch.cat([p.narrow(dim, 0, self.span(j)[1] - self.span(j)[0])
+                         for j, p in enumerate(parts)], dim=dim)
+        COMM["gather_calls"] += 1
+        COMM["gather_s"] += time.perf_counter() - t0
+        return out
+
+    def reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's ``t`` (equal shapes), added in rank
+        order: the same bits on every rank and in every run."""
+        t0 = time.perf_counter()
+        parts = _all_gather(self.mesh, self.axis, t)
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p
+        COMM["reduce_calls"] += 1
+        COMM["reduce_s"] += time.perf_counter() - t0
+        return total
+
+    def all_parts(self, t: torch.Tensor) -> list:
+        """Every rank's ``t`` (equal shapes), in rank order."""
+        t0 = time.perf_counter()
+        parts = _all_gather(self.mesh, self.axis, t)
+        COMM["reduce_calls"] += 1
+        COMM["reduce_s"] += time.perf_counter() - t0
+        return parts
+
+    def reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
+        """Elementwise ``op`` ("min" or "max") over every rank's ``t``:
+        exact, so in any order."""
+        t0 = time.perf_counter()
+        parts = torch.stack(_all_gather(self.mesh, self.axis, t))
+        out = parts.amin(0) if op == "min" else parts.amax(0)
+        COMM["reduce_calls"] += 1
+        COMM["reduce_s"] += time.perf_counter() - t0
+        return out
+
+    def exchange(self, parts: list) -> list:
+        """Send ``parts[j]`` to band j (every part of one dtype, equal
+        beyond dim 0); returns the part each band sent here, in band order
+        (this rank's own part passes through)."""
+        t0 = time.perf_counter()
+        r = self.r
+        dev = parts[0].device
+        counts = torch.tensor([p.shape[0] for p in parts], dtype=torch.int64)
+        table = torch.stack(_all_gather(self.mesh, self.axis, counts.to(dev)))
+        got = table[:, r].tolist()
+        tail = tuple(parts[0].shape[1:])
+        recvs = {j: parts[0].new_empty((got[j],) + tail)
+                 for j in range(self.n) if j != r and got[j]}
+        sends = {j: p for j, p in enumerate(parts) if j != r and p.shape[0]}
+        _p2p(self.mesh, self.axis, sends, recvs)
+        out = [parts[r] if j == r else recvs.get(
+            j, parts[0].new_empty((0,) + tail)) for j in range(self.n)]
+        COMM["exchange_calls"] += 1
+        COMM["exchange_s"] += time.perf_counter() - t0
+        return out
 
 
 def backend_for(device_type: str, local_world_size: int) -> str:

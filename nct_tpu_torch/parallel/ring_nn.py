@@ -1,16 +1,20 @@
-"""Ring-scheduled exact NN search for a space-sharded pair (counterpart of
+"""Ring-scheduled exact NN search over row bands (counterpart of
 ``nct_tpu/parallel/ring_nn.py``).
 
 The exact search (``ops/cuda_nn.py``) holds both whole patch tables; under
 a space mesh that is a per-rank footprint that grows with the style image.
-Here both tables stay row-sharded over the mesh's ``space`` axis: rank r
-builds only its own band of rows of each table (flat rows ``[r*n_loc,
-(r+1)*n_loc)``, from the feature rows they need plus the patch's halo rows;
-a band may start mid image-row), and in each of the n steps searches its A
-band against the resident B block with the directed kernel while the block
-moves one rank down the ring (send to r-1, receive from r+1: JAX's
-``ppermute`` with ``perm = [(j, (j-1) % n)]``), the transfer posted before
-the search so that the two overlap.  Per-rank matcher memory is O(Nb/n).
+Here both images stay row-sharded over the mesh's ``space`` axis: rank r
+holds its band of rows of each (``parallel.mesh.RowBand``; the pipeline's
+bands follow ``mesh.image_bands``), builds the patch tables of its band's
+pixels from those rows plus a halo of ``patch_size // 2`` rows from its
+neighbours, and in each of the n steps searches its A band against the
+resident B block with the directed kernel while the block moves one rank
+down the ring (send to r-1, receive from r+1: JAX's ``ppermute`` with
+``perm = [(j, (j-1) % n)]``), the transfer posted before the search so
+that the two overlap.  Blocks are padded to the largest band's pixels; the
+block visiting at step s is band (r+s) % n, whose first pixel's global
+index the band rule gives every rank.  Per-rank matcher memory is
+O(Nb/n), and ``ring_band_nn`` returns the rank's own band of the NNF.
 
 The tables are the port's own (bf16 patch rows, ``exact_nn.prep_tables``),
 so the ring searches what ``cuda_nn.exact_nn`` searches.  Tie rule: each
@@ -42,7 +46,7 @@ import torch.nn.functional as F
 from nct_tpu_torch.ops import cuda_nn
 from nct_tpu_torch.ops.exact_nn import nn_tables_plain, unpack_nnf
 from nct_tpu_torch.ops.patchmatch import patch_offsets, patchify
-from nct_tpu_torch.parallel.mesh import pad_to_multiple
+from nct_tpu_torch.parallel.mesh import RowBand, image_bands, pad_to_multiple
 
 
 # The kernel's keys are uint64s held in int64; flipping the top bit makes
@@ -180,30 +184,44 @@ class _Ring:
         self.host, self.host_next = self.host_next, self.host
 
 
-def ring_exact_nn(a_norm: torch.Tensor, b_norm: torch.Tensor, mesh,
-                  axis: str = "space", patch_size: int = 3,
-                  timing: RingTiming | None = None):
-    """Exhaustive NN a -> b with both patch tables row-sharded over
-    ``mesh``'s ``axis``; every rank of that axis calls it with the same
-    features.
+def _band_operands(ext: torch.Tensor, top: int, rows: int, padded: int,
+                   patch_size: int):
+    """The search operands of a band's ``rows`` image rows held in
+    ``ext`` below ``top`` halo rows, padded with masked-out rows to
+    ``padded`` table rows."""
+    w = ext.shape[-2]
+    f, m = band_tables(ext, top * w, rows * w, patch_size)
+    tail = padded - rows * w
+    return _operands(F.pad(f, (0, 0, 0, tail)), F.pad(m, (0, 0, 0, tail)))
 
-    The contract of ``cuda_nn.exact_nn``: a_norm [..., Ha, Wa, C] /
-    b_norm [..., Hb, Wb, C] L2-normalized (an optional leading batch axis
-    on both); returns (nnf [..., Ha, Wa, 2] int32, annd [..., Ha, Wa] f32)
-    on every rank, earliest global index on ties.  ``timing`` collects the
-    steps' CUDA events and the host's staging and waiting time.
-    """
-    if a_norm.device != b_norm.device:
+
+def ring_band_nn(a_band: torch.Tensor, b_band: torch.Tensor,
+                 band_a: RowBand, band_b: RowBand, patch_size: int = 3,
+                 timing: RingTiming | None = None):
+    """Exhaustive NN a -> b over row bands: every rank of the bands' axis
+    calls it with its own rows of a_norm [..., rows_a, Wa, C] and b_norm
+    [..., rows_b, Wb, C] (L2-normalized; an optional leading batch axis on
+    both) and gets its band of the result: (nnf [..., rows_a, Wa, 2] int32
+    global (x, y), annd [..., rows_a, Wa] f32), earliest global index on
+    ties.  ``timing`` collects the steps' CUDA events and the host's
+    staging and waiting time."""
+    if a_band.device != b_band.device:
         raise ValueError("a_norm and b_norm must be on one device")
-    n, r = mesh.shape[axis], mesh.index(axis)
-    (ha, wa), (hb, wb) = a_norm.shape[-3:-1], b_norm.shape[-3:-1]
-    lead = tuple(a_norm.shape[:-3])
-    na, nb = ha * wa, hb * wb
-    na_loc = pad_to_multiple(-(-na // n), cuda_nn.TILE)
-    nb_loc = pad_to_multiple(-(-nb // n), cuda_nn.TILE)
-    fa, ma = _operands(*band_tables(a_norm, r * na_loc, na_loc, patch_size))
-    block = _operands(*band_tables(b_norm, r * nb_loc, nb_loc, patch_size))
-    ring = _Ring(mesh, axis, block, timing) if n > 1 else None
+    half = patch_size // 2
+    n, r = band_b.n, band_b.r
+    wa, wb = a_band.shape[-2], b_band.shape[-2]
+    lead = tuple(a_band.shape[:-3])
+    a_ext, top_a, _ = band_a.halo(a_band, half, half)
+    b_ext, top_b, _ = band_b.halo(b_band, half, half)
+    first = [band_b.span(j)[0] * wb for j in range(n)]
+    nb_loc = pad_to_multiple(max((band_b.span(j)[1] - band_b.span(j)[0])
+                                 * wb for j in range(n)), cuda_nn.TILE)
+    na = band_a.rows * wa
+    fa, ma = _band_operands(a_ext, top_a, band_a.rows,
+                            pad_to_multiple(na, cuda_nn.TILE), patch_size)
+    block = _band_operands(b_ext, top_b, band_b.rows, nb_loc, patch_size)
+    del a_ext, b_ext
+    ring = _Ring(band_b.mesh, band_b.axis, block, timing) if n > 1 else None
     best = None
     for s in range(n):
         last = s == n - 1
@@ -218,9 +236,29 @@ def ring_exact_nn(a_norm: torch.Tensor, b_norm: torch.Tensor, mesh,
         if cuda:
             events[1].record()
             timing.step_events.append(events)
-        keys = cuda_nn.encode_keys(d, i + ((r + s) % n) * nb_loc) ^ _SIGN
+        keys = cuda_nn.encode_keys(d, i + first[(r + s) % n]) ^ _SIGN
         best = keys if best is None else torch.minimum(best, keys)
         if not last:
             ring.swap()
-    d, i = cuda_nn.decode_keys(mesh.gather(best ^ _SIGN, axis, -1)[..., :na])
-    return unpack_nnf(i, nb, ha, wa, wb), d.reshape(lead + (ha, wa))
+    d, i = cuda_nn.decode_keys((best ^ _SIGN)[..., :na])
+    return (unpack_nnf(i, band_b.h * wb, band_a.rows, wa, wb),
+            d.reshape(lead + (band_a.rows, wa)))
+
+
+def ring_exact_nn(a_norm: torch.Tensor, b_norm: torch.Tensor, mesh,
+                  axis: str = "space", patch_size: int = 3,
+                  timing: RingTiming | None = None):
+    """``ring_band_nn`` on whole features: every rank of ``axis`` calls it
+    with the same a_norm [..., Ha, Wa, C] / b_norm [..., Hb, Wb, C], takes
+    its band of rows of each (``image_bands`` with one-row units) and gets
+    the whole result, the bands gathered: the contract of
+    ``cuda_nn.exact_nn`` (nnf [..., Ha, Wa, 2] int32, annd [..., Ha, Wa]
+    f32), earliest global index on ties."""
+    n = mesh.shape[axis]
+    bands = []
+    for x in (a_norm, b_norm):
+        h = x.shape[-3]
+        bands.append(RowBand(mesh, axis, tuple(image_bands(h, n, 1)[:-1]), h))
+    nnf, d = ring_band_nn(bands[0].take(a_norm), bands[1].take(b_norm),
+                          *bands, patch_size, timing)
+    return bands[0].gather(nnf), bands[0].gather(d, -2)

@@ -33,12 +33,21 @@ run their own iterations (``cg_solve_grouped``).
 
 Under ``Config.space_mesh`` (a ``parallel.mesh.Mesh`` with more than one
 rank on ``space_axis``) every rank of the space group calls the function
-with the same pair or bucket: the exact levels search through the
-ring-scheduled matcher (``parallel.ring_nn``, the patch tables row-sharded
-over the ranks), and every other stage runs replicated on each rank's
-device, so the ranks return bitwise equal results.  The JAX package lets
-GSPMD shard those stages by rows with halo exchanges; here a rank's memory
-outside the matcher is a whole pair's.
+with the same pair or bucket, and every rank returns the whole result,
+bitwise equal on every rank.  For the configurations ``row_sharded``
+accepts (the default family: exact levels, window refine above them, the
+P = 1 graph, slot-keyed tables, mg nonlocal and WLS) each rank holds and
+computes its band of rows of the pair (``parallel.mesh.image_bands``; the
+JAX package's GSPMD row sharding): the VGG body, the pyramids, the colour
+and feature stages, the k-NN graph and both solves run on bands with
+one-row halos; the exact levels search through the ring over row bands
+(``parallel.ring_nn``) or, with ``ring_nn=False``, through ``nn_bidir`` on
+the gathered levels; window refine, the BDS votes and the candidates read
+gathered style (and candidate) operands; k-means runs on the gathered
+conv5_1 level and the coarse multigrid levels are gathered; dot products
+add over the bands in rank order.  The output rows are gathered at the
+end.  Every other configuration keeps the replicated stages (the exact
+levels through the ring, every other stage on every rank whole).
 """
 
 from __future__ import annotations
@@ -52,8 +61,8 @@ from nct_tpu_torch.ops import bds, cuda_nn, features, nnf, resize
 from nct_tpu_torch.ops.color import bgr_u8_to_lab_u8, unit_lab_to_bgr_u8
 from nct_tpu_torch.ops.patchmatch import patchmatch, random_search_mags
 from nct_tpu_torch.ops.window_refine import window_refine
-from nct_tpu_torch.parallel.mesh import Mesh
-from nct_tpu_torch.parallel.ring_nn import ring_exact_nn
+from nct_tpu_torch.parallel.mesh import Mesh, RowBand, image_bands
+from nct_tpu_torch.parallel.ring_nn import ring_band_nn, ring_exact_nn
 from nct_tpu_torch.solve import cluster, knn, stats
 from nct_tpu_torch.solve.nonlocal_solve import solve_nonlocal
 from nct_tpu_torch.solve.wls import apply_transform, solve_wls
@@ -132,6 +141,23 @@ def check_config(config: Config) -> None:
                          f"{type(config.space_mesh).__name__}")
     if config.feature_dtype not in ("bfloat16", "float32"):
         raise ValueError(f"feature_dtype={config.feature_dtype!r}")
+
+
+def row_sharded(config: Config) -> bool:
+    """True when ``config.space_mesh`` splits the pair by rows (more than
+    one rank on ``space_axis``) and the configuration is one the band
+    stages run: window refine above at least one exact level, one
+    membership, the slot-keyed in-edge tables (``nl_transpose`` "auto" or
+    "tables") and the mg V-cycle in both solves.  PatchMatch at any level,
+    ``knn_memberships > 1``, the scatter transpose, block-Jacobi and
+    Jacobi WLS keep the replicated stages under a mesh."""
+    mesh = config.space_mesh
+    return (mesh is not None and mesh.shape[config.space_axis] > 1
+            and config.fine_strategy == "window"
+            and config.exact_nn_levels >= 1
+            and config.knn_memberships == 1
+            and config.nl_transpose != "scatter"
+            and config.nl_precond == "mg" and config.wls_precond == "mg")
 
 
 def _resolve_device(device, config: Config | None = None) -> torch.device:
@@ -219,10 +245,13 @@ def stage1_channels(config: Config, content_pixels: int, own_pixels: int,
 
 
 def _level_match(config: Config, l: int, rs: int, draws, bds_weight: float,
-                 ann_prev, bnn_prev, cnt_feat_l, stl_feat_l, down_stl):
+                 ann_prev, bnn_prev, cnt_feat_l, stl_feat_l, down_stl,
+                 ring: bool = True):
     """Correspondence search + BDS guidance.  ``ann_prev``/``bnn_prev``:
     the previous level's fields, or at level 0 the warm start (or None).
-    Returns (ann, bnn, guide_bgr, bds_err)."""
+    ``ring``: under a space mesh the exact levels search through the ring
+    (else ``nn_bidir`` on this rank).  Returns (ann, bnn, guide_bgr,
+    bds_err)."""
     ah, aw = cnt_feat_l.shape[-3], cnt_feat_l.shape[-2]
     bh, bw = down_stl.shape[-3], down_stl.shape[-2]
     fdt = _dtype(config.feature_dtype)
@@ -231,7 +260,7 @@ def _level_match(config: Config, l: int, rs: int, draws, bds_weight: float,
     fc_n = features.l2_normalize(cnt_feat_l.float())[0].to(fdt)
     fs_n = features.l2_normalize(fs)[0].to(fdt)
     mesh = config.space_mesh
-    if l < config.exact_nn_levels and mesh is not None and (
+    if l < config.exact_nn_levels and ring and mesh is not None and (
             mesh.shape[config.space_axis] > 1):
         # row-sharded tables, one directed ring per direction
         ann, _ = ring_exact_nn(fc_n, fs_n, mesh, config.space_axis, ps)
@@ -359,11 +388,15 @@ def _as_image(x, device) -> torch.Tensor:
 
 
 def _run_levels(model, config: Config, taps, draws, bds_weight: float, cnt,
-                stl, ann, bnn, record):
+                stl, ann, bnn, record, ring: bool = True):
     """The coarse-to-fine loop over one pair or a bucket (a leading batch
     axis on ``cnt`` and ``stl``).  ``ann``/``bnn``: the level-0 warm start
     or None.  Returns (refined, per-level trace if ``record``, level-0
-    {"ann", "bnn"})."""
+    {"ann", "bnn"}).  Under a row-sharding space mesh (``row_sharded``)
+    the loop runs on row bands (``_run_band_levels``)."""
+    if row_sharded(config):
+        return _run_band_levels(model, config, taps, draws, bds_weight, cnt,
+                                stl, record, ring)
     numlayer = len(taps)
     ranges = config.pm_search_radii(max(*cnt.shape[-3:-1], *stl.shape[-3:-1]))
     (cnt_feats, stl_feats, cnt_pyr, stl_pyr, cnt_lab_unit, label_map,
@@ -377,7 +410,7 @@ def _run_levels(model, config: Config, taps, draws, bds_weight: float, cnt,
     for l in range(numlayer):
         ann, bnn, guide_bgr, bds_err = _level_match(
             config, l, max(int(ranges[l]), 1), draws, bds_weight, ann, bnn,
-            cnt_feat_l, stl_feats[taps[l]], stl_pyr[l])
+            cnt_feat_l, stl_feats[taps[l]], stl_pyr[l], ring)
         (refined, cnt_feat_l, a_d, b_d, a_f, b_f, nl_info,
          wls_info) = _level_solve(
             model, config, l, numlayer, taps, draws, guide_bgr, bds_err,
@@ -394,6 +427,300 @@ def _run_levels(model, config: Config, taps, draws, bds_weight: float, cnt,
                            "refined": refined})
             trace.append(tr)
     return refined, trace, coarse_state
+
+
+class _PairBands:
+    """The row bands of a pair under a space mesh: every grid of the
+    content and of the style (the input, each VGG tap and pyramid level)
+    split at the same input rows (``image_bands``)."""
+
+    def __init__(self, config: Config, taps, cnt_hw, stl_hw):
+        mesh, axis = config.space_mesh, config.space_axis
+        n = mesh.shape[axis]
+        self.grids = []
+        for h, w in (cnt_hw, stl_hw):
+            bounds = image_bands(h, n)
+            dims = vgg19.feature_dims(h, w)
+            levels = [RowBand.of_image(mesh, axis, bounds, _pools(t),
+                                       dims[t][0]) for t in taps]
+            full = RowBand.of_image(mesh, axis, bounds, 0, h)
+            self.grids.append((full, levels, [dims[t][1] for t in taps]))
+
+    def cnt(self, l: int) -> RowBand:
+        return self.grids[0][1][l]
+
+    def stl(self, l: int) -> RowBand:
+        return self.grids[1][1][l]
+
+    @property
+    def cnt_full(self) -> RowBand:
+        return self.grids[0][0]
+
+
+def _pools(tap: str) -> int:
+    """2x2 pools before a VGG tap ("conv3_1" -> 2): its grid is the input
+    / 2**pools, ceil."""
+    return int(tap[4]) - 1
+
+
+def _halo_counts(src: RowBand, needs) -> tuple[int, int]:
+    """The halo (rows above, rows below) that gives every band its source
+    rows: ``needs`` [(first, last)] per band of ``src``'s axis; every rank
+    takes the largest, so all ranks call the halo alike."""
+    above = below = 0
+    for j, (lo, hi) in enumerate(needs):
+        start, stop = src.span(j)
+        above = max(above, start - lo)
+        below = max(below, hi + 1 - stop)
+    return above, below
+
+
+def _band_resize(x, src: RowBand, dst: RowBand, out_w: int):
+    """``resize.resize_bilinear`` of a band: ``x`` holds ``src``'s rows,
+    the result ``dst``'s rows of the resize to (dst.h, out_w)."""
+    needs = [resize.source_rows(dst.h, src.h, *dst.span(j))
+             for j in range(dst.n)]
+    ext, top, _ = src.halo(x, *_halo_counts(src, needs))
+    return resize.resize_bilinear(ext, dst.h, out_w,
+                                  rows=(src.start - top, src.h, dst.start,
+                                        dst.stop))
+
+
+def _band_upsample(field, src: RowBand, dst: RowBand, aw: int, bh: int,
+                   bw: int):
+    """``nnf.upsample`` of a band of the previous level's field ``field``
+    (``src``'s rows) to ``dst``'s rows of the (dst.h, aw) field."""
+    ratio = dst.h / src.h
+    needs = []
+    for j in range(dst.n):
+        y0, y1 = dst.span(j)
+        ys = ((torch.arange(y0, y1, dtype=torch.float32) + 0.5) / ratio).int()
+        ys = torch.clamp(ys, 0, src.h - 1)
+        needs.append((int(ys.min()), int(ys.max())))
+    ext, top, _ = src.halo(field, *_halo_counts(src, needs))
+    return nnf.upsample(ext, dst.h, aw, bh, bw,
+                        rows=(src.start - top, src.h, dst.start, dst.stop))
+
+
+def _band_pyramid(img_band, full: RowBand, levels: list, widths: list):
+    """``image_pyramid`` of a band: each level's rows from the finer
+    level's band and a halo."""
+    n = len(levels)
+    out: list = [None] * n
+    last = levels[n - 1]
+    out[n - 1] = (img_band if (last.h, widths[n - 1]) == (
+        full.h, img_band.shape[-2]) else _band_resize(
+            img_band, full, last, widths[n - 1]))
+    for l in range(n - 2, -1, -1):
+        out[l] = _band_resize(out[l + 1], levels[l + 1], levels[l],
+                              widths[l])
+    return out
+
+
+def _band_points(band: RowBand, values, ids):
+    """values[..., ids] of a band's rows ``values`` [..., rows, W, C] at
+    global flat pixel ids [..., K, M]: each rank fills the ids it holds,
+    and each id takes its holder's row."""
+    w = values.shape[-2]
+    flat = values.reshape(values.shape[:-3] + (-1, values.shape[-1]))
+    ids = ids.to(values.device)
+    owner = band.owner(ids // w)
+    local = torch.where(owner == band.r, ids - band.start * w, 0)
+    if flat.dim() == 3:
+        mine = torch.gather(flat, 1, local.reshape(local.shape[0], -1, 1)
+                            .expand(-1, -1, flat.shape[-1])).reshape(
+                                ids.shape + (flat.shape[-1],))
+    else:
+        mine = flat[local]
+    mine = torch.where((owner == band.r)[..., None], mine, 0.0)
+    parts = torch.stack(band.all_parts(mine))
+    return torch.gather(parts, 0, owner[None, ..., None].expand(
+        (1,) + mine.shape))[0]
+
+
+def _band_setup(model, cnt, stl, draws, config: Config, taps,
+                bands: _PairBands):
+    """``_setup`` on this rank's bands: the VGG taps, pyramids and Lab of
+    the band's rows; k-means on the gathered conv5_1 level."""
+    lead = tuple(cnt.shape[:-3])
+    c_full, c_levels, c_widths = bands.grids[0]
+    s_full, s_levels, s_widths = bands.grids[1]
+    cnt, stl = c_full.take(cnt), s_full.take(stl)
+    vgg_dtype = _dtype(config.vgg_compute_dtype or config.feature_dtype)
+    cnt_feats = model(cnt, taps, vgg_dtype, band=c_full)
+    stl_feats = model(stl, taps, vgg_dtype, band=s_full)
+    cnt_pyr = _band_pyramid(cnt, c_full, c_levels, c_widths)
+    stl_pyr = _band_pyramid(stl, s_full, s_levels, s_widths)
+    cnt_lab_unit = bgr_u8_to_lab_u8(cnt).float() / 255.0
+
+    lh, lw = c_levels[0].h, c_widths[0]
+    f0n, _ = features.l2_normalize(cnt_feats[taps[0]].float())
+    f0n = c_levels[0].gather(f0n)
+    init_idx = draws.kmeans_init(lh * lw, config.cluster_num)
+    label_map, _ = cluster.kmeans(
+        f0n.reshape(lead + (lh * lw, -1)), init_idx,
+        num_clusters=config.cluster_num, iters=config.kmeans_iters)
+    label_map = label_map.reshape(lead + (lh, lw))
+    membership = cluster.cluster_membership(label_map, config.cluster_num)
+    return (cnt_feats, stl_feats, cnt_pyr, stl_pyr, cnt_lab_unit, label_map,
+            membership)
+
+
+def _band_level_match(config: Config, l: int, bands: _PairBands,
+                      bds_weight: float, ann_prev, bnn_prev, cnt_feat_l,
+                      stl_feat_l, down_stl, ring: bool):
+    """``_level_match`` on this rank's bands: (ann of the content band,
+    bnn of the style band, guide and error of the content band)."""
+    bc, bs = bands.cnt(l), bands.stl(l)
+    ah, aw = bc.h, cnt_feat_l.shape[-2]
+    bh, bw = bs.h, stl_feat_l.shape[-2]
+    fdt = _dtype(config.feature_dtype)
+    ps = config.patch_size
+    fs = stl_feat_l.float()
+    fc_n = features.l2_normalize(cnt_feat_l.float())[0].to(fdt)
+    fs_n = features.l2_normalize(fs)[0].to(fdt)
+    if l < config.exact_nn_levels and ring:
+        ann, _ = ring_band_nn(fc_n, fs_n, bc, bs, ps)
+        bnn, _ = ring_band_nn(fs_n, fc_n, bs, bc, ps)
+    elif l < config.exact_nn_levels:
+        ann, _, bnn, _ = cuda_nn.exact_nn_bidir(bc.gather(fc_n),
+                                                bs.gather(fs_n), ps)
+        ann, bnn = bc.take(ann), bs.take(bnn)
+    else:
+        ann0 = _band_upsample(ann_prev, bands.cnt(l - 1), bc, aw, bh, bw)
+        bnn0 = _band_upsample(bnn_prev, bands.stl(l - 1), bs, bw, ah, aw)
+        half = ps // 2
+        fields = []
+        for own, other, f0, own_px in ((bc, bs, ann0, ah * aw),
+                                       (bs, bc, bnn0, bh * bw)):
+            x = fc_n if own is bc else fs_n
+            whole = other.gather(fs_n if own is bc else fc_n)
+            x_ext, top, bottom = own.halo(x, half, half)
+            f0_ext = own.halo(f0, half, half)[0]
+            fields.append(window_refine(
+                x_ext, whole, f0_ext, config.window_radius,
+                config.window_shortlist, ps,
+                stage1_channels(config, ah * aw, own_px),
+                halo=(top, bottom), gather_taps=True)[0])
+            del whole, x_ext
+        ann, bnn = fields
+    guide_bgr = bds.bds_reconstruct_color(bs.gather(down_stl), ann, bnn, 1.0,
+                                          bds_weight, ps, bands=(bc, bs))
+    voted_feat, _ = bds.bds_vote_band(bs.gather(fs), ann, bnn, bc, bs, 1.0,
+                                      bds_weight, ps)
+    gf_n, _ = features.l2_normalize(voted_feat)
+    return ann, bnn, guide_bgr, features.cosine_error(fc_n, gf_n)
+
+
+def _band_level_solve(model, config: Config, l: int, numlayer: int, taps,
+                      draws, bands: _PairBands, guide_bgr, bds_err, prev_ab,
+                      down_cnt, cnt_lab_unit, label_map, membership):
+    """``_level_solve`` on this rank's bands."""
+    bl, bf = bands.cnt(l), bands.cnt_full
+    h, w = bf.h, cnt_lab_unit.shape[-2]
+    ah, aw = bl.h, down_cnt.shape[-2]
+    ps = config.patch_size
+
+    # k-NN graph on down-res Lab + patch-moment init + confidence
+    cnt_lab_u8 = bgr_u8_to_lab_u8(down_cnt)
+    cnt_lab_d = cnt_lab_u8.float() / 255.0
+    stride = 2 ** l
+    pixel_labels = cluster.labels_for_pixels(label_map, ah, aw, stride,
+                                             rows=(bl.start, bl.stop))
+    member_pix = cluster.membership_for_pixels(membership, ah, aw, stride)
+    candidates = draws.candidates(l, member_pix, min(2048, ah * aw))
+    del member_pix
+    nbr_ids, nbr_w, nbr_slots = knn.knn_graph(
+        cnt_lab_d, pixel_labels, candidates, k_num=config.k_num,
+        cand_colors=_band_points(bl, cnt_lab_d, candidates),
+        row0=bl.start * aw, n_total=ah * aw)
+    guide_lab_u8 = bgr_u8_to_lab_u8(guide_bgr)
+    guide_lab_d = guide_lab_u8.float() / 255.0
+    confidence = stats.error_confidence(bds_err, band=bl)
+
+    # nonlocal solve at down-res, warm-started from the previous level
+    if prev_ab is not None:
+        a0 = _band_resize(prev_ab[0], bands.cnt(l - 1), bl, aw)
+        b0 = _band_resize(prev_ab[1], bands.cnt(l - 1), bl, aw)
+    else:
+        # level 0 alone reads the patch moments, on the conv5_1 grid that
+        # k-means gathers too: their integral images round with every row
+        # above, so the whole grid gives the single process's bits
+        a0, b0 = (bl.take(t) for t in stats.init_ab(
+            bl.gather(cnt_lab_u8), bl.gather(guide_lab_u8), ps,
+            config.var_epsilon))
+        tgt = torch.clamp(cnt_lab_d * a0 + b0, 0.0, 1.0)
+        a0 = torch.clamp(a0, 0.0, 2.0)
+        b0 = tgt - cnt_lab_d * a0
+    final = l == numlayer - 1
+    nl_iters = config.cg_iters_final_mg if final else config.cg_iters_mg
+    a_d, b_d, nl_it, nl_r2 = solve_nonlocal(
+        a0, b0, cnt_lab_d, guide_lab_d, confidence, nbr_ids, nbr_w,
+        float(h * w) / float(ah * aw), config.local_weight, config.wls_alpha,
+        config.nonlocal_weight, iters=nl_iters, tol=config.cg_tol,
+        candidates=candidates, nbr_slots=nbr_slots,
+        precond_kind=config.nl_precond, in_cap=config.nl_in_cap,
+        transpose=config.nl_transpose, band=bl)
+    del nbr_ids, nbr_w, nbr_slots
+
+    # full-res WLS, apply, convert, re-extract
+    lam = config.wls_lambda_init * (float(h * w) / float(ah * aw))
+    if (ah, aw) == (h, w):
+        lam = lam * 4.0  # final-level boost (ref :1418-1424)
+    a_f, b_f, wls_it, wls_r2 = solve_wls(
+        _band_resize(a_d, bl, bf, w), _band_resize(b_d, bl, bf, w),
+        cnt_lab_unit, lam, config.wls_alpha, iters=config.wls_cg_iters_mg,
+        tol=config.cg_tol, precond_kind=config.wls_precond, band=bf)
+    refined = unit_lab_to_bgr_u8(apply_transform(a_f, b_f, cnt_lab_unit))
+
+    cnt_feat_next = None
+    if l < numlayer - 1:
+        vgg_dtype = _dtype(config.vgg_compute_dtype or config.feature_dtype)
+        cnt_feat_next = model(refined, (taps[l + 1],), vgg_dtype,
+                              band=bf)[taps[l + 1]]
+    return (refined, cnt_feat_next, a_d, b_d, a_f, b_f, (nl_it, nl_r2),
+            (wls_it, wls_r2))
+
+
+def _run_band_levels(model, config: Config, taps, draws, bds_weight: float,
+                     cnt, stl, record, ring: bool):
+    """``_run_levels`` on this rank's row bands (``row_sharded``): every
+    stage holds the band's rows, the output rows (and a trace's fields)
+    are gathered, so every rank returns the whole result."""
+    numlayer = len(taps)
+    bands = _PairBands(config, taps, tuple(cnt.shape[-3:-1]),
+                       tuple(stl.shape[-3:-1]))
+    (cnt_feats, stl_feats, cnt_pyr, stl_pyr, cnt_lab_unit, label_map,
+     membership) = _band_setup(model, cnt, stl, draws, config, taps, bands)
+    del cnt, stl
+    refined = None
+    cnt_feat_l = cnt_feats[taps[0]]
+    trace: list[dict] = []
+    prev_ab = ann = bnn = coarse_state = None
+    for l in range(numlayer):
+        ann, bnn, guide_bgr, bds_err = _band_level_match(
+            config, l, bands, bds_weight, ann, bnn, cnt_feat_l,
+            stl_feats[taps[l]], stl_pyr[l], ring)
+        (refined, cnt_feat_l, a_d, b_d, a_f, b_f, nl_info,
+         wls_info) = _band_level_solve(
+            model, config, l, numlayer, taps, draws, bands, guide_bgr,
+            bds_err, prev_ab, cnt_pyr[l], cnt_lab_unit, label_map,
+            membership)
+        prev_ab = (a_d, b_d)
+        bc, bs, bf = bands.cnt(l), bands.stl(l), bands.cnt_full
+        if l == 0:
+            coarse_state = {"ann": bc.gather(ann), "bnn": bs.gather(bnn)}
+        if record:
+            tr = {"level": l, "nl_iters": nl_info[0], "nl_r2": nl_info[1],
+                  "wls_iters": wls_info[0], "wls_r2": wls_info[1]}
+            if record != "stats":
+                tr.update({"ann": bc.gather(ann), "bnn": bs.gather(bnn),
+                           "guide": bc.gather(guide_bgr),
+                           "a": bf.gather(a_f), "b": bf.gather(b_f),
+                           "bds_err": bc.gather(bds_err, -2),
+                           "refined": bf.gather(refined)})
+            trace.append(tr)
+    return bands.cnt_full.gather(refined), trace, coarse_state
 
 
 def transfer_pair(
@@ -460,6 +787,8 @@ def transfer_batch(
     seeds,
     device: torch.device | str | None = None,
     return_intermediates: bool | str = False,
+    ring_nn: bool = True,
+    draws=None,
 ):
     """Run a bucket of pairs of one geometry as one batched pass.
 
@@ -473,7 +802,11 @@ def transfer_batch(
     uniforms, every preconditioner, transpose and membership count, and a
     ``space_mesh``, under which each ring step is one batched launch).
     ``device`` defaults as in ``transfer_pair`` and raises without a card;
-    ``device="cpu"`` runs the plain path.
+    ``device="cpu"`` runs the plain path.  ``ring_nn=False``: under a
+    space mesh each rank searches the exact levels itself with
+    ``nn_bidir`` (on the gathered levels when the stages run on row
+    bands) instead of through the ring.  ``draws``: the bucket's draws,
+    with ``BatchDraws``' methods (default ``BatchDraws(seeds)``).
 
     Returns the uint8 BGR results [B, H, W, 3] on ``device``; with
     ``return_intermediates`` also one trace list per item, as
@@ -493,8 +826,8 @@ def transfer_batch(
                          f"and {len(seeds)} seeds")
     taps = tuple(config.vgg_layers())
     refined, trace, _ = _run_levels(
-        model, config, taps, BatchDraws(seeds), bds_weight, cnt, stl, None,
-        None, return_intermediates)
+        model, config, taps, BatchDraws(seeds) if draws is None else draws,
+        bds_weight, cnt, stl, None, None, return_intermediates, ring_nn)
     if not return_intermediates:
         return refined
     items = [[] for _ in seeds]

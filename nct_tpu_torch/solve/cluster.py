@@ -69,12 +69,15 @@ def _cells(n: int, stride: int, cells: int, device) -> torch.Tensor:
 
 
 def labels_for_pixels(label_map: torch.Tensor, h: int, w: int,
-                      stride: int) -> torch.Tensor:
+                      stride: int, rows: tuple[int, int] | None = None
+                      ) -> torch.Tensor:
     """Expand the conv5_1-resolution label grid [..., lh, lw] to an [...,
     h, w] label map: pixel (x, y) falls in cell (x // stride, y // stride),
-    clipped."""
+    clipped.  ``rows`` = (y0, y1): only those rows (a band)."""
     lh, lw = label_map.shape[-2], label_map.shape[-1]
     ys = _cells(h, stride, lh, label_map.device)
+    if rows is not None:
+        ys = ys[rows[0]:rows[1]]
     xs = _cells(w, stride, lw, label_map.device)
     return label_map[..., ys[:, None], xs[None, :]]
 

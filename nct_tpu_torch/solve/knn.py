@@ -51,6 +51,9 @@ def knn_graph(
     candidates: torch.Tensor,
     k_num: int = 8,
     chunk: int = 8192,
+    cand_colors: torch.Tensor | None = None,
+    row0: int = 0,
+    n_total: int | None = None,
 ):
     """Build the nonlocal k-NN graph.
 
@@ -69,10 +72,18 @@ def knn_graph(
     bitwise each item's own graph; one host sync for the whole bucket.
     The P > 1 merge scores every row on its own, so its fold is bitwise by
     construction (the JAX package vmaps it plainly, with the same result).
+
+    A band of rows (single membership; under a space mesh): ``lab_unit``
+    and ``pixel_labels`` hold the band's rows, ``row0`` is the flat index
+    of its first pixel in the whole level (ids stay global) and
+    ``cand_colors`` [..., K, M, 3] the candidates' colours, gathered from
+    the ranks that hold them, and ``n_total`` the level's pixels.  Every
+    row is scored on its own, so the band's rows are the whole graph's rows
+    bit for bit.
     """
     if lab_unit.dim() == 4:
         return _knn_graph_folded(lab_unit, pixel_labels, candidates, k_num,
-                                 chunk)
+                                 chunk, cand_colors, row0, n_total)
     h, w, _ = lab_unit.shape
     n = h * w
     colors = lab_unit.reshape(n, 3).float()
@@ -80,14 +91,18 @@ def knn_graph(
     if pixel_labels.dim() == 3 and pixel_labels.shape[-1] > 1:
         return _knn_graph_multi(colors, pixel_labels.reshape(n, -1).long(),
                                 candidates, k_num, chunk)
+    gid = torch.arange(row0, row0 + n, device=colors.device)
     return _knn_graph_sorted(colors, pixel_labels.reshape(n).long(),
-                             candidates, k_num, chunk)
+                             candidates, k_num, chunk, gid, cand_colors)
 
 
 def _knn_graph_sorted(colors: torch.Tensor, labels: torch.Tensor,
-                      candidates: torch.Tensor, k_num: int, chunk: int):
+                      candidates: torch.Tensor, k_num: int, chunk: int,
+                      gid: torch.Tensor, cand_colors: torch.Tensor | None):
     """Single-membership graph: colors [N, 3], labels [N], candidates [K,
-    M] int64; pixels grouped by cluster, one chunk per cluster slice."""
+    M] int64 ids of the rows' ``gid`` numbering, ``cand_colors`` their
+    colours (None: ``colors[candidates]``); pixels grouped by cluster, one
+    chunk per cluster slice."""
     n = colors.shape[0]
     dev = colors.device
     kc, m = candidates.shape
@@ -95,7 +110,8 @@ def _knn_graph_sorted(colors: torch.Tensor, labels: torch.Tensor,
     order = torch.argsort(labels, stable=True)        # groups clusters
     counts = torch.bincount(labels, minlength=kc).tolist()
 
-    cand_colors = colors[candidates]                   # [K, M, 3]
+    if cand_colors is None:
+        cand_colors = colors[candidates]               # [K, M, 3]
     cand_sq = dot3_fma(cand_colors, cand_colors)
 
     # first occurrence of each candidate id within its cluster row
@@ -121,7 +137,7 @@ def _knn_graph_sorted(colors: torch.Tensor, labels: torch.Tensor,
             cross = dot3_fma(qc[:, None, :], cc[None, :, :])       # [B, M]
             d = torch.clamp(csq[None, :] - 2.0 * cross
                             + dot3_fma(qc, qc)[:, None], min=0.0)
-            d = torch.where(cand_ids[None, :] == pid[:, None], inf, d)
+            d = torch.where(cand_ids[None, :] == gid[pid][:, None], inf, d)
             d = torch.where(first_mask[c][None, :], d, inf)
             nfin = torch.sum(torch.isfinite(d), dim=1)
             work = d.to(torch.bfloat16)
@@ -133,7 +149,7 @@ def _knn_graph_sorted(colors: torch.Tensor, labels: torch.Tensor,
                                    float("inf"), work)
             j = torch.stack(picks, dim=1)                          # [B, k]
             ids = cand_ids[j]
-            diff = qc[:, None, :] - colors[ids]                    # [B, k, 3]
+            diff = qc[:, None, :] - cc[j]                          # [B, k, 3]
             dists = torch.clamp(dot3_fma(diff, diff), min=0.0)
             alive = torch.arange(k_num, device=dev)[None, :] < nfin[:, None]
             ids_o[pid] = ids
@@ -144,27 +160,36 @@ def _knn_graph_sorted(colors: torch.Tensor, labels: torch.Tensor,
 
 
 def _knn_graph_folded(lab_unit: torch.Tensor, pixel_labels: torch.Tensor,
-                      candidates: torch.Tensor, k_num: int, chunk: int):
+                      candidates: torch.Tensor, k_num: int, chunk: int,
+                      cand_colors: torch.Tensor | None = None,
+                      row0: int = 0, n_total: int | None = None):
     """The batch folded into rows (counterpart of the JAX package's
-    ``_knn_custom_vmap`` rule, ``nct_tpu/solve/knn.py:180-213``)."""
+    ``_knn_custom_vmap`` rule, ``nct_tpu/solve/knn.py:180-213``); a band's
+    rows keep their global ids (see ``knn_graph``)."""
     b, h, w, _ = lab_unit.shape
     n = h * w
     dev = lab_unit.device
+    n_ids = n if n_total is None else n_total
     kc, m = candidates.shape[-2], candidates.shape[-1]
     boff = torch.arange(b, device=dev)[:, None]
     multi = pixel_labels.dim() == 4 and pixel_labels.shape[-1] > 1
     labels = (pixel_labels.reshape(b, n, -1).long()
               + boff[..., None] * kc).reshape(b * n, -1)
     cands = (candidates.long().to(dev)
-             + boff[..., None] * n).reshape(b * kc, m)
+             + boff[..., None] * n_ids).reshape(b * kc, m)
     colors = lab_unit.reshape(b * n, 3).float()
     if multi:
         ids, wts, slots = _knn_graph_multi(colors, labels, cands, k_num,
                                            chunk)
     else:
+        gid = (boff * n_ids + row0
+               + torch.arange(n, device=dev)[None, :]).reshape(-1)
+        if cand_colors is not None:
+            cand_colors = cand_colors.reshape(b * kc, m, 3)
         ids, wts, slots = _knn_graph_sorted(colors, labels.reshape(-1),
-                                            cands, k_num, chunk)
-    return (ids.reshape(b, n, k_num) - boff[..., None] * n,
+                                            cands, k_num, chunk, gid,
+                                            cand_colors)
+    return (ids.reshape(b, n, k_num) - boff[..., None] * n_ids,
             wts.reshape(b, n, k_num),
             slots.reshape(b, n, k_num) - boff[..., None] * (kc * m))
 

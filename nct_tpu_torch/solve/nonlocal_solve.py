@@ -29,42 +29,73 @@ from nct_tpu_torch.ops.fmath import pow32, sqrt32
 from nct_tpu_torch.solve.cg import cg_solve, cg_solve_grouped
 
 
-def gradient_weights(lab_unit_l: torch.Tensor, lam: float, alpha: float):
+def gradient_weights(lab_unit_l: torch.Tensor, lam: float, alpha: float,
+                     band=None):
     """Edge weights g = sqrt(lam / (|dL|^alpha + 1e-4)).
 
     lab_unit_l [..., H, W] luminance in [0, 1].  Returns (gx, gy) [..., H,
     W]: gx weighs edge (x,y)-(x+1,y) (zero on the last column), gy edge
-    (x,y)-(x,y+1) (zero on the last row).
+    (x,y)-(x,y+1) (zero on the last row).  With ``band`` (a
+    ``parallel.mesh.RowBand``) the rows are one band's and gy's last row
+    reads the band below through a one-row halo.
     """
     l = lab_unit_l.float()
     dx = torch.abs(l[..., :, 1:] - l[..., :, :-1])
-    dy = torch.abs(l[..., 1:, :] - l[..., :-1, :])
+    bottom = 0
+    if band is not None:
+        ext, _, bottom = band.halo(l, 0, 1, dim=-2)
+        dy = torch.abs(ext[..., 1:, :] - ext[..., :-1, :])
+    else:
+        dy = torch.abs(l[..., 1:, :] - l[..., :-1, :])
     gx = sqrt32(lam / (pow32(dx, alpha) + 1e-4))
     gy = sqrt32(lam / (pow32(dy, alpha) + 1e-4))
-    return F.pad(gx, (0, 1)), F.pad(gy, (0, 0, 0, 1))
+    return F.pad(gx, (0, 1)), F.pad(gy, (0, 0, 0, 1 - bottom))
 
 
-def laplacian_apply(u: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor):
+def laplacian_apply(u: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor,
+                    band=None):
     """sum_j w_ij (u_i - u_j) on the 4-neighbour grid; u [..., H, W, C],
-    wx/wy [..., H, W] edge weights (to x+1 / y+1)."""
+    wx/wy [..., H, W] edge weights (to x+1 / y+1).
+
+    With ``band``: u and wx hold one band's rows, ``wy`` the band's rows
+    below the row above it (``band.halo(wy, 1, 0, dim=-2)``), and u's
+    edge rows come from a one-row halo; every element adds its terms in
+    the whole grid's order, so the band is those rows bit for bit."""
     wx3, wy3 = wx[..., None], wy[..., None]
     out = torch.zeros_like(u)
     dxe = (u[..., :, :-1, :] - u[..., :, 1:, :]) * wx3[..., :, :-1, :]
     out[..., :, :-1, :] += dxe
     out[..., :, 1:, :] += -dxe
-    dye = (u[..., :-1, :, :] - u[..., 1:, :, :]) * wy3[..., :-1, :, :]
-    out[..., :-1, :, :] += dye
-    out[..., 1:, :, :] += -dye
+    if band is None:
+        dye = (u[..., :-1, :, :] - u[..., 1:, :, :]) * wy3[..., :-1, :, :]
+        out[..., :-1, :, :] += dye
+        out[..., 1:, :, :] += -dye
+        return out
+    rows = u.shape[-3]
+    ext, top, bottom = band.halo(u, 1, 1)
+    dye = ((ext[..., :-1, :, :] - ext[..., 1:, :, :])
+           * wy3[..., :ext.shape[-3] - 1, :, :])
+    down = rows - 1 + bottom
+    out[..., :down, :, :] += dye[..., top:top + down, :, :]
+    out[..., 1 - top:, :, :] += -dye[..., :rows - 1 + top, :, :]
     return out
 
 
-def laplacian_degree(wx: torch.Tensor, wy: torch.Tensor):
-    """Diagonal of the grid Laplacian: sum of incident edge weights."""
+def laplacian_degree(wx: torch.Tensor, wy: torch.Tensor, band=None):
+    """Diagonal of the grid Laplacian: sum of incident edge weights (with
+    ``band``, wy as ``laplacian_apply`` takes it)."""
     deg = torch.zeros_like(wx)
     deg[..., :, :-1] += wx[..., :, :-1]
     deg[..., :, 1:] += wx[..., :, :-1]
-    deg[..., :-1, :] += wy[..., :-1, :]
-    deg[..., 1:, :] += wy[..., :-1, :]
+    if band is None:
+        deg[..., :-1, :] += wy[..., :-1, :]
+        deg[..., 1:, :] += wy[..., :-1, :]
+        return deg
+    rows = wx.shape[-2]
+    top = 1 if band.r > 0 else 0
+    down = rows - 1 + (1 if band.r < band.n - 1 else 0)
+    deg[..., :down, :] += wy[..., top:top + down, :]
+    deg[..., 1 - top:, :] += wy[..., :rows - 1 + top, :]
     return deg
 
 
@@ -92,7 +123,16 @@ _COARSE_SWEEPS = 8
 _MAX_LEVELS = 8
 
 
-def make_mg_preconditioner(blk_aa, blk_ab, blk_bb, wx2, wy2):
+def _prolong_rows(xc: torch.Tensor, y0: int, rows: int,
+                  w: int) -> torch.Tensor:
+    """Rows [y0, y0 + rows) of ``_prolong_const`` of a whole coarse grid."""
+    x = xc[..., y0 // 2:(y0 + rows - 1) // 2 + 1, :, :]
+    x = torch.repeat_interleave(torch.repeat_interleave(x, 2, dim=-3), 2,
+                                dim=-2)
+    return x[..., y0 % 2:y0 % 2 + rows, :w, :]
+
+
+def make_mg_preconditioner(blk_aa, blk_ab, blk_bb, wx2, wy2, band=None):
     """Geometric-multigrid V-cycle approximating the inverse of
     [[blk_aa, blk_ab], [blk_ab, blk_bb]] ([..., H, W, 3] per-pixel blocks)
     plus the grid Laplacian with edge weights wx2/wy2 [..., H, W] on a and
@@ -101,19 +141,38 @@ def make_mg_preconditioner(blk_aa, blk_ab, blk_bb, wx2, wy2):
     Piecewise-constant prolongation P, restriction P^T / 4, Galerkin coarse
     coefficients, red-black block Gauss-Seidel smoothing, symmetric pre- and
     post-smoothing: a fixed SPD operator, so PCG stays valid.
+
+    With ``band`` (a ``parallel.mesh.RowBand``; the operands one band's
+    rows) the fine levels coarsen band by band while every band starts on
+    an even row (``RowBand.coarsen``), each colour of a sweep and each
+    residual taking a one-row halo; the first level that cannot is
+    gathered whole, and it and every coarser level run on every rank.
+    Every element is computed as on the whole grid, so the V-cycle is the
+    whole one's rows bit for bit.
     """
-    levels = []
+    levels, bands = [], []
     caa, cab, cbb = blk_aa, blk_ab, blk_bb
     cwx, cwy = wx2, wy2
+    b = band
     while True:
         h, w = caa.shape[-3], caa.shape[-2]
-        deg = laplacian_degree(cwx, cwy)[..., None]
+        wy_ext = cwy if b is None else b.halo(cwy, 1, 0, dim=-2)[0]
+        deg = laplacian_degree(cwx, wy_ext, b)[..., None]
         daa = caa + deg
         dbb = cbb + deg
         inv_det = 1.0 / (daa * dbb - cab * cab)
-        levels.append((caa, cab, cbb, cwx, cwy, daa, dbb, inv_det))
-        if min(h, w) <= _COARSEST or len(levels) >= _MAX_LEVELS:
+        levels.append((caa, cab, cbb, cwx, wy_ext, daa, dbb, inv_det))
+        bands.append(b)
+        h_all = h if b is None else b.h
+        if min(h_all, w) <= _COARSEST or len(levels) >= _MAX_LEVELS:
             break
+        if b is not None:
+            b = b.coarsen()
+            if b is None:
+                band_fine = bands[-1]
+                caa, cab, cbb = (band_fine.gather(t) for t in (caa, cab, cbb))
+                cwx, cwy = (band_fine.gather(t, -2) for t in (cwx, cwy))
+                h = h_all
         caa = 0.25 * _coarsen_cellsum(caa)
         cab = 0.25 * _coarsen_cellsum(cab)
         cbb = 0.25 * _coarsen_cellsum(cbb)
@@ -129,16 +188,24 @@ def make_mg_preconditioner(blk_aa, blk_ab, blk_bb, wx2, wy2):
             fy.shape[:-1] + ((w + pw) // 2, 2)).sum(dim=-1)
 
     masks = []
-    for lev in levels:
+    for lev, bl in zip(levels, bands):
         h, w = lev[0].shape[-3], lev[0].shape[-2]
-        yy = torch.arange(h, device=lev[0].device)[:, None]
+        y0 = 0 if bl is None else bl.start
+        yy = torch.arange(y0, y0 + h, device=lev[0].device)[:, None]
         xx = torch.arange(w, device=lev[0].device)[None, :]
         masks.append((((yy + xx) % 2 == 0).float())[..., None])
 
     def level_apply(lev, xa, xb):
         caa, cab, cbb, cwx, cwy, _, _, _ = levels[lev]
-        return (caa * xa + cab * xb + laplacian_apply(xa, cwx, cwy),
-                cab * xa + cbb * xb + laplacian_apply(xb, cwx, cwy))
+        if bands[lev] is None:
+            return (caa * xa + cab * xb + laplacian_apply(xa, cwx, cwy),
+                    cab * xa + cbb * xb + laplacian_apply(xb, cwx, cwy))
+        # one halo for both: the Laplacian is elementwise over channels
+        lap = laplacian_apply(torch.cat([xa, xb], dim=-1), cwx, cwy,
+                              bands[lev])
+        c = xa.shape[-1]
+        return (caa * xa + cab * xb + lap[..., :c],
+                cab * xa + cbb * xb + lap[..., c:])
 
     def half_sweep(lev, xa, xb, fa, fb, mask):
         """Exact block-GS update of one checkerboard colour."""
@@ -167,11 +234,21 @@ def make_mg_preconditioner(blk_aa, blk_ab, blk_bb, wx2, wy2):
         xb = m * inv_det * (daa * fb - cab * fa)
         xa, xb = half_sweep(lev, xa, xb, fa, fb, 1.0 - m)
         ma, mb = level_apply(lev, xa, xb)
-        ea, eb = vcycle(lev + 1, 0.25 * _coarsen_cellsum(fa - ma),
-                        0.25 * _coarsen_cellsum(fb - mb))
+        ra, rb = fa - ma, fb - mb
+        here, below = bands[lev], bands[lev + 1]
+        if here is not None and below is None:
+            c = ra.shape[-1]
+            both = here.gather(torch.cat([ra, rb], dim=-1))
+            ra, rb = both[..., :c], both[..., c:]
+        ea, eb = vcycle(lev + 1, 0.25 * _coarsen_cellsum(ra),
+                        0.25 * _coarsen_cellsum(rb))
         h, w = fa.shape[-3], fa.shape[-2]
-        xa = xa + _prolong_const(ea, h, w)
-        xb = xb + _prolong_const(eb, h, w)
+        if here is not None and below is None:
+            xa = xa + _prolong_rows(ea, here.start, h, w)
+            xb = xb + _prolong_rows(eb, here.start, h, w)
+        else:
+            xa = xa + _prolong_const(ea, h, w)
+            xb = xb + _prolong_const(eb, h, w)
         return smooth(lev, xa, xb, fa, fb, reverse=True)
 
     def precond(res):
@@ -376,8 +453,8 @@ def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
         # alignment)
         target_sums = torch.cat([
             torch.sum(in_w[i * item_targets:(i + 1) * item_targets,
-                           :wi].contiguous(), dim=1)
-            for i, wi in enumerate(widths)])
+                           :wi].double(), dim=1)
+            for i, wi in enumerate(widths)]).float()
         if use_slots:
             # slot sums land on their pixels through one sorted scatter
             cs_order = torch.argsort(cand_flat, stable=True)
@@ -394,15 +471,13 @@ def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
             out_sum = torch.sum(pair_w[..., None] * out_gather(u), dim=1)
             in_prod = in_w[..., None] * u[in_src]
             if g == 1:
-                in_sum = torch.sum(in_prod, dim=1)
+                in_sum = torch.sum(in_prod.double(), dim=1).float()
             else:
-                # each item sums its targets over its own width: a CPU sum
-                # groups its terms by the row's length, so zero padding to
-                # the widest item's width would move the item's bits
+                # each item sums its targets over its own width
                 in_sum = torch.cat([
                     torch.sum(in_prod[i * item_targets:(i + 1)
-                                      * item_targets, :wi], dim=1)
-                    for i, wi in enumerate(widths)])
+                                      * item_targets, :wi].double(), dim=1)
+                    for i, wi in enumerate(widths)]).float()
             if use_slots:
                 in_sum_c, in_sum = in_sum, torch.zeros_like(u)
                 in_sum.index_put_((cs_ids,), in_sum_c[cs_order],
@@ -424,8 +499,11 @@ def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
     rhs = (d2 * s * r, d2 * r)
 
     # k-NN degree of the operator's (capped, on the tables path) weights
-    deg_nl = nonlocal_degree(nbr_ids, pair_w, n).reshape(
-        s.shape[:-1])[..., None]
+    if transpose == "tables" and use_slots:
+        deg_nl = both_deg.reshape(s.shape[:-1])[..., None]
+    else:
+        deg_nl = nonlocal_degree(nbr_ids, pair_w, n).reshape(
+            s.shape[:-1])[..., None]
     if precond_kind == "mg":
         # data blocks + k-NN degree on the diagonal, the doubled local
         # Laplacian as explicit edge weights
@@ -449,22 +527,200 @@ def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
     return operator, rhs, block_jacobi
 
 
+def _band_keep(band, slots, key, gidx, deg, in_max: int):
+    """Which of this band's pairs survive their slot's in-edge cap, ranked
+    over every band: ``slots`` [L] folded slot of each pair, ``key`` its
+    sort key, ``gidx`` its global pair number, ``deg`` [slots] every
+    slot's in-degree over all bands.  Only pairs into slots over the cap
+    travel: to rank (slot % n), which ranks them by (key, pair number) as
+    the whole table does and sends the verdicts back."""
+    keep = torch.ones_like(slots, dtype=torch.bool)
+    if not bool((deg > in_max).any()):
+        return keep
+    n = band.n
+    mine = torch.nonzero(deg[slots] > in_max).reshape(-1)
+    dest = slots[mine] % n
+    sel = [mine[dest == j] for j in range(n)]
+    meta = band.exchange([torch.stack([slots[i], gidx[i]], dim=-1)
+                          for i in sel])
+    keys = band.exchange([key[i] for i in sel])
+    counts = [m.shape[0] for m in meta]
+    meta, keys = torch.cat(meta), torch.cat(keys)
+    # (slot, key, pair number) order: the whole table's stable ranking
+    order = torch.argsort(meta[:, 1], stable=True)
+    order = order[torch.argsort(keys[order], stable=True)]
+    order = order[torch.argsort(meta[order, 0], stable=True)]
+    st = meta[order, 0]
+    pos = torch.arange(st.shape[0], device=st.device)
+    is_start = torch.ones_like(st, dtype=torch.bool)
+    is_start[1:] = st[1:] != st[:-1]
+    rank = pos - torch.cummax(torch.where(is_start, pos, 0), dim=0).values
+    verdict = torch.empty_like(is_start)
+    verdict[order] = rank < in_max
+    back = band.exchange(list(torch.split(verdict, counts)))
+    for i, v in zip(sel, back):
+        keep[i] = v
+    return keep
+
+
+def make_nonlocal_system_band(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
+                              norm_factor: float, local_weight: float,
+                              alpha: float, nonlocal_weight: float,
+                              candidates, nbr_slots, in_cap: int, band):
+    """``make_nonlocal_system`` over row bands, for slot-keyed in-edge
+    tables and the multigrid preconditioner: src_lab, ref_lab, confidence
+    and the graph (nbr_ids [..., n, k] global pixel ids, nbr_slots,
+    nbr_w) hold one band's rows (``band``, a ``parallel.mesh.RowBand``);
+    every rank passes the same candidates [..., K, M].
+
+    Each slot keeps its strongest in-edges up to the whole graph's width,
+    ranked across bands (``_band_keep``), so the operator is the whole
+    one.  A matvec reads the candidates' values from the ranks that hold
+    them and adds the slots' in-edge sums over the bands in rank order (one
+    gather of [K*M] rows per matvec); the grid terms and the V-cycle take
+    one-row halos.  A leading batch axis folds into the rows as in
+    ``make_nonlocal_system``.
+    """
+    hl, w = src_lab.shape[-3], src_lab.shape[-2]
+    g = src_lab.shape[0] if src_lab.dim() == 4 else 1
+    n = hl * w                         # band pixels per item
+    n_all = band.h * w                 # level pixels per item
+    p0 = band.start * w                # global id of the band's first pixel
+    dev = src_lab.device
+    s = src_lab.float()
+    r = ref_lab.float()
+    d2 = (confidence.float() * torch.tensor(norm_factor, dtype=torch.float32)
+          .to(dev))[..., None]
+
+    gx, gy = gradient_weights(s[..., 0], local_weight, alpha, band)
+    gx2, gy2 = gx * gx, gy * gy
+    gy2_ext = band.halo(gy2, 1, 0, dim=-2)[0]
+
+    k = nbr_ids.shape[-1]
+    n_slots = candidates.shape[-2] * candidates.shape[-1]    # per item
+    goff = torch.arange(g, device=dev)[:, None]
+    pair_w = (nbr_w.float() * (nonlocal_weight / k)).reshape(g * n, k)
+    slots_local = nbr_slots.long().reshape(g, n * k)
+    slots = (slots_local + goff * n_slots).reshape(g * n, k)
+    cand = candidates.long().to(dev).reshape(g, n_slots)
+    cand_flat = (cand + goff * n_all).reshape(-1)            # folded ids
+    cand_owner = band.owner(cand // w).reshape(-1)
+    cand_local = (cand - p0 + goff * n).reshape(-1)          # where owned
+    owned = cand_owner == band.r
+
+    # the cap: the whole graph's width, every slot's in-degree over the
+    # bands, and each slot's strongest in-edges kept
+    in_max = in_edge_width(n_all * k, n_slots, in_cap)
+    deg_in = band.reduce_sum(torch.bincount(slots.reshape(-1),
+                                            minlength=g * n_slots))
+    key = slots_local.float() * 16.0 - torch.clamp(
+        pair_w.reshape(g, -1), 0.0, 15.0)
+    gidx = (goff * (n_all * k) + p0 * k
+            + torch.arange(n * k, device=dev)[None, :])
+    keep = _band_keep(band, slots.reshape(-1), key.reshape(-1),
+                      gidx.reshape(-1), deg_in, in_max).reshape(g, n * k)
+    pair_w = torch.where(keep.reshape(g * n, k), pair_w, 0.0)
+    pair_w_flat = pair_w.reshape(-1)
+
+    # this band's in-edge table: its kept pairs ranked within each slot
+    flat_t = torch.where(keep, slots_local, n_slots)
+    sort_key = torch.where(keep, key, float(n_slots * 16))
+    order, sorted_t, rank = _rank_in_targets(flat_t, sort_key)
+    real = sorted_t < n_slots
+    width = max(int(torch.where(real, rank + 1, 0).amax()), 1)
+    sentinel = g * n * k
+    in_tab = torch.full((g * n_slots + 1, width), sentinel,
+                        dtype=torch.int64, device=dev)
+    tgt = torch.where(real, sorted_t + goff * n_slots, g * n_slots)
+    in_tab[tgt.reshape(-1), torch.where(real, rank, 0).reshape(-1)] = (
+        torch.where(real, order + goff * (n * k), sentinel).reshape(-1))
+    in_tab = in_tab[:-1]
+    valid = in_tab < sentinel
+    in_tab_c = torch.clamp(in_tab, max=sentinel - 1)
+    in_src = torch.where(valid, in_tab_c // k, 0)
+    in_w = torch.where(valid, pair_w_flat[in_tab_c], 0.0)
+
+    # slot sums over every band (rank order) land on the owned candidates
+    cs_order = torch.argsort(cand_flat, stable=True)
+    cs_order = cs_order[owned[cs_order]]
+    cs_ids = cand_local[cs_order]
+    slot_in = band.reduce_sum(torch.sum(in_w.double(), dim=1)).float()
+    in_deg = torch.zeros(g * n, dtype=torch.float32, device=dev)
+    in_deg.index_put_((cs_ids,), slot_in[cs_order], accumulate=True)
+    both_deg = (torch.sum(pair_w, dim=1) + in_deg)[:, None]
+    take = torch.where(owned, cand_local, 0)
+    slot_ids = torch.arange(g * n_slots, device=dev)
+
+    def nl_apply(u):
+        """u [N, C] -> sum_j w_ij (u_i - u_j) over both edge directions;
+        the candidates' values and the slots' in-sums from every band."""
+        c = u.shape[-1]
+        mine = torch.where(owned[:, None], u[take], 0.0)
+        part = torch.sum((in_w[..., None] * u[in_src]).double(), dim=1)
+        parts = band.all_parts(torch.cat([mine.double(), part], dim=-1))
+        cand_u = torch.stack([p[:, :c] for p in parts])[
+            cand_owner, slot_ids].float()
+        in_sum_c = parts[0][:, c:]
+        for p in parts[1:]:
+            in_sum_c = in_sum_c + p[:, c:]
+        in_sum_c = in_sum_c.float()
+        out_sum = torch.sum(pair_w[..., None] * cand_u[slots], dim=1)
+        in_sum = torch.zeros_like(u)
+        in_sum.index_put_((cs_ids,), in_sum_c[cs_order], accumulate=True)
+        return both_deg * u - out_sum - in_sum
+
+    def operator(x):
+        a, b = x
+        lin = s * a + b
+        data_a = d2 * s * lin
+        data_b = d2 * lin
+        # local rows appear twice per edge -> factor 2; one halo for both
+        lap = laplacian_apply(torch.cat([a, b], dim=-1), gx2, gy2_ext, band)
+        loc_a = 2.0 * lap[..., :3]
+        loc_b = 2.0 * lap[..., 3:]
+        nl = nl_apply(torch.cat([a.reshape(g * n, 3), b.reshape(g * n, 3)],
+                                dim=1))
+        return (data_a + loc_a + nl[:, :3].reshape(a.shape),
+                data_b + loc_b + nl[:, 3:].reshape(b.shape))
+
+    rhs = (d2 * s * r, d2 * r)
+    # out- and in-degree of the kept pairs on the diagonal
+    deg_nl = both_deg.reshape(s.shape[:-1])[..., None]
+    precond = make_mg_preconditioner(d2 * s * s + deg_nl, d2 * s,
+                                     d2 + deg_nl, 2.0 * gx2, 2.0 * gy2, band)
+    return operator, rhs, precond
+
+
 def solve_nonlocal(a0, b0, src_lab, ref_lab, confidence, nbr_ids, nbr_w,
                    norm_factor: float, local_weight: float = 0.125,
                    alpha: float = 1.2, nonlocal_weight: float = 2.0,
                    iters: int = 100, tol: float = 1e-6, candidates=None,
                    nbr_slots=None, precond_kind: str = "mg",
-                   in_cap: int = 128, transpose: str = "auto"):
+                   in_cap: int = 128, transpose: str = "auto", band=None):
     """Solve for regularized (a, b) [H, W, 3] at down-res (see
     ``make_nonlocal_system`` for the options).  Returns (a, b, iterations
     run, final ||r||^2).  With a leading batch axis on every operand the
     B systems run as one through ``cg_solve_grouped``: iterations and
-    ||r||^2 are then [B] tensors, each item's own."""
-    operator, rhs, precond = make_nonlocal_system(
-        src_lab, ref_lab, confidence, nbr_ids, nbr_w, norm_factor,
-        local_weight, alpha, nonlocal_weight, candidates, nbr_slots,
-        precond_kind, in_cap, transpose)
+    ||r||^2 are then [B] tensors, each item's own.  With ``band`` (a
+    ``parallel.mesh.RowBand``; slot-keyed tables and the mg V-cycle only)
+    every operand is one band's rows (``make_nonlocal_system_band``) and
+    the dot products add over the bands in rank order."""
+    if band is not None:
+        if precond_kind != "mg" or transpose == "scatter" or (
+                candidates is None or nbr_slots is None):
+            raise ValueError("row bands solve the slot-keyed tables with "
+                             "the mg preconditioner only")
+        operator, rhs, precond = make_nonlocal_system_band(
+            src_lab, ref_lab, confidence, nbr_ids, nbr_w, norm_factor,
+            local_weight, alpha, nonlocal_weight, candidates, nbr_slots,
+            in_cap, band)
+    else:
+        operator, rhs, precond = make_nonlocal_system(
+            src_lab, ref_lab, confidence, nbr_ids, nbr_w, norm_factor,
+            local_weight, alpha, nonlocal_weight, candidates, nbr_slots,
+            precond_kind, in_cap, transpose)
     solve = cg_solve_grouped if src_lab.dim() == 4 else cg_solve
     (a, b), r2, n_it = solve(operator, rhs, (a0.float(), b0.float()),
-                             iters=iters, tol=tol, preconditioner=precond)
+                             iters=iters, tol=tol, preconditioner=precond,
+                             band=band)
     return a, b, n_it, r2

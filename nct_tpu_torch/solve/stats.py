@@ -109,10 +109,13 @@ def init_ab(cnt_lab_u8: torch.Tensor, guide_lab_u8: torch.Tensor,
     return a, b
 
 
-def error_confidence(err: torch.Tensor) -> torch.Tensor:
+def error_confidence(err: torch.Tensor, band=None) -> torch.Tensor:
     """BDS feature error [..., H, W] -> data-term confidence
-    max(1 - minmax(err), 1e-6), the min and max taken per item."""
+    max(1 - minmax(err), 1e-6), the min and max taken per item (over
+    every band of ``band``'s axis when ``err`` is one band's rows)."""
     lo = torch.amin(err, dim=(-2, -1), keepdim=True)
     hi = torch.amax(err, dim=(-2, -1), keepdim=True)
+    if band is not None:
+        lo, hi = band.reduce(lo, "min"), band.reduce(hi, "max")
     e = (err - lo) / torch.clamp(hi - lo, min=1e-30)
     return torch.clamp(1.0 - e, min=1e-6)

@@ -33,7 +33,7 @@ def roughness_gate(a_up: torch.Tensor, b_up: torch.Tensor,
 def solve_wls(a_up: torch.Tensor, b_up: torch.Tensor,
               cnt_lab_unit: torch.Tensor, lam: float, alpha: float = 1.2,
               iters: int = 400, tol: float = 1e-6,
-              precond_kind: str = "mg"):
+              precond_kind: str = "mg", band=None):
     """Smooth (a, b) [H, W, 3] at full resolution.  ``lam`` includes the
     area scaling (and the final-level boost); ``precond_kind`` is "mg" (the
     V-cycle with zero cross-blocks) or "jacobi" (the diagonal).  Returns
@@ -43,24 +43,42 @@ def solve_wls(a_up: torch.Tensor, b_up: torch.Tensor,
     the JAX package's batch fold ``_solve_wls_folded``) every stencil and
     V-cycle op runs once over the bucket, each pair with its own roughness
     gate and gradient weights, and ``cg_solve_grouped`` keeps each pair's
-    step sizes: iterations and ||r||^2 are then [B] tensors."""
+    step sizes: iterations and ||r||^2 are then [B] tensors.
+
+    With ``band`` (a ``parallel.mesh.RowBand``; mg only) every operand is
+    one band's rows: the gradient weights, the Laplacian and the V-cycle
+    take one-row halos, and the dot products add over the bands in rank
+    order (``solve.cg``)."""
     if precond_kind not in PRECOND_KINDS:
         raise ValueError(f"precond_kind={precond_kind!r}")
+    if band is not None and precond_kind != "mg":
+        raise ValueError("row bands solve with the mg preconditioner only")
     rough = roughness_gate(a_up, b_up, cnt_lab_unit)[..., None]
-    gx, gy = gradient_weights(cnt_lab_unit[..., 0], 1.0, alpha)
+    gx, gy = gradient_weights(cnt_lab_unit[..., 0], 1.0, alpha, band)
     lam32 = torch.tensor(lam, dtype=torch.float32).to(gx.device)
     gx2 = gx * gx * lam32
     gy2 = gy * gy * lam32
 
-    def operator(x):
-        a, b = x
-        return (rough * a + laplacian_apply(a, gx2, gy2),
-                rough * b + laplacian_apply(b, gx2, gy2))
+    if band is None:
+        def operator(x):
+            a, b = x
+            return (rough * a + laplacian_apply(a, gx2, gy2),
+                    rough * b + laplacian_apply(b, gx2, gy2))
+    else:
+        gy2_ext = band.halo(gy2, 1, 0, dim=-2)[0]
+
+        def operator(x):
+            a, b = x
+            # one halo for both: the Laplacian is elementwise over channels
+            lap = laplacian_apply(torch.cat([a, b], dim=-1), gx2, gy2_ext,
+                                  band)
+            c = a.shape[-1]
+            return rough * a + lap[..., :c], rough * b + lap[..., c:]
 
     a0, b0 = a_up.float(), b_up.float()
     if precond_kind == "mg":
         precond = make_mg_preconditioner(rough, torch.zeros_like(rough),
-                                         rough, gx2, gy2)
+                                         rough, gx2, gy2, band)
     else:
         diag = (rough[..., 0] + laplacian_degree(gx2, gy2))[..., None]
 
@@ -68,7 +86,8 @@ def solve_wls(a_up: torch.Tensor, b_up: torch.Tensor,
             return (res[0] / diag, res[1] / diag)
     solve = cg_solve_grouped if a_up.dim() == 4 else cg_solve
     (a, b), r2, n_it = solve(operator, (rough * a0, rough * b0), (a0, b0),
-                             iters=iters, tol=tol, preconditioner=precond)
+                             iters=iters, tol=tol, preconditioner=precond,
+                             band=band)
     return a, b, n_it, r2
 
 

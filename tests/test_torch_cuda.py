@@ -529,10 +529,15 @@ def test_ring_two_ranks_on_card_bitwise_nn_bidir(card, tmp_path):
             np.testing.assert_array_equal(got[1], want[1].numpy())
 
 
-def test_space_mesh_pair_on_card_bitwise_single(card, tmp_path):
-    """A 1x2 space mesh on one card: both ranks' ``transfer_pair`` equal
-    the single-process pair (float32 VGG), with 16 directed launches and
-    no bidirectional one per rank."""
+def test_space_mesh_pair_on_card_within_vmap_rule(card, tmp_path):
+    """A 1x2 space mesh on one card (row bands): both ranks' ``transfer_pair``
+    are equal and within the JAX package's batch contract (2 LSB at >= 95%
+    of values, mean <= 0.5) of the single-process pair (float32 VGG), with
+    16 directed launches and no bidirectional one per rank.  Not held
+    bitwise: at this style geometry (128x176) cuDNN convolves the row
+    bands from conv2_1 on otherwise than the whole image, so the band taps
+    differ in the last bits (``chip_smoke.py`` holds the 452x680 and
+    665x1000 pairs bitwise, where the taps agree)."""
     import torch_mesh_workers as workers
     from nct_tpu_torch.parallel.mesh import launch
 
@@ -542,7 +547,32 @@ def test_space_mesh_pair_on_card_bitwise_single(card, tmp_path):
     ranks = launch(workers.card_pair, 2, cnt, stl, store_dir=str(tmp_path))
     for rank in ranks:
         assert rank["launches"] == {"nn_bidir": 0, "nn_directed": 16}
-        np.testing.assert_array_equal(rank["pair"], ranks[0]["single"])
+        np.testing.assert_array_equal(rank["pair"], ranks[0]["pair"])
+        diff = np.abs(rank["pair"].astype(int)
+                      - ranks[0]["single"].astype(int))
+        within, mean = float((diff <= 2).mean()), float(diff.mean())
+        assert within >= 0.95 and mean <= 0.5, (within, mean)
+
+
+def test_band_vgg_taps_on_card_within_float32_rounding(card, tmp_path):
+    """The VGG taps over a 1x2 space mesh's row bands (float32) against the
+    whole image's, at the card test's pair and the default pair: within
+    float32 rounding (rtol 1e-5, atol 1e-5 of the largest tap value, as
+    ``test_torch_space_shard.py`` holds them on the CPU); prints how many
+    values differ at all (cuDNN picks its algorithm by shape)."""
+    from nct_tpu_torch.parallel.mesh import launch
+    import torch_mesh_workers as workers
+
+    rng = np.random.default_rng(5)
+    hws = ((120, 160), (128, 176), (452, 680), (600, 960))
+    images = [rng.integers(0, 256, hw + (3,)).astype(np.uint8) for hw in hws]
+    ranks = launch(workers.card_band_taps, 2, images, store_dir=str(tmp_path))
+    for hw, rec in zip(hws, ranks[0]):
+        print(f"band VGG taps {hw[0]}x{hw[1]} ({torch.cuda.get_device_name()}"
+              f"): values differing / max |diff| / max |tap| "
+              f"{ {t: (n, f'{d:.3g}', f'{m:.4g}') for t, (n, d, m, _) in rec.items()} }")
+        for tap, (_, d, m, close) in rec.items():
+            assert close, (hw, tap, d, m)
 
 
 def _chip_smoke():

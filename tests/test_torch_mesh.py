@@ -13,7 +13,13 @@ The ring is held against JAX's ring with the bounds of JAX's own test
 of indices equal; ties may fall on another block there), and on
 integer-valued features bitwise against JAX's and the port's exact search.
 The mesh pipeline is held bitwise against the port's single-process path,
-which the pipeline tests hold against JAX.
+which the pipeline tests hold against JAX: the row-sharded space meshes
+(their dot products add over the bands in rank order), the data mesh and
+the replicated PatchMatch path.  The ranks and the single-process
+references run with oneDNN off (``torch_mesh_workers.plain_convolutions``):
+oneDNN's convolutions may round a band's rows otherwise than the whole
+image's (``tests/test_torch_space_shard.py`` holds band VGG taps to rtol
+1e-5 with it on).
 """
 
 import jax
@@ -108,16 +114,22 @@ def _world(request, n):
 
 @pytest.fixture(scope="module")
 def tiny_refs():
-    """The port's single-process results the mesh runs must equal: one
-    pair and a vmap bucket of 2."""
+    """The port's single-process results the mesh runs must equal (oneDNN
+    off, as in the ranks): one pair, a vmap bucket of 2 and the PatchMatch
+    pair."""
     cnt, stl, seeds = workers.tiny_pairs(2, 40, 48, 44, 52)
     model = vgg19.init_params()
-    pair = pipeline.transfer_pair(model, cnt[0], stl[0], 2.0, workers.TINY,
-                                  seed=seeds[0], device="cpu").numpy()
-    bucket = tbatch.make_batch_transfer(workers.TINY, mode="vmap",
-                                        device="cpu")(
-        model, cnt, stl, seeds, 2.0).numpy()
-    return {"pair": pair, "bucket": bucket}
+    with torch.backends.mkldnn.flags(enabled=False):
+        pair = pipeline.transfer_pair(model, cnt[0], stl[0], 2.0,
+                                      workers.TINY, seed=seeds[0],
+                                      device="cpu").numpy()
+        bucket = tbatch.make_batch_transfer(workers.TINY, mode="vmap",
+                                            device="cpu")(
+            model, cnt, stl, seeds, 2.0).numpy()
+        pm = pipeline.transfer_pair(model, cnt[0], stl[0], 2.0,
+                                    workers.TINY_PM, seed=seeds[0],
+                                    device="cpu").numpy()
+    return {"pair": pair, "bucket": bucket, "pair_pm": pm}
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -169,13 +181,14 @@ def test_ring_bitwise_jax_exact_nn_integer(request, n, case):
 
 @pytest.mark.parametrize("n", [2, 4])
 def test_ring_cross_block_tie_takes_earliest_index(request, n):
-    """Rows of the last rank's band whose minimum is met in its own block
+    """Rows of a later rank's band whose minimum is met in its own block
     (visited first) and in block 0: the ring takes the earliest global
-    index, which lies in block 0."""
+    index, which lies in block 0.  Blocks are the row bands of
+    ``image_bands`` with one-row units."""
     a, b = CASES["tie"]
     na, nb = a.shape[0] * a.shape[1], b.shape[0] * b.shape[1]
-    nb_loc = tmesh.pad_to_multiple(-(-nb // n), 128)
-    na_loc = tmesh.pad_to_multiple(-(-na // n), 128)
+    bounds_a = tmesh.image_bands(a.shape[0], n, 1)
+    bounds_b = tmesh.image_bands(b.shape[0], n, 1)
     _, d_ref = exact_nn_plain(torch.from_numpy(a), torch.from_numpy(b), 3)
     # brute force: which B indices meet each row's minimum
     from nct_tpu_torch.ops.exact_nn import prep_tables
@@ -184,8 +197,10 @@ def test_ring_cross_block_tie_takes_earliest_index(request, n):
     dots, cnt = fa.float() @ fb.float().T, ma @ mb.T
     d = torch.where(cnt > 0, -dots / cnt.clamp(min=1), torch.inf)
     ties = d == d_ref.reshape(-1, 1)
-    owner = torch.arange(na) // na_loc
-    block = torch.arange(nb) // nb_loc
+    owner = torch.bucketize(torch.arange(na) // a.shape[1],
+                            torch.tensor(bounds_a[1:-1]), right=True)
+    block = torch.bucketize(torch.arange(nb) // b.shape[1],
+                            torch.tensor(bounds_b[1:-1]), right=True)
     crossed = [p for p in range(na) if owner[p] > 0
                and ties[p, block == owner[p]].any()
                and ties[p, block == 0].any()]
@@ -194,7 +209,8 @@ def test_ring_cross_block_tie_takes_earliest_index(request, n):
         nnf, _ = rank["tie"]
         idx = nnf[..., 1].reshape(-1) * b.shape[1] + nnf[..., 0].reshape(-1)
         for p in crossed:
-            assert idx[p] == int(torch.nonzero(ties[p])[0]) < nb_loc
+            assert idx[p] == int(torch.nonzero(ties[p])[0]) < (
+                bounds_b[1] * b.shape[1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -225,34 +241,53 @@ def test_ring_has_no_launches_on_cpu(world2):
 
 
 def test_space_mesh_pair_bitwise_single_process(world2, tiny_refs):
-    """transfer_pair under a 1x2 space mesh: both ranks return the
-    single-process pair (float32 VGG, as TINY has it)."""
+    """transfer_pair under a 1x2 space mesh runs on row bands: both ranks
+    return the single-process pair (float32 VGG, as TINY has it)."""
     for rank in world2["pipeline"]:
         np.testing.assert_array_equal(rank["pair_space"], tiny_refs["pair"])
+
+
+def test_space_mesh_patchmatch_pair_bitwise_single_process(world2,
+                                                           tiny_refs):
+    """A PatchMatch level keeps a 1x2 space mesh on the replicated path
+    (``pipeline.row_sharded`` is False): both ranks return the
+    single-process pair bit for bit."""
+    from nct_tpu_torch import Config
+    assert not pipeline.row_sharded(Config(fine_strategy="patchmatch",
+                                           space_mesh=_FakeMesh()))
+    for rank in world2["pipeline"]:
+        np.testing.assert_array_equal(rank["pair_space_pm"],
+                                      tiny_refs["pair_pm"])
+
+
+class _FakeMesh:
+    shape = {"data": 1, "space": 2}
 
 
 @pytest.mark.parametrize("mesh", ["bucket_space", "bucket_space_replicated",
                                   "bucket_data"])
 def test_mesh_bucket_bitwise_vmap(world2, tiny_refs, mesh):
-    """make_batch_transfer over a 1x2 mesh (through the ring, and with
-    ``ring_nn=False``) and a 2x1 mesh: every rank returns the whole bucket,
-    bitwise the single-process vmap bucket."""
+    """make_batch_transfer over a 1x2 mesh (row bands, through the ring and
+    with ``ring_nn=False``) and a 2x1 mesh: every rank returns the whole
+    bucket, bitwise the single-process vmap bucket."""
     for rank in world2["pipeline"]:
         np.testing.assert_array_equal(rank[mesh], tiny_refs["bucket"])
 
 
 def test_replicated_matcher_bitwise_ring(world2):
     """``ring_nn=False`` under the 1x2 mesh (each space rank searches the
-    whole tables) is the ring's in-pipeline reference: the two buckets are
-    equal bit for bit on every rank."""
+    gathered levels with ``nn_bidir``) is the ring's in-pipeline reference:
+    both matchers are exact and the rest of the path is the same, so the
+    two buckets are equal bit for bit on every rank."""
     for rank in world2["pipeline"]:
         np.testing.assert_array_equal(rank["bucket_space_replicated"],
                                       rank["bucket_space"])
 
 
 def test_grid_mesh_bucket_bitwise_vmap(world4, tiny_refs):
-    """A 2x2 mesh: items split over the data rows, rings over the space
-    columns; all 4 ranks return the single-process vmap bucket."""
+    """A 2x2 mesh: items split over the data rows, each pair row-sharded
+    over the space columns; all 4 ranks return the single-process vmap
+    bucket."""
     for out in world4["grid"]:
         np.testing.assert_array_equal(out, tiny_refs["bucket"])
 

@@ -29,6 +29,12 @@ TINY = Config(
 )
 
 
+# TINY with PatchMatch at level 1: outside the row-sharded slice, so a
+# space mesh runs it on the replicated path
+TINY_PM = dataclasses.replace(TINY, exact_nn_levels=1,
+                              fine_strategy="patchmatch")
+
+
 def tiny_pairs(b: int, h: int, w: int, hs: int, ws: int, seed: int = 0):
     """Seeded uint8 content and style buckets and their seeds."""
     rng = np.random.default_rng(seed)
@@ -62,9 +68,11 @@ def _errors(fn) -> str:
 
 def pipeline_cases(device: str = "cpu") -> dict:
     """Over 2 ranks: ``transfer_pair`` and a vmap bucket of 2 under a 1x2
-    space mesh (the bucket through the ring and, with ``ring_nn=False``,
-    through each rank's whole search), a bucket of 2 under a 2x1 data mesh,
-    and the error paths; every result as uint8 numpy."""
+    space mesh (row-sharded; the bucket through the ring and, with
+    ``ring_nn=False``, through each rank's ``nn_bidir`` on the gathered
+    levels), a bucket of 2 under a 2x1 data mesh, a PatchMatch pair under
+    the 1x2 mesh (the replicated path) and the error paths; every result as
+    uint8 numpy."""
     cnt, stl, seeds = tiny_pairs(2, 40, 48, 44, 52)
     model = vgg19.init_params()
     space = make_mesh(n_data=1, n_space=2, device=device)
@@ -80,6 +88,10 @@ def pipeline_cases(device: str = "cpu") -> dict:
         TINY, space, ring_nn=False)(model, cnt, stl, seeds, 2.0).cpu().numpy()
     out["bucket_data"] = make_batch_transfer(TINY, data)(
         model, cnt, stl, seeds, 2.0).cpu().numpy()
+    out["pair_space_pm"] = pipeline.transfer_pair(
+        model, cnt[0], stl[0], 2.0,
+        dataclasses.replace(TINY_PM, space_mesh=space), seed=seeds[0]
+    ).cpu().numpy()
     out["scan_error"] = _errors(
         lambda: make_batch_transfer(TINY, data, mode="scan"))
     out["split_error"] = _errors(lambda: make_batch_transfer(TINY, data)(
@@ -98,7 +110,8 @@ def grid_bucket(device: str = "cpu") -> np.ndarray:
 
 def card_pair(cnt: np.ndarray, stl: np.ndarray) -> dict:
     """On a card, 2 ranks: ``transfer_pair`` under a 1x2 space mesh with
-    float32 VGG, and (rank 0) the single-process pair it must equal."""
+    float32 VGG (row-sharded), and (rank 0) the single-process pair it
+    must equal."""
     model = vgg19.init_params()
     mesh = make_mesh(n_data=1, n_space=2)
     config = Config(vgg_compute_dtype="float32")
@@ -112,11 +125,53 @@ def card_pair(cnt: np.ndarray, stl: np.ndarray) -> dict:
     return out
 
 
+def card_band_taps(images: list) -> list:
+    """On a card, 2 ranks: each image's VGG taps (float32) over the 1x2
+    space mesh's row bands, gathered, beside the whole image's: per image
+    {tap: (values that differ, max |diff|, max |whole|, within rtol 1e-5
+    and atol 1e-5 x max |whole|)}."""
+    from nct_tpu_torch.parallel.mesh import RowBand, image_bands
+
+    model = vgg19.init_params().cuda()
+    mesh = make_mesh(n_data=1, n_space=2)
+    out = []
+    for img in images:
+        x = torch.from_numpy(img).cuda()
+        h, w = x.shape[:2]
+        bounds = image_bands(h, 2)
+        full = RowBand.of_image(mesh, "space", bounds, 0, h)
+        whole = model(x, vgg19.PIPELINE_TAPS, torch.float32)
+        band = model(full.take(x), vgg19.PIPELINE_TAPS, torch.float32,
+                     band=full)
+        rec = {}
+        for tap in vgg19.PIPELINE_TAPS:
+            rows = vgg19.feature_dims(h, w)[tap][0]
+            got = RowBand.of_image(mesh, "space", bounds, int(tap[4]) - 1,
+                                   rows).gather(band[tap])
+            top = float(whole[tap].abs().max())
+            rec[tap] = (int((got != whole[tap]).sum()),
+                        float((got - whole[tap]).abs().max()), top,
+                        torch.allclose(got, whole[tap], rtol=1e-5,
+                                       atol=1e-5 * top))
+        out.append(rec)
+    return out
+
+
+def plain_convolutions() -> None:
+    """Turn oneDNN off for this process: its CPU convolutions may round a
+    row band's output rows otherwise than the whole image's, while the
+    plain convolution gives a row the same bits either way, so a space
+    mesh's pair is bitwise the single process's (as on the card)."""
+    torch.backends.mkldnn.enabled = False
+
+
 def world2(cases: dict) -> dict:
     """Every 2-rank CPU case in one world: the rings and the pipeline."""
+    plain_convolutions()
     return {"ring": ring_cases(2, cases), "pipeline": pipeline_cases()}
 
 
 def world4(cases: dict) -> dict:
     """Every 4-rank CPU case in one world: the rings and the 2x2 bucket."""
+    plain_convolutions()
     return {"ring": ring_cases(4, cases), "grid": grid_bucket()}
