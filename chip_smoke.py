@@ -8,7 +8,7 @@ no result, without them.  Phases, each of which raises on failure:
 
   1. device: torch / CUDA versions and the card's name and power limit;
   2. build: compiles every kernel from nct_tpu_torch/csrc and prints
-     ptxas's register, spill and wgmma lines and each instance's resident
+     ptxas's register, spill and wgmma lines and each kernel's resident
      blocks per SM;
   3. kernels: the bidirectional NN kernel against its plain PyTorch version
      at the four L0-L3 shapes of the 452x680 / 600x960 pair — index
@@ -20,6 +20,13 @@ no result, without them.  Phases, each of which raises on failure:
      masked argmin);
   3b. the directed NN kernel at the same shapes and checks, and bitwise
      equal to the bidirectional kernel's row result on the same tables;
+  3c. ``conv3x3`` (VGG-19's float32 3x3 convolution, one fmaf chain per
+     output) against ``F.conv2d`` with TF32 off at every VGG-19 layer
+     shape of the 452x680 and 665x1000 images (rtol 1e-5, atol 1e-5 of
+     the largest output), with CUDA-event times of the kernel, the plain
+     version, one ``F.conv2d`` call with the bias and the float32 bound
+     per layer, and the float32 VGG forward of each geometry's pair
+     through the kernel and through cuDNN;
   4. slice: ``transfer_pair`` under the default Config on the seeded
      452x680 / 600x960 pair with seeded VGG-19 weights, one cold and three
      warm runs, 4 kernel launches per pair, every output bitwise equal to
@@ -27,18 +34,18 @@ no result, without them.  Phases, each of which raises on failure:
      path), which must agree;
   5. PatchMatch: ``Config(fine_strategy="patchmatch")`` on the same pair
      (exact L0-L3, PatchMatch at L4), one cold and one warm run with the
-     checks of phase 4; then a 3-frame ``transfer_sequence`` under
+     checks of phase 4; then a 2-frame ``transfer_sequence`` under
      ``Config(exact_nn_levels=0, fine_strategy="patchmatch")``, whose
-     frames 2-3 must start from the previous frame's level-0 fields;
+     second frame must start from the first frame's level-0 fields;
   6. profiler: ``nct_tpu_torch.tools.profile_stages`` at its real shapes,
      the path of the directed kernel;
   7. solver variants: (7a) ``Config.reference_parity()`` on the same pair
-     (PatchMatch at every level, block-Jacobi PCG), one cold and one warm
-     run, no NN kernel launch; (7b) ``Config(knn_memberships=3,
-     nl_transpose="scatter", wls_precond="jacobi")``, one cold and two warm
-     runs, 4 ``nn_bidir`` launches per pair (every output of 7a and 7b
-     bitwise equal to the first); a stage split of one more warm
-     pair of each and of the default Config; (7c) on the captured systems
+     (PatchMatch at every level, block-Jacobi PCG), one cold run, no NN
+     kernel launch, and its stage split over one more (warm) pair; (7b)
+     ``Config(knn_memberships=3, nl_transpose="scatter",
+     wls_precond="jacobi")``, one cold and one warm run, 4 ``nn_bidir``
+     launches per pair (the warm output bitwise equal to the cold one);
+     (7c) on the captured systems
      ``tests/fixtures/nl_L{0,1}.npz``: the scatter and tables transposes at
      an ample ``in_cap`` are one operator, the block-Jacobi and mg solves at
      ``retune.CONVERGED_ITERS`` give one colour transform, and the residual
@@ -59,7 +66,7 @@ no result, without them.  Phases, each of which raises on failure:
      times against 4 single launches, the bound (4 x the single bound)
      and a cuBLAS batched GEMM (``torch.bmm``) over the same tables;
      (b) ``make_batch_transfer(Config(), mode="vmap")`` on phase 8b's 4
-     pairs, one cold (traced) and two warm runs, every output bitwise
+     pairs, one cold (traced) and one warm run, every output bitwise
      equal to the first, 4 ``nn_bidir`` launches of 16 items per bucket, a
      stage split of one more bucket, and each item against 8b's scan
      item: the same solver iteration counts per level, within 2 LSB at
@@ -75,8 +82,8 @@ no result, without them.  Phases, each of which raises on failure:
      block-Jacobi at tol 1e-6; no NN launch); (c)
      ``Config(knn_memberships=3, nl_transpose="scatter",
      wls_precond="jacobi")``, B = 4 (4 launches of 16 items, the folded
-     P = 3 merge, the scatter transpose, Jacobi WLS); one cold and one
-     warm bucket each (10b the cold one only);
+     P = 3 merge, the scatter transpose, Jacobi WLS); one cold bucket
+     each;
  11. mesh: 2 ranks spawned by ``parallel.mesh.launch``, both on the one
      card (gloo): (a) ``ring_exact_nn`` a -> b and b -> a at the L0-L3
      shapes, random and integer features, bitwise equal to
@@ -86,15 +93,16 @@ no result, without them.  Phases, each of which raises on failure:
      matcher's peak bytes beside the single-card search's; (b) the default
      pair under ``Config(space_mesh=mesh, vgg_compute_dtype="float32")``,
      which runs every stage on row bands (``pipeline.row_sharded``), one
-     cold and one warm run, 16 ``nn_directed`` and no ``nn_bidir`` launch
-     per pair per rank, both ranks equal, bitwise the single-process pair,
-     with the (nl, wls) iterations of both; (c) ``make_batch_transfer(
+     cold and one warm run (warm bitwise cold), 16 ``nn_directed``, no ``nn_bidir`` and 44 ``conv3x3``
+     launches per pair per rank, both ranks equal, bitwise the
+     single-process pair, with the (nl, wls) iterations of both; (c)
+     ``make_batch_transfer(
      Config(), mesh)`` over a 2x1 data mesh on phase 8b's 4 pairs, every
      item bitwise its 8b scan item; (d) a vmap bucket of 2 under the 1x2
      space mesh (row bands), each ring step one launch of 2 items, each
      item bitwise its single-process item under float32 VGG; (c) one cold
-     and two warm runs, (d) one cold and one warm, every warm output
-     bitwise the cold one; (e) (d)'s bucket with ``ring_nn=False`` (each
+     and two warm runs, every warm output bitwise the cold one, (d) one
+     cold and one warm run, warm bitwise cold; (e) (d)'s bucket with ``ring_nn=False`` (each
      rank one ``nn_bidir`` launch of 2 items per exact level on the
      gathered levels), one cold run, bitwise (d)'s; the band exchanges'
      calls and host ms per rank;
@@ -173,17 +181,17 @@ no result, without them.  Phases, each of which raises on failure:
      width.  First ``nn_bidir`` against its plain version at the L0-L3
      shapes of the 700 and 1000 px pairs, random features (AGREE_MIN,
      DIST_TOL) and integer ones (bitwise), as phase 3 at the 452 px
-     pair's.  Then (a) ``python3 -m nct_tpu_torch.tools.bench --reps 2``
+     pair's.  Then (a) ``python3 -m nct_tpu_torch.tools.bench --reps 1``
      in a new process on ``bench.py``'s 452x680 / 600x960 pair (one cold
-     and 2 warm pairs, a warm and a timed scan batch of 4), its last line
+     and one warm pair, a warm and a timed scan batch of 4), its last line
      parsed, ``correct`` true; (b) ``bench.run`` at 700 px (465x700 /
      437x700: the stage-1 subset in one direction) and 1000 px (665x1000
      / 625x1000: both directions), one cold and one warm pair each, with
      peak device memory, the counts set to 0 before each run; in (a) and
      (b) 4 ``nn_bidir`` launches in each pair and 4 per pair in the run;
      (c) ``bench_batch`` over a bucket of 4, vmap and scan; (d)
-     ``bench_serving`` of 4 requests, sync, pipelined and on a 1x1 mesh;
-     (e) ``bench_sequence`` of 3 frames, the default Config and
+     ``bench_serving`` of 2 requests, sync, pipelined and on a 1x1 mesh;
+     (e) ``bench_sequence`` of 2 frames, the default Config and
      ``exact_nn_levels=0``; (f) the ``roofline`` table.  Every tool checks
      its own outputs and raises; each prints its JSON line.
      ``nn_bidir``'s record gains the shapes held against plain and the
@@ -199,7 +207,23 @@ no result, without them.  Phases, each of which raises on failure:
      the (nl, wls) iterations; the ranks equal, the warm run bitwise the
      cold one, each rank bitwise the single process and its peak at most
      0.65x the single process's; then one run over a
-     1x4 mesh for the per-rank peaks.
+     1x4 mesh for the per-rank peaks;
+ 17. PatchMatch, block-Jacobi and Jacobi WLS on row bands, 2 gloo ranks
+     on the card: (a) the float32 VGG taps over 1x2 row bands bitwise the
+     whole image's at 120x160, 128x176, 452x680 and 600x960, and the
+     120x160 / 128x176 white-noise pair of ``tests/test_torch_cuda.py``
+     on 1x2 row bands bitwise the single process; then the bench's
+     452x680 / 600x960 pair under ``Config.reference_parity`` (PatchMatch
+     at every level, block-Jacobi nonlocal, mg WLS; no NN launch) and
+     ``Config(fine_strategy="patchmatch", wls_precond="jacobi")`` (16
+     ``nn_directed`` a rank, PatchMatch at L4, Jacobi WLS), float32 VGG,
+     one cold 1x2 run each beside a single-process run on rank 0: ranks
+     equal, bitwise the single process with its iterations, 44
+     ``conv3x3`` launches, each rank's peak at most 0.65x the single
+     process's, with the seconds, the exchanges' host ms and calls and
+     the peak GiB by stage; then both configurations over 1x4, one cold
+     run each, for their per-rank peaks, every rank bitwise the 1x2
+     phase's single-process pair with its iterations.
 The line before the last holds {"kernels": [...]}, the one before it the
 card's name and power limit; the last line is {"ok": true, "device": ...}.
 """
@@ -266,23 +290,27 @@ def build_kernels() -> None:
     from nct_tpu_torch import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        path, jpeg_path = pool.map(_build.build, ("nn_bidir", "jpeg_decode"))
-    log(f"[build] nn_bidir.cu (instances nn_bidir, nn_directed) -> {path} "
-        f"and jpeg_decode.cpp (host) -> {jpeg_path} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    names = ("nn_bidir", "conv3x3", "jpeg_decode")
+    with ThreadPoolExecutor(len(names)) as pool:
+        path, conv_path, jpeg_path = pool.map(_build.build, names)
+    log(f"[build] nn_bidir.cu (instances nn_bidir, nn_directed) -> {path}, "
+        f"conv3x3.cu -> {conv_path} and jpeg_decode.cpp (host) -> "
+        f"{jpeg_path} in {time.perf_counter() - t0:.1f} s")
     wgmma_lines = 0
-    with open(path[:-3] + ".log") as f:
-        for line in f:
-            if any(w in line for w in ("registers", "smem", "spill", "wgmma")):
-                log("[build]   " + line.strip())
-                wgmma_lines += "wgmma" in line
+    for lib in (path, conv_path):
+        with open(lib[:-3] + ".log") as f:
+            for line in f:
+                if any(w in line for w in ("registers", "smem", "spill",
+                                           "wgmma")):
+                    log("[build]   " + line.strip())
+                    wgmma_lines += "wgmma" in line
     log(f"[build]   ptxas lines that mention wgmma: {wgmma_lines}")
-    from nct_tpu_torch.ops import cuda_nn
+    from nct_tpu_torch.ops import conv3x3, cuda_nn
     for name in ("nn_bidir", "nn_directed"):
         blocks, smem = cuda_nn.occupancy(name)
         log(f"[build]   {name}: {blocks} resident blocks per SM at {smem} B "
             f"of dynamic shared memory each")
+    log(f"[build]   conv3x3: {conv3x3.occupancy()} resident blocks per SM")
 
 
 def _features(torch, gen, h, w, c, integer: bool):
@@ -310,11 +338,12 @@ def _time_ms(torch, fn, reps: int) -> float:
 
 
 def reset_counts() -> None:
-    from nct_tpu_torch.ops import cuda_nn
+    from nct_tpu_torch.ops import conv3x3, cuda_nn
 
     for name in cuda_nn.LAUNCHES:
         cuda_nn.LAUNCHES[name] = 0
         cuda_nn.LAUNCH_ITEMS[name] = 0
+    conv3x3.LAUNCHES["conv3x3"] = 0
 
 
 def _tables(torch, gen, shape, integer: bool):
@@ -476,6 +505,124 @@ def check_kernels(torch) -> tuple[dict, dict]:
     return bidir, directed
 
 
+# phase 3c: conv3x3 at every VGG-19 layer of the 452x680 and 665x1000
+# images (the default pair's and the bench's 1000 px content), and the
+# float32 VGG forward of each geometry's pair (content and style to conv5_1)
+CONV_GEOMETRIES = (((452, 680), (600, 960)), ((665, 1000), (625, 1000)))
+CONV_RTOL = 1e-5       # rtol, and atol as a share of the largest output
+CONV_REPS = 5
+
+
+def _conv_bound_ms(h, w, cin, cout, f32_peak, bytes_peak) -> float:
+    """Least time of one layer: 2 H W Cin Cout 9 float32 operations at the
+    card's non-tensor peak against its operands read once and its output
+    written once."""
+    flops = 2.0 * h * w * cin * cout * 9
+    nbytes = 4.0 * (cin * (h + 2) * w + cout * h * w + 9 * cin * cout + cout)
+    return max(flops / f32_peak, nbytes / bytes_peak) * 1e3
+
+
+def check_conv3x3(torch) -> dict:
+    """Phase 3c: ``conv3x3`` against its plain version (``F.conv2d``, TF32
+    off) at every VGG-19 layer shape of both geometries, with CUDA-event
+    times of the kernel, the plain version, one ``F.conv2d`` call with the
+    bias (the library yardstick) and the bound per layer; then the float32
+    VGG forward of each geometry's pair through the kernel and through
+    cuDNN.  Returns the kernels-line record (the 452x680 layers' sums; the
+    launches per pair filled in by phase 11b)."""
+    import torch.nn.functional as F
+
+    from nct_tpu_torch.models import vgg19
+    from nct_tpu_torch.ops import conv3x3
+    from nct_tpu_torch.utils import flops as flops_mod
+
+    f32_peak = flops_mod.F32_PEAKS[torch.cuda.get_device_name()]
+    bytes_peak = flops_mod.device_peaks()[1]
+    gen = torch.Generator().manual_seed(3)
+    rec = {"name": "conv3x3", "route": "cuda",
+           "source": "nct_tpu_torch/csrc/conv3x3.cu",
+           "replaces": "nct_tpu/models/vgg19.py:149 (XLA's convolution, "
+                       "no Pallas kernel)",
+           "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+           "bound_ms": 0.0, "bound_by": "operations", "library_ms": 0.0,
+           "geometries": {}}
+    model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
+    for gi, (hw_c, hw_s) in enumerate(CONV_GEOMETRIES):
+        dims = vgg19.feature_dims(*hw_c)
+        geo = {"layers": {}}
+        cin = 3
+        for name, cout in vgg19.VGG19_CONV_LAYERS:
+            h, w = dims[name]
+            x = torch.relu(torch.randn(1, cin, h, w, generator=gen)).cuda()
+            xp = F.pad(x, (0, 0, 1, 1))
+            wt = (torch.randn(cout, cin, 3, 3, generator=gen)
+                  * math.sqrt(2.0 / (9 * cin))).cuda()
+            b = (0.1 * torch.randn(cout, generator=gen)).cuda()
+            # the kernel's weight layout, made once as VGG19 keeps it
+            wk = conv3x3.kernel_weight(wt)
+            got = conv3x3.conv3x3(xp, wt, b, wk)
+            want = conv3x3.conv3x3_plain(xp, wt, b)
+            torch.cuda.synchronize()
+            top = float(want.abs().max())
+            err = float((got - want).abs().max())
+            close = torch.allclose(got, want, rtol=CONV_RTOL,
+                                   atol=CONV_RTOL * top)
+
+            def library():
+                with conv3x3.no_tf32():
+                    return F.conv2d(xp, wt, b, padding=(0, 1))
+            ms = _time_ms(torch, lambda: conv3x3.conv3x3(xp, wt, b, wk),
+                          CONV_REPS)
+            plain = _time_ms(torch, lambda: conv3x3.conv3x3_plain(xp, wt, b),
+                             CONV_REPS)
+            lib = _time_ms(torch, library, CONV_REPS)
+            bound = _conv_bound_ms(h, w, cin, cout, f32_peak, bytes_peak)
+            geo["layers"][name] = {"hw": [h, w], "cin": cin, "cout": cout,
+                                   "ms": ms, "plain_ms": plain,
+                                   "library_ms": lib, "bound_ms": bound,
+                                   "max_abs_err": err}
+            log(f"[conv3x3] {hw_c[0]}x{hw_c[1]} {name} {h}x{w} {cin}->{cout}: "
+                f"max |err| {err:.3g} of {top:.4g} (within rtol "
+                f"{CONV_RTOL}: {close}); kernel {ms:.3f} ms "
+                f"({2.0 * h * w * cin * cout * 9 / ms / 1e9:.1f} TFLOP/s, "
+                f"{bound / ms:.3f} of bound {bound:.3f} ms), plain "
+                f"{plain:.3f} ms, F.conv2d {lib:.3f} ms")
+            if not close:
+                raise AssertionError(f"phase 3c: conv3x3 disagrees with "
+                                     f"F.conv2d at {hw_c} {name}")
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            if gi == 0:
+                for k, v in (("ms", ms), ("plain_ms", plain),
+                             ("bound_ms", bound), ("library_ms", lib)):
+                    rec[k] += v
+            cin = cout
+            del x, xp, got, want, wk
+        # the float32 forward of the pair: through the kernel, then cuDNN
+        imgs = [torch.randint(0, 256, hw + (3,), dtype=torch.uint8,
+                              generator=gen).cuda() for hw in (hw_c, hw_s)]
+
+        def forward():
+            for img in imgs:
+                model(img, vgg19.PIPELINE_TAPS, torch.float32)
+        conv3x3.LAUNCHES["conv3x3"] = 0
+        forward()
+        launches = conv3x3.LAUNCHES["conv3x3"]
+        fwd = _time_ms(torch, forward, 3)
+        vgg19.conv3x3 = lambda x, w, b, wk: conv3x3.conv3x3_plain(x, w, b)
+        try:
+            fwd_cudnn = _time_ms(torch, forward, 3)
+        finally:
+            vgg19.conv3x3 = conv3x3.conv3x3
+        geo.update(pair_forward_ms=fwd, pair_forward_cudnn_ms=fwd_cudnn,
+                   pair_forward_launches=launches)
+        log(f"[conv3x3] float32 VGG forward of the {hw_c[0]}x{hw_c[1]} / "
+            f"{hw_s[0]}x{hw_s[1]} pair to conv5_1: kernel {fwd:.3f} ms "
+            f"({launches} launches), cuDNN {fwd_cudnn:.3f} ms")
+        rec["geometries"]["{}x{}".format(*hw_c)] = geo
+        torch.cuda.empty_cache()
+    return rec
+
+
 def _pair(torch, gen, hw_c, hw_s, smooth: bool):
     """Seeded uint8 BGR content/style pair; ``smooth`` low-pass fields
     (bilinear-upsampled 8x8 noise) instead of white noise."""
@@ -511,7 +658,8 @@ def _timed_pairs(torch, label, model, config, cnt, stl, runs: int,
     """``runs`` checked transfer_pair runs (the first cold); each must make
     exactly ``launches`` kernel launches and give the first run's output
     bit for bit.  Prints the times; returns the launch counts read just
-    after the cold run and the median warm seconds."""
+    after the cold run and the median warm seconds (the cold run's when
+    ``runs`` is 1)."""
     from nct_tpu_torch import pipeline
     from nct_tpu_torch.ops import cuda_nn
 
@@ -540,10 +688,9 @@ def _timed_pairs(torch, label, model, config, cnt, stl, runs: int,
             raise AssertionError(
                 f"[{label}] run {run} differs from run 0 at "
                 f"{int((diff > 0).sum())} values (max {int(diff.max())})")
-    warm = statistics.median(times[1:])
+    warm = statistics.median(times[1:] or times)
     mp = CONTENT_HW[0] * CONTENT_HW[1] / 1e6
-    log(f"[{label}] 452x680 / 600x960: cold {times[0]:.3f} s, warm "
-        f"{[round(t, 3) for t in times[1:]]} s, median {warm:.3f} s "
+    log(f"[{label}] 452x680 / 600x960: {_timed(times)} "
         f"({mp / warm:.4f} MP/s), nl iters "
         f"{[int(t['nl_iters']) for t in trace]}, wls iters "
         f"{[int(t['wls_iters']) for t in trace]}, peak device memory "
@@ -584,6 +731,9 @@ def check_slice(torch) -> dict:
             "small_card": got, "small_cpu": ref}
 
 
+SEQUENCE_FRAMES = 2    # phase 5's pan: a cold frame and a warm-started one
+
+
 def check_patchmatch(torch) -> None:
     """Phase 5: the PatchMatch configuration and the video sequence."""
     from nct_tpu_torch import Config, pipeline
@@ -598,7 +748,7 @@ def check_patchmatch(torch) -> None:
 
     # a panning shot: each frame is the previous one moved 2 px right
     frames = [cnt.copy()]
-    for _ in range(2):
+    for _ in range(SEQUENCE_FRAMES - 1):
         frames.append(frames[-1][:, [0, 0, *range(CONTENT_HW[1] - 2)]])
     seq = Config(exact_nn_levels=0, fine_strategy="patchmatch")
     given, returned = [], []
@@ -626,11 +776,12 @@ def check_patchmatch(torch) -> None:
         pipeline.transfer_pair = transfer_pair
     from nct_tpu_torch.ops import cuda_nn
     per_frame = [round(b - a, 3) for a, b in zip([0.0, *outs], outs)]
-    warm = [given[k] is returned[k - 1] for k in (1, 2)]
-    log(f"[sequence] 3 frames 452x680 / 600x960, PatchMatch at every level: "
-        f"{per_frame} s per frame; frames 2-3 warm-started from the previous "
-        f"frame's level-0 fields: {warm}; kernel launches {cuda_nn.LAUNCHES}")
-    if len(outs) != 3 or given[0] is not None or not all(warm):
+    warm = [given[k] is returned[k - 1] for k in range(1, SEQUENCE_FRAMES)]
+    log(f"[sequence] {SEQUENCE_FRAMES} frames 452x680 / 600x960, PatchMatch "
+        f"at every level: {per_frame} s per frame; frames after the first "
+        f"warm-started from the previous frame's level-0 fields: {warm}; "
+        f"kernel launches {cuda_nn.LAUNCHES}")
+    if len(outs) != SEQUENCE_FRAMES or given[0] is not None or not all(warm):
         raise AssertionError("the sequence did not chain its warm starts")
     if any(v for v in cuda_nn.LAUNCHES.values()):
         raise AssertionError("no exact level, yet an NN kernel launched")
@@ -713,15 +864,13 @@ def check_variants(torch) -> None:
     model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
     cnt, stl = _pair(torch, gen, CONTENT_HW, STYLE_HW, smooth=False)
     parity = Config.reference_parity()
-    _timed_pairs(torch, "parity", model, parity, cnt, stl, 2,
+    _timed_pairs(torch, "parity", model, parity, cnt, stl, 1,
                  {"nn_bidir": 0, "nn_directed": 0})
     _stage_split(torch, "parity", model, parity, cnt, stl)
     variants = Config(knn_memberships=3, nl_transpose="scatter",
                       wls_precond="jacobi")
-    _timed_pairs(torch, "variants", model, variants, cnt, stl, 3,
+    _timed_pairs(torch, "variants", model, variants, cnt, stl, 2,
                  {"nn_bidir": variants.exact_nn_levels, "nn_directed": 0})
-    _stage_split(torch, "variants", model, variants, cnt, stl)
-    _stage_split(torch, "slice", model, Config(), cnt, stl)
     check_solvers(torch)
 
 
@@ -1123,7 +1272,7 @@ def check_vmap_bucket(torch, scan: dict) -> dict:
     return _vmap_bucket(
         torch, "vmap", model, Config(), scan["cnt_b"], scan["stl_b"],
         scan["seeds"], {"outs": scan["outs"], "traces": scan["traces"],
-                        "s": scan["warm_s"]}, warm_runs=2, split=True)
+                        "s": scan["warm_s"]}, warm_runs=1, split=True)
 
 
 def _scan_items(torch, model, config, cnt_b, stl_b, seeds) -> dict:
@@ -1146,9 +1295,9 @@ def _scan_items(torch, model, config, cnt_b, stl_b, seeds) -> dict:
 
 # phase 10: (label, Config, bucket size, warm runs, stage split)
 VMAP_CONFIGS = (
-    ("10a-pm", "patchmatch", 4, 1, False),
+    ("10a-pm", "patchmatch", 4, 0, False),
     ("10b-parity", "parity", 2, 0, False),
-    ("10c-variants", "variants", 4, 1, False),
+    ("10c-variants", "variants", 4, 0, False),
 )
 
 
@@ -1190,10 +1339,14 @@ def check_batch_profiler(torch) -> None:
 
 
 # phase 11: the ranks of the mesh phases (gloo, both on the one card), and
-# the runs of 11b's pair and 11d's bucket on row bands (one cold, one warm;
-# 11e's bucket runs once, cold)
+# the runs of 11b's pair and 11d's bucket on row bands (one cold, one warm
+# that must be bitwise it; 11e's bucket runs once, cold)
 MESH_RANKS = 2
 MESH_PAIR_RUNS = 2
+# float32 VGG convolutions of a 5-level pair (conv3x3 launches): the two
+# setup forwards to conv5_1 (2 x 13) and the re-extractions of conv4_1,
+# conv3_1, conv2_1 and conv1_1 (9 + 5 + 3 + 1)
+CONVS_PER_PAIR = 44
 
 
 def _ring_check(torch, mesh, a, b, timing=None) -> dict:
@@ -1247,7 +1400,7 @@ def _mesh_runs(torch, runs: int, fn) -> dict:
     kernel counts set to 0 just before it and read just after; every
     output must equal the first.  ``fn`` returns the output or (output,
     "stats" trace); the first run's iterations per level are kept."""
-    from nct_tpu_torch.ops import cuda_nn
+    from nct_tpu_torch.ops import conv3x3, cuda_nn
 
     times, launches, first, iters = [], None, None, None
     torch.cuda.reset_peak_memory_stats()
@@ -1261,14 +1414,15 @@ def _mesh_runs(torch, runs: int, fn) -> dict:
         if isinstance(out, tuple):
             out, trace = out
             iters = iters or _iters(trace)
-        counts = (dict(cuda_nn.LAUNCHES), dict(cuda_nn.LAUNCH_ITEMS))
+        counts = (dict(cuda_nn.LAUNCHES), dict(cuda_nn.LAUNCH_ITEMS),
+                  conv3x3.LAUNCHES["conv3x3"])
         if run == 0:
             first, launches = out, counts
         elif counts != launches or not torch.equal(out, first):
             raise AssertionError(f"run {run} differs from run 0 in its "
                                  f"output or launches {counts}")
     return {"out": first.cpu(), "s": times, "launches": launches[0],
-            "items": launches[1], "iters": iters,
+            "items": launches[1], "conv3x3": launches[2], "iters": iters,
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
@@ -1373,9 +1527,9 @@ def mesh_rank(cnt_b, stl_b, seeds) -> dict:
     return out
 
 
-def check_mesh(torch, scan: dict, directed: dict) -> None:
+def check_mesh(torch, scan: dict, directed: dict, conv: dict) -> None:
     """Phase 11: ``mesh_rank`` in 2 ranks on the card; checks every rank's
-    results and prints them."""
+    results and prints them; ``conv``'s launches are 11b's per pair."""
     from nct_tpu_torch import Config
     from nct_tpu_torch.parallel.mesh import launch
 
@@ -1421,20 +1575,23 @@ def check_mesh(torch, scan: dict, directed: dict) -> None:
     mp = CONTENT_HW[0] * CONTENT_HW[1] / 1e6
     for r in ranks:
         p = r["pair"]
-        warm = statistics.median(p["s"][1:])
+        warm = statistics.median(p["s"][1:] or p["s"])
         held, n_diff, max_diff = bitwise(torch, p["out"], single)
         log(f"[mesh] 11b rank {r['rank']} space mesh 1x{MESH_RANKS} pair "
             f"452x680 / 600x960 (row bands): {_timed(p['s'])}, "
-            f"{mp / warm:.4f} MP/s warm, launches per pair {p['launches']}, "
+            f"{mp / warm:.4f} MP/s, launches per pair {p['launches']}, "
+            f"conv3x3 {p['conv3x3']}, "
             f"peak {p['peak_gib']:.2f} GiB; bitwise the single-process pair "
             f"{held} ({n_diff} values differ, max |diff| {max_diff}); "
             f"(nl, wls) iterations {p['iters']}, single process "
             f"{single_iters}")
-        if not held or p["launches"] != per_pair:
+        if (not held or p["launches"] != per_pair
+                or p["conv3x3"] != CONVS_PER_PAIR):
             bad.append(f"11b rank {r['rank']}")
         if not torch.equal(p["out"], ranks[0]["pair"]["out"]):
             bad.append(f"11b rank {r['rank']} differs from rank 0")
     directed["ring_launches"] = ranks[0]["pair"]["launches"]["nn_directed"]
+    conv["launches"] = ranks[0]["pair"]["conv3x3"]
     for label, key, bsz, want in (
             ("11c data mesh 2x1", "data", 4,
              [o.cpu() for o in scan["outs"]]),
@@ -1452,7 +1609,8 @@ def check_mesh(torch, scan: dict, directed: dict) -> None:
             log(f"[mesh] {label} rank {r['rank']}: {_timed(b['s'])}, "
                 f"{s_pair:.3f} s per pair of the bucket of {bsz} "
                 f"({'warm' if len(b['s']) > 1 else 'cold'}), launches "
-                f"{b['launches']}, items {b['items']}, peak "
+                f"{b['launches']}, items {b['items']}, conv3x3 "
+                f"{b['conv3x3']}, peak "
                 f"{b['peak_gib']:.2f} GiB; items {what}: {same} (values "
                 f"differing {[n for _, n, _ in rules]})")
             if not all(same):
@@ -1471,7 +1629,8 @@ def check_mesh(torch, scan: dict, directed: dict) -> None:
                 r["data"]["items"]["nn_bidir"] != 2 * exact):
             bad.append(f"11c rank {r['rank']} launches")
         if r["bucket"]["launches"] != {"nn_bidir": 0, "nn_directed": ring} or (
-                r["bucket"]["items"]["nn_directed"] != 2 * ring):
+                r["bucket"]["items"]["nn_directed"] != 2 * ring) or (
+                r["bucket"]["conv3x3"] != 2 * CONVS_PER_PAIR):
             bad.append(f"11d rank {r['rank']} launches")
         if r["replicated"]["launches"] != {
                 "nn_bidir": exact, "nn_directed": 0} or (
@@ -2905,13 +3064,13 @@ def check_data_path(torch, smi: str, feed_13c: dict | None = None) -> dict:
 
 
 # phase 15: the benchmark tools (nct_tpu_torch/tools) at the real widths
-BENCH_PROCESS_REPS = 2
+BENCH_PROCESS_REPS = 1
 BENCH_SIZES = (700, 1000)
 BENCH_SIZE_REPS = 1
 BENCH_BATCH = 4
 BENCH_BATCH_REPS = 1
-BENCH_SERVING_N = 4
-BENCH_FRAMES = 3
+BENCH_SERVING_N = 2
+BENCH_FRAMES = 2
 ROOFLINE_REPS = 1
 
 
@@ -3077,6 +3236,7 @@ class StagePeaks:
             ("solve", pipeline, "_level_solve"),
             ("vgg", vgg19.VGG19, "forward"),
             ("nn", pipeline, "ring_band_nn"),
+            ("patchmatch", pipeline, "patchmatch"),
             ("nn", pipeline.cuda_nn, "exact_nn_bidir"),
             ("window_refine", pipeline, "window_refine"),
             ("bds", pipeline.bds, "bds_vote_band"),
@@ -3123,7 +3283,7 @@ class StagePeaks:
 def _shard_pair(torch, peaks, model, cnt, stl, config) -> dict:
     """One synchronised, counted and staged ``transfer_pair``."""
     from nct_tpu_torch import pipeline
-    from nct_tpu_torch.ops import cuda_nn
+    from nct_tpu_torch.ops import conv3x3, cuda_nn
     from nct_tpu_torch.parallel import mesh as mesh_mod
 
     torch.cuda.synchronize()
@@ -3142,7 +3302,8 @@ def _shard_pair(torch, peaks, model, cnt, stl, config) -> dict:
     finally:
         StagePeaks.uninstall(saved)
     return {"s": time.perf_counter() - t0, "out": out.cpu(),
-            "launches": dict(cuda_nn.LAUNCHES), "iters": _iters(trace),
+            "launches": {**cuda_nn.LAUNCHES, **conv3x3.LAUNCHES},
+            "iters": _iters(trace),
             "comm": dict(mesh_mod.COMM), "peak_gib": peaks.gib()}
 
 
@@ -3194,7 +3355,8 @@ def check_shard(torch, smi: str) -> None:
         torch.cuda.empty_cache()
         first = n == SHARD_RANKS[0]
         ranks = launch(shard_rank, n, n, 2 if first else 1, first)
-        want = {"nn_bidir": 0, "nn_directed": 2 * n * exact}
+        want = {"nn_bidir": 0, "nn_directed": 2 * n * exact,
+                "conv3x3": CONVS_PER_PAIR}
         (hc, wc), (hs, ws) = ranks[0]["geometry"]
         label = f"[shard] 1x{n} {hc}x{wc} / {hs}x{ws}"
         single = ranks[0].get("single")
@@ -3241,6 +3403,185 @@ def check_shard(torch, smi: str) -> None:
         raise AssertionError(f"phase 16 failed: {bad}")
 
 
+# phase 17: the configurations that PatchMatch, block-Jacobi and Jacobi
+# WLS bring onto row bands, on the bench's native pair over 1x2 (each beside
+# the single process) and over 1x4; first (17a, 1x2) the band VGG taps at
+# four geometries and the card test's pair
+PM_SHARD_CONFIGS = ("parity", "pm_jacobi")
+PM_SHARD_RANKS = (2, 4)
+CARD_PAIR_HW = ((120, 160), (128, 176))
+BAND_TAP_HW = ((120, 160), (128, 176), (452, 680), (600, 960))
+
+
+def pm_shard_config(name: str):
+    """``Config.reference_parity`` ("parity": PatchMatch at every level,
+    block-Jacobi nonlocal, mg WLS) or ``Config(fine_strategy="patchmatch",
+    wls_precond="jacobi")`` ("pm_jacobi": the ring at L0-L3, PatchMatch at
+    L4, Jacobi WLS), float32 VGG as the space mesh runs it."""
+    from nct_tpu_torch import Config
+
+    if name == "parity":
+        return Config.reference_parity(vgg_compute_dtype="float32")
+    return Config(fine_strategy="patchmatch", wls_precond="jacobi",
+                  vgg_compute_dtype="float32")
+
+
+def _band_tap_diffs(torch, mesh, model, hw) -> dict:
+    """Values of each float32 VGG tap over ``mesh``'s row bands that
+    differ from the whole image's, for a seeded image of ``hw``."""
+    from nct_tpu_torch.models import vgg19
+    from nct_tpu_torch.parallel.mesh import RowBand, image_bands
+
+    gen = torch.Generator().manual_seed(hw[0] * 7 + hw[1])
+    img = torch.randint(0, 256, hw + (3,), dtype=torch.uint8,
+                        generator=gen).cuda()
+    bounds = image_bands(hw[0], mesh.shape["space"])
+    full = RowBand.of_image(mesh, "space", bounds, 0, hw[0])
+    whole = model(img, vgg19.PIPELINE_TAPS, torch.float32)
+    band = model(full.take(img), vgg19.PIPELINE_TAPS, torch.float32,
+                 band=full)
+    dims = vgg19.feature_dims(*hw)
+    return {t: int((RowBand.of_image(mesh, "space", bounds, int(t[4]) - 1,
+                                     dims[t][0]).gather(band[t])
+                    != whole[t]).sum()) for t in vgg19.PIPELINE_TAPS}
+
+
+def shard_pm_rank(n_space: int, names, first: bool) -> dict:
+    """Phase 17 in one rank of an ``n_space``-rank gloo world on the one
+    card: (17a, when ``first``) the band taps and the card test's pair,
+    then one cold row-sharded pair of each configuration in ``names`` and,
+    on rank 0 when ``first``, its single-process pair."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from nct_tpu_torch import Config, pipeline
+    from nct_tpu_torch.models import vgg19
+    from nct_tpu_torch.parallel.mesh import make_mesh
+    from nct_tpu_torch.tools import bench
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(n_data=1, n_space=n_space)
+    lead = mesh.index("space") == 0
+    model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
+    out = {"rank": mesh.index("space")}
+    if first:
+        out["band_taps"] = {"{}x{}".format(*hw): _band_tap_diffs(
+            torch, mesh, model, hw) for hw in BAND_TAP_HW}
+        # tests/test_torch_cuda.py's pair: white noise from numpy's seed 5
+        rng = np.random.default_rng(5)
+        cnt, stl = (rng.integers(0, 256, hw + (3,)).astype(np.uint8)
+                    for hw in CARD_PAIR_HW)
+        f32 = Config(vgg_compute_dtype="float32")
+        dist.barrier()
+        out["card_pair"] = pipeline.transfer_pair(
+            model, cnt, stl, 2.0, dataclasses.replace(f32, space_mesh=mesh)
+        ).cpu()
+        if lead:
+            out["card_pair_single"] = pipeline.transfer_pair(
+                model, cnt, stl, 2.0, f32).cpu()
+        torch.cuda.empty_cache()
+    cnt, stl = bench.load_pair()
+    out["geometry"] = (cnt.shape[:2], stl.shape[:2])
+    peaks = StagePeaks(torch)
+    for name in names:
+        config = pm_shard_config(name)
+        dist.barrier()
+        out[name] = _shard_pair(torch, peaks, model, cnt, stl,
+                                dataclasses.replace(config, space_mesh=mesh))
+        dist.barrier()
+        if first and lead:
+            out[f"{name}_single"] = _shard_pair(torch, peaks, model, cnt, stl,
+                                                config)
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_shard_pm(torch, smi: str) -> None:
+    """Phase 17: ``shard_pm_rank`` over 1x2 (17a, then both configurations
+    beside the single process) and over 1x4 (both configurations, one cold
+    run each, for their per-rank peaks); every rank of both worlds is held
+    bitwise to the 1x2 world's single-process pair and its iterations."""
+    from nct_tpu_torch import Config
+    from nct_tpu_torch.parallel.mesh import launch
+
+    t0 = time.perf_counter()
+    bad = []
+    singles = {}      # the 1x2 world's single-process pairs
+    exact = Config().exact_nn_levels
+    for n in PM_SHARD_RANKS:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        first = n == PM_SHARD_RANKS[0]
+        ranks = launch(shard_pm_rank, n, n, PM_SHARD_CONFIGS, first)
+        if first:
+            for r in ranks:
+                log(f"[shard-pm] 17a rank {r['rank']} band VGG taps (float32, "
+                    f"conv3x3) values differing from the whole image's: "
+                    f"{r['band_taps']}")
+                if any(v for taps in r["band_taps"].values()
+                       for v in taps.values()):
+                    bad.append(f"17a rank {r['rank']} band taps")
+                held, n_diff, max_diff = bitwise(
+                    torch, r["card_pair"], ranks[0]["card_pair_single"])
+                log(f"[shard-pm] 17a rank {r['rank']} "
+                    f"{CARD_PAIR_HW[0][0]}x{CARD_PAIR_HW[0][1]} / "
+                    f"{CARD_PAIR_HW[1][0]}x{CARD_PAIR_HW[1][1]} pair on 1x{n} "
+                    f"row bands bitwise the single process {held} ({n_diff} "
+                    f"values differ, max |diff| {max_diff})")
+                if not held:
+                    bad.append(f"17a rank {r['rank']} card pair")
+        (hc, wc), (hs, ws) = ranks[0]["geometry"]
+        for name in PM_SHARD_CONFIGS:
+            label = f"[shard-pm] 1x{n} {name} {hc}x{wc} / {hs}x{ws}"
+            ring = 0 if name == "parity" else 2 * n * exact
+            want = {"nn_bidir": 0, "nn_directed": ring,
+                    "conv3x3": CONVS_PER_PAIR}
+            if first:
+                single = singles[name] = ranks[0][f"{name}_single"]
+                log(f"{label} single process ({smi}): {single['s']:.3f} s, "
+                    f"launches {single['launches']}, (nl, wls) iterations "
+                    f"{single['iters']}, peak GiB by stage "
+                    f"{single['peak_gib']}")
+            single = singles[name]
+            for r in ranks:
+                run = r[name]
+                c = run["comm"]
+                log(f"{label} rank {r['rank']} (cold; {smi}): {run['s']:.3f} "
+                    f"s, launches {run['launches']}, (nl, wls) iterations "
+                    f"{run['iters']}, host ms "
+                    + ", ".join(f"{k} {c[k + '_s'] * 1e3:.1f} "
+                                f"({c[k + '_calls']} calls)"
+                                for k in ("halo", "reduce", "gather",
+                                          "exchange"))
+                    + f"; peak GiB by stage {run['peak_gib']}")
+                if run["launches"] != want:
+                    bad.append(f"1x{n} {name} rank {r['rank']} launches")
+                if not torch.equal(run["out"], ranks[0][name]["out"]):
+                    bad.append(f"1x{n} {name} rank {r['rank']} differs from "
+                               f"rank 0")
+                held, n_diff, max_diff = bitwise(torch, run["out"],
+                                                 single["out"])
+                ratio = run["peak_gib"]["total"] / single["peak_gib"]["total"]
+                log(f"{label} rank {r['rank']} bitwise the single process "
+                    f"{held} ({n_diff} values differ, max |diff| {max_diff});"
+                    f" iterations equal {run['iters'] == single['iters']}; "
+                    f"peak {ratio:.3f}x the single process's (at most "
+                    f"{SHARD_PEAK_RATIO_MAX} at 1x2; {smi})")
+                if not held or run["iters"] != single["iters"]:
+                    bad.append(f"1x{n} {name} rank {r['rank']} against the "
+                               f"single process")
+                if first and ratio > SHARD_PEAK_RATIO_MAX:
+                    bad.append(f"1x{n} {name} rank {r['rank']} peak "
+                               f"{ratio:.3f}x")
+        log(f"[shard-pm] 1x{n} done at {time.perf_counter() - t0:.1f} s with "
+            f"the spawn")
+    if bad:
+        raise AssertionError(f"phase 17 failed: {bad}")
+
+
 def main() -> int:
     import torch
 
@@ -3255,6 +3596,7 @@ def main() -> int:
     build_kernels()
     phase_done("phase 2 (build)")
     bidir, directed = check_kernels(torch)
+    conv = check_conv3x3(torch)
     phase_done("phase 3 (kernels)")
     slice_info = check_slice(torch)
     bidir["launches"] = slice_info["launches"]
@@ -3278,7 +3620,7 @@ def main() -> int:
         label: {"launches": b["launches"], "items": b["items"]}
         for label, b in buckets.items()}
     phase_done("phase 10 (vmap of every single-card Config)")
-    check_mesh(torch, scan, directed)
+    check_mesh(torch, scan, directed, conv)
     phase_done("phase 11 (mesh: ring, space and data meshes)")
     check_caffe(torch, smi)
     phase_done("phase 12 (Caffe framework: VGG-19, CaffeNet, tools, layers)")
@@ -3290,8 +3632,11 @@ def main() -> int:
     phase_done("phase 15 (benchmark tools)")
     check_shard(torch, smi)
     phase_done("phase 16 (1000 px pair on row bands, 1x2 and 1x4 meshes)")
+    check_shard_pm(torch, smi)
+    phase_done("phase 17 (PatchMatch, block-Jacobi and Jacobi WLS on row "
+               "bands)")
     log(f"[time] whole run {time.perf_counter() - t0:.1f} s")
-    log(json.dumps({"kernels": [bidir, directed]}))
+    log(json.dumps({"kernels": [bidir, directed, conv]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -11,29 +11,39 @@
 
 With ``compute_dtype=torch.bfloat16`` the activations, weights and bias are
 rounded to bf16 where the JAX package casts them, and each convolution runs
-in float32 on those values: a bf16 x bf16 product is exact in f32, so this
-is JAX's ``preferred_element_type=f32`` (an f32 tap from bf16 operands),
-where a bf16 ``F.conv2d`` would round its output to bf16.  Convolutions run
-with TF32 off (``no_tf32``: cuDNN's and cuBLAS's TF32 flags off for the call),
-so float32 means float32 on the card as on the CPU.
+in float32 on those values through ``F.conv2d``: a bf16 x bf16 product is
+exact in f32, so this is JAX's ``preferred_element_type=f32`` (an f32 tap
+from bf16 operands), where a bf16 ``F.conv2d`` would round its output to
+bf16.  With float32 (the space mesh's rule, ``nct_tpu/parallel/batch.py``)
+each convolution goes through ``ops.conv3x3``: on the card the hand kernel
+``csrc/conv3x3.cu``, whose sum order for an output depends only on
+(ci, ky, kx), on the CPU ``F.conv2d``.  Convolutions run with TF32 off
+(``no_tf32``: cuDNN's and cuBLAS's TF32 flags off for the call), so float32
+means float32 on the card as on the CPU.
 
 Under a space mesh, ``forward(..., band=)`` runs the body on one band of
 the input's rows (``parallel.mesh.RowBand``): each 3x3 convolution takes a
 one-row halo from the neighbouring bands (zero rows at the image's edges,
 the convolution's own padding), and each pool works on its band alone,
-which starts on an even row (the band rule's 16-row units).  A
-convolution over a band may add in another order than over the whole
-image: taps within float32 rounding (rtol 1e-5) of the whole image's rows.
+which starts on an even row (the band rule's 16-row units).  In float32 a
+band's taps are the whole image's rows bit for bit: on the card by the
+kernel's construction, on the CPU with oneDNN off (the plain convolution
+gives a row the same bits either way; oneDNN's may round a band's rows
+otherwise, within float32 rounding).  A bfloat16 forward stays on
+``F.conv2d`` for bands too, where cuDNN may add a band's rows in another
+order than the whole image's: its taps are within float32 rounding of the
+whole image's, and a row-sharded pair's floor is then the JAX package's
+batch contract.
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from nct_tpu_torch.ops.conv3x3 import conv3x3, kernel_weight, no_tf32
 
 # (name, out_channels); pools sit between stages.  Full VGG-19 conv body.
 VGG19_CONV_LAYERS: tuple[tuple[str, int], ...] = (
@@ -71,20 +81,6 @@ def tap_channels() -> dict[str, int]:
     return {name: c for name, c in VGG19_CONV_LAYERS}
 
 
-@contextlib.contextmanager
-def no_tf32():
-    """float32 convolutions and products in float32, not TF32."""
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
-
-
 class VGG19(nn.Module):
     """The VGG-19 conv body (the layers present in ``weights``, which may
     stop early: the body up to conv5_1 suffices for the pipeline)."""
@@ -102,6 +98,17 @@ class VGG19(nn.Module):
                 conv.bias.copy_(b)
             self.convs[name] = conv
         self.requires_grad_(False)
+        self._kernel_weights: dict[str, tuple] = {}
+
+    def _kernel_weight(self, name: str, weight: torch.Tensor) -> torch.Tensor:
+        """``conv3x3``'s layout of a layer's weight, made once for each
+        storage and version of the weight (a move to another device or an
+        in-place update makes it anew)."""
+        key = (weight.device, weight.data_ptr(), weight._version)
+        hit = self._kernel_weights.get(name)
+        if hit is None or hit[0] != key:
+            hit = self._kernel_weights[name] = (key, kernel_weight(weight))
+        return hit[1]
 
     @torch.no_grad()
     def forward(self, bgr_u8: torch.Tensor,
@@ -134,13 +141,23 @@ class VGG19(nn.Module):
         with no_tf32():
             for i, (name, _) in enumerate(VGG19_CONV_LAYERS):
                 conv = self.convs[name]
-                if band is None:
-                    x = F.conv2d(x, rnd(conv.weight), padding=1)
-                else:
+                if band is not None:
                     x, top, bottom = band.halo(x, 1, 1, dim=2)
+                if not bf16:
+                    # rows padded here (zero rows at the image's edges)
+                    pad = (1, 1) if band is None else (1 - top, 1 - bottom)
+                    wt = (self._kernel_weight(name, conv.weight)
+                          if x.is_cuda else None)
+                    x = conv3x3(F.pad(x, (0, 0) + pad), conv.weight,
+                                conv.bias, wt)
+                elif band is None:
+                    x = F.conv2d(x, rnd(conv.weight), padding=1)
+                    x = x + rnd(conv.bias)[None, :, None, None]
+                else:
                     x = F.conv2d(F.pad(x, (0, 0, 1 - top, 1 - bottom)),
                                  rnd(conv.weight), padding=(0, 1))
-                x = torch.relu(x + rnd(conv.bias)[None, :, None, None])
+                    x = x + rnd(conv.bias)[None, :, None, None]
+                x = torch.relu(x)
                 if name in needed:
                     out[name] = x[0].permute(1, 2, 0).contiguous()
                 if i == deepest:

@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from nct_tpu_torch.ops.patchmatch import patch_offsets, patchify
+from nct_tpu_torch.ops.patchmatch import gather_patch_rows, patchify
 
 
 def _box_sum(x: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -67,23 +67,6 @@ def _gather_rolled(b: torch.Tensor, idx: torch.Tensor, dxs, wb: int,
     y, x = idx // wb, idx % wb
     return torch.stack([b[boff + y * wb + (x + dx) % wb] for dx in dxs],
                        dim=-2)
-
-
-def _patch_rows(b_pad: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
-                hb: int, wb: int, patch_size: int, boff):
-    """``patchify(b)`` rows at (cx, cy), gathered tap by tap from b
-    zero-padded by patch_size // 2 (b_pad [-1, C]): ([..., K*C] values,
-    [..., K] 0/1 validity)."""
-    half = patch_size // 2
-    wp = wb + 2 * half
-    vals, masks = [], []
-    for dx, dy in patch_offsets(patch_size):
-        ty, tx = cy + dy, cx + dx
-        vals.append(b_pad[boff + (ty + half) * wp + tx + half])
-        masks.append((ty >= 0) & (ty < hb) & (tx >= 0) & (tx < wb))
-    v = torch.stack(vals, dim=-2)
-    return (v.reshape(v.shape[:-2] + (-1,)),
-            torch.stack(masks, dim=-1).float())
 
 
 def window_refine(
@@ -195,8 +178,8 @@ def window_refine(
         pboff = boff // nb * ((hb + 2 * half) * (wb + 2 * half))
 
         def patch_rows(cand_x, cand_y):
-            return _patch_rows(b_pad, cand_x, cand_y, hb, wb, patch_size,
-                               pboff)
+            return gather_patch_rows(b_pad, cand_x, cand_y, hb, wb,
+                                     patch_size, pboff)
     else:
         pb, pbm = patchify(b16, patch_size)
         pb_flat = pb.reshape(-1, k * c)

@@ -236,35 +236,45 @@ class RowBand:
 
     def halo(self, t: torch.Tensor, above: int, below: int,
              dim: int = -3) -> tuple[torch.Tensor, int, int]:
-        """``t`` (this band's rows on ``dim``) with ``above`` rows of the
-        band above and ``below`` rows of the band below concatenated on;
-        none at the image's top or bottom edge.  Returns (extended tensor,
-        rows added above, rows added below).  Every rank of the axis calls
-        it with the same counts; a neighbour with fewer rows raises."""
+        """``t`` (this band's rows on ``dim``) with the ``above`` rows
+        above the band and the ``below`` rows below it concatenated on,
+        as far as the image has them (none past its top or bottom edge).
+        Rows come from whichever bands hold them: a halo may reach past a
+        neighbour shorter than it.  Returns (extended tensor, rows added
+        above, rows added below).  Every rank of the axis calls it with
+        the same counts."""
         t0 = time.perf_counter()
-        r, n = self.r, self.n
-        for j, need in ((r - 1, above), (r + 1, below)):
-            if 0 <= j < n and need > self.span(j)[1] - self.span(j)[0]:
-                raise ValueError(f"a halo of {need} rows reaches past band "
-                                 f"{j} of {self.starts} (h {self.h})")
+        r = self.r
+        start, stop = self.start, self.stop
+
+        def wanted(j):
+            """The rows band j asks for: above it, then below it."""
+            js, je = self.span(j)
+            return ((js - min(above, js), js),
+                    (je, je + min(below, self.h - je)))
+
+        def overlap(rows, j):
+            js, je = self.span(j)
+            return [(max(lo, js), min(hi, je)) for lo, hi in rows
+                    if max(lo, js) < min(hi, je)]
+
         sends, recvs = {}, {}
-        if r > 0 and below:
-            sends[r - 1] = t.narrow(dim, 0, below)
-        if r < n - 1 and above:
-            sends[r + 1] = t.narrow(dim, t.shape[dim] - above, above)
-        top = above if r > 0 else 0
-        bottom = below if r < n - 1 else 0
         shape = list(t.shape)
-        if top:
-            shape[dim] = top
-            recvs[r - 1] = t.new_empty(shape)
-        if bottom:
-            shape[dim] = bottom
-            recvs[r + 1] = t.new_empty(shape)
+        for j in range(self.n):
+            if j == r:
+                continue
+            # a band lies wholly above or below band j: one range each way
+            for lo, hi in overlap(wanted(j), r):
+                sends[j] = t.narrow(dim, lo - start, hi - lo)
+            for lo, hi in overlap(wanted(r), j):
+                shape[dim] = hi - lo
+                recvs[j] = t.new_empty(shape)
         _p2p(self.mesh, self.axis, sends, recvs)
-        parts = ([recvs[r - 1]] if top else []) + [t] + (
-            [recvs[r + 1]] if bottom else [])
+        (lo_top, _), (_, hi_bottom) = wanted(r)
+        parts = ([recvs[j] for j in sorted(recvs) if j < r] + [t]
+                 + [recvs[j] for j in sorted(recvs) if j > r])
         out = torch.cat(parts, dim=dim) if len(parts) > 1 else t
+        top, bottom = start - lo_top, hi_bottom - stop
         COMM["halo_calls"] += 1
         COMM["halo_s"] += time.perf_counter() - t0
         return out, top, bottom

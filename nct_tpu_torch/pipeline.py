@@ -35,18 +35,20 @@ Under ``Config.space_mesh`` (a ``parallel.mesh.Mesh`` with more than one
 rank on ``space_axis``) every rank of the space group calls the function
 with the same pair or bucket, and every rank returns the whole result,
 bitwise equal on every rank.  For the configurations ``row_sharded``
-accepts (the default family: exact levels, window refine above them, the
-P = 1 graph, slot-keyed tables, mg nonlocal and WLS) each rank holds and
-computes its band of rows of the pair (``parallel.mesh.image_bands``; the
-JAX package's GSPMD row sharding): the VGG body, the pyramids, the colour
-and feature stages, the k-NN graph and both solves run on bands with
-one-row halos; the exact levels search through the ring over row bands
-(``parallel.ring_nn``) or, with ``ring_nn=False``, through ``nn_bidir`` on
-the gathered levels; window refine, the BDS votes and the candidates read
-gathered style (and candidate) operands; k-means runs on the gathered
-conv5_1 level and the coarse multigrid levels are gathered; dot products
-add over the bands in rank order.  The output rows are gathered at the
-end.  Every other configuration keeps the replicated stages (the exact
+accepts (one membership and the slot-keyed in-edge tables; any search,
+preconditioner and level count) each rank holds and computes its band of
+rows of the pair (``parallel.mesh.image_bands``; the JAX package's GSPMD
+row sharding): the VGG body, the pyramids, the colour and feature stages,
+the k-NN graph and both solves run on bands with one-row halos; the exact
+levels search through the ring over row bands (``parallel.ring_nn``) or,
+with ``ring_nn=False``, through ``nn_bidir`` on the gathered levels;
+window refine and PatchMatch search a band of one image against the
+gathered other level (PatchMatch's propagation through a 15-row halo per
+iteration); the BDS votes and the candidates read gathered style (and
+candidate) operands; k-means runs on the gathered conv5_1 level and the
+coarse multigrid levels are gathered; dot products add over the bands in
+rank order.  The output rows are gathered at the end.  ``knn_memberships
+> 1`` and the scatter transpose keep the replicated stages (the exact
 levels through the ring, every other stage on every rank whole).
 """
 
@@ -86,7 +88,9 @@ class GeneratorDraws:
     def patchmatch_uniforms(self, level: int, direction: str,
                             shape: tuple) -> torch.Tensor:
         """Random-search uniforms of one PatchMatch call; ``direction`` is
-        "ab", then "ba", at each PatchMatch level."""
+        "ab", then "ba", at each PatchMatch level.  On row bands every
+        rank draws the whole field's and keeps its band's rows, so the
+        draws are the single process's."""
         return torch.rand(shape, generator=self.generator)
 
     def candidate_scores(self, level: int, k: int, n: int) -> torch.Tensor:
@@ -146,18 +150,16 @@ def check_config(config: Config) -> None:
 def row_sharded(config: Config) -> bool:
     """True when ``config.space_mesh`` splits the pair by rows (more than
     one rank on ``space_axis``) and the configuration is one the band
-    stages run: window refine above at least one exact level, one
-    membership, the slot-keyed in-edge tables (``nl_transpose`` "auto" or
-    "tables") and the mg V-cycle in both solves.  PatchMatch at any level,
-    ``knn_memberships > 1``, the scatter transpose, block-Jacobi and
-    Jacobi WLS keep the replicated stages under a mesh."""
+    stages run: one membership and the slot-keyed in-edge tables
+    (``nl_transpose`` "auto" or "tables"), with any search (exact levels,
+    window refine, PatchMatch at any level) and either preconditioner of
+    either solve (mg or block-Jacobi nonlocal, mg or Jacobi WLS), so
+    ``Config.reference_parity`` too.  ``knn_memberships > 1`` and the
+    scatter transpose keep the replicated stages under a mesh."""
     mesh = config.space_mesh
     return (mesh is not None and mesh.shape[config.space_axis] > 1
-            and config.fine_strategy == "window"
-            and config.exact_nn_levels >= 1
             and config.knn_memberships == 1
-            and config.nl_transpose != "scatter"
-            and config.nl_precond == "mg" and config.wls_precond == "mg")
+            and config.nl_transpose != "scatter")
 
 
 def _resolve_device(device, config: Config | None = None) -> torch.device:
@@ -396,7 +398,7 @@ def _run_levels(model, config: Config, taps, draws, bds_weight: float, cnt,
     the loop runs on row bands (``_run_band_levels``)."""
     if row_sharded(config):
         return _run_band_levels(model, config, taps, draws, bds_weight, cnt,
-                                stl, record, ring)
+                                stl, ann, bnn, record, ring)
     numlayer = len(taps)
     ranges = config.pm_search_radii(max(*cnt.shape[-3:-1], *stl.shape[-3:-1]))
     (cnt_feats, stl_feats, cnt_pyr, stl_pyr, cnt_lab_unit, label_map,
@@ -566,11 +568,13 @@ def _band_setup(model, cnt, stl, draws, config: Config, taps,
             membership)
 
 
-def _band_level_match(config: Config, l: int, bands: _PairBands,
-                      bds_weight: float, ann_prev, bnn_prev, cnt_feat_l,
-                      stl_feat_l, down_stl, ring: bool):
+def _band_level_match(config: Config, l: int, rs: int, draws, bands:
+                      _PairBands, bds_weight: float, ann_prev, bnn_prev,
+                      cnt_feat_l, stl_feat_l, down_stl, ring: bool):
     """``_level_match`` on this rank's bands: (ann of the content band,
-    bnn of the style band, guide and error of the content band)."""
+    bnn of the style band, guide and error of the content band).
+    ``ann_prev``/``bnn_prev``: the previous level's band fields, or at
+    level 0 the whole warm start (or None)."""
     bc, bs = bands.cnt(l), bands.stl(l)
     ah, aw = bc.h, cnt_feat_l.shape[-2]
     bh, bw = bs.h, stl_feat_l.shape[-2]
@@ -587,22 +591,49 @@ def _band_level_match(config: Config, l: int, bands: _PairBands,
                                                 bs.gather(fs_n), ps)
         ann, bnn = bc.take(ann), bs.take(bnn)
     else:
-        ann0 = _band_upsample(ann_prev, bands.cnt(l - 1), bc, aw, bh, bw)
-        bnn0 = _band_upsample(bnn_prev, bands.stl(l - 1), bs, bw, ah, aw)
+        lead = tuple(fc_n.shape[:-3])
+        if l > 0:
+            ann0 = _band_upsample(ann_prev, bands.cnt(l - 1), bc, aw, bh, bw)
+            bnn0 = _band_upsample(bnn_prev, bands.stl(l - 1), bs, bw, ah, aw)
+        elif ann_prev is not None:      # video warm start
+            ann0, bnn0 = bc.take(ann_prev), bs.take(bnn_prev)
+        else:
+            # the band's rows of the scaled identity
+            ann0 = bc.take(nnf.init_scaled_identity(
+                ah, aw, bh, bw, fc_n.device)).expand(lead + (bc.rows, aw, 2))
+            bnn0 = bs.take(nnf.init_scaled_identity(
+                bh, bw, ah, aw, fc_n.device)).expand(lead + (bs.rows, bw, 2))
+        window = config.fine_strategy == "window" and l > 0
+        iters = (config.pm_iters_fine if config.exact_nn_levels > 0
+                 else config.pm_iters)
         half = ps // 2
         fields = []
-        for own, other, f0, own_px in ((bc, bs, ann0, ah * aw),
-                                       (bs, bc, bnn0, bh * bw)):
-            x = fc_n if own is bc else fs_n
-            whole = other.gather(fs_n if own is bc else fc_n)
-            x_ext, top, bottom = own.halo(x, half, half)
-            f0_ext = own.halo(f0, half, half)[0]
-            fields.append(window_refine(
-                x_ext, whole, f0_ext, config.window_radius,
-                config.window_shortlist, ps,
-                stage1_channels(config, ah * aw, own_px),
-                halo=(top, bottom), gather_taps=True)[0])
-            del whole, x_ext
+        # each band searches the gathered other level
+        for direction, own, other, x, y, f0, own_w in (
+                ("ab", bc, bs, fc_n, fs_n, ann0, aw),
+                ("ba", bs, bc, fs_n, fc_n, bnn0, bw)):
+            whole = other.gather(y)
+            if window:
+                x_ext, top, bottom = own.halo(x, half, half)
+                f0_ext = own.halo(f0, half, half)[0]
+                fields.append(window_refine(
+                    x_ext, whole, f0_ext, config.window_radius,
+                    config.window_shortlist, ps,
+                    stage1_channels(config, ah * aw, own.h * own_w),
+                    halo=(top, bottom), gather_taps=True)[0])
+                del x_ext
+            else:
+                n_mags = max(len(random_search_mags(rs, other.h,
+                                                    whole.shape[-2])), 1)
+                # the whole field's draws, as the single process draws
+                # them (every rank alike), then the band's rows
+                u = draws.patchmatch_uniforms(
+                    l, direction, (iters, n_mags, own.h, own_w, 2)).narrow(
+                        -3, own.start, own.rows)
+                fields.append(patchmatch(x, whole, f0, u, iters, rs, ps,
+                                         band=own)[0])
+                del u
+            del whole
         ann, bnn = fields
     guide_bgr = bds.bds_reconstruct_color(bs.gather(down_stl), ann, bnn, 1.0,
                                           bds_weight, ps, bands=(bc, bs))
@@ -653,7 +684,10 @@ def _band_level_solve(model, config: Config, l: int, numlayer: int, taps,
         a0 = torch.clamp(a0, 0.0, 2.0)
         b0 = tgt - cnt_lab_d * a0
     final = l == numlayer - 1
-    nl_iters = config.cg_iters_final_mg if final else config.cg_iters_mg
+    if config.nl_precond == "mg":
+        nl_iters = config.cg_iters_final_mg if final else config.cg_iters_mg
+    else:
+        nl_iters = config.cg_iters_final if final else config.cg_iters
     a_d, b_d, nl_it, nl_r2 = solve_nonlocal(
         a0, b0, cnt_lab_d, guide_lab_d, confidence, nbr_ids, nbr_w,
         float(h * w) / float(ah * aw), config.local_weight, config.wls_alpha,
@@ -669,7 +703,9 @@ def _band_level_solve(model, config: Config, l: int, numlayer: int, taps,
         lam = lam * 4.0  # final-level boost (ref :1418-1424)
     a_f, b_f, wls_it, wls_r2 = solve_wls(
         _band_resize(a_d, bl, bf, w), _band_resize(b_d, bl, bf, w),
-        cnt_lab_unit, lam, config.wls_alpha, iters=config.wls_cg_iters_mg,
+        cnt_lab_unit, lam, config.wls_alpha,
+        iters=(config.wls_cg_iters_mg if config.wls_precond == "mg"
+               else config.wls_cg_iters),
         tol=config.cg_tol, precond_kind=config.wls_precond, band=bf)
     refined = unit_lab_to_bgr_u8(apply_transform(a_f, b_f, cnt_lab_unit))
 
@@ -683,11 +719,13 @@ def _band_level_solve(model, config: Config, l: int, numlayer: int, taps,
 
 
 def _run_band_levels(model, config: Config, taps, draws, bds_weight: float,
-                     cnt, stl, record, ring: bool):
+                     cnt, stl, ann, bnn, record, ring: bool):
     """``_run_levels`` on this rank's row bands (``row_sharded``): every
     stage holds the band's rows, the output rows (and a trace's fields)
-    are gathered, so every rank returns the whole result."""
+    are gathered, so every rank returns the whole result.  ``ann``/``bnn``:
+    the whole level-0 warm start or None."""
     numlayer = len(taps)
+    ranges = config.pm_search_radii(max(*cnt.shape[-3:-1], *stl.shape[-3:-1]))
     bands = _PairBands(config, taps, tuple(cnt.shape[-3:-1]),
                        tuple(stl.shape[-3:-1]))
     (cnt_feats, stl_feats, cnt_pyr, stl_pyr, cnt_lab_unit, label_map,
@@ -696,11 +734,11 @@ def _run_band_levels(model, config: Config, taps, draws, bds_weight: float,
     refined = None
     cnt_feat_l = cnt_feats[taps[0]]
     trace: list[dict] = []
-    prev_ab = ann = bnn = coarse_state = None
+    prev_ab = coarse_state = None
     for l in range(numlayer):
         ann, bnn, guide_bgr, bds_err = _band_level_match(
-            config, l, bands, bds_weight, ann, bnn, cnt_feat_l,
-            stl_feats[taps[l]], stl_pyr[l], ring)
+            config, l, max(int(ranges[l]), 1), draws, bands, bds_weight, ann,
+            bnn, cnt_feat_l, stl_feats[taps[l]], stl_pyr[l], ring)
         (refined, cnt_feat_l, a_d, b_d, a_f, b_f, nl_info,
          wls_info) = _band_level_solve(
             model, config, l, numlayer, taps, draws, bands, guide_bgr,

@@ -511,9 +511,14 @@ def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
                                          d2 + deg_nl, 2.0 * gx2, 2.0 * gy2)
         return operator, rhs, precond
 
-    # block Jacobi: the data rows couple (a_i, b_i) as d2 [[s^2, s], [s, 1]]
-    # and both Laplacians add only to the diagonal
     deg = 2.0 * laplacian_degree(gx2, gy2)[..., None] + deg_nl
+    return operator, rhs, _block_jacobi(d2, s, deg)
+
+
+def _block_jacobi(d2, s, deg):
+    """The exact per-pixel 2x2 inverse of the diagonal blocks: the data
+    rows couple (a_i, b_i) as d2 [[s^2, s], [s, 1]], and both Laplacians
+    (``deg``, their degree) add only to the diagonal."""
     blk_aa = d2 * s * s + deg
     blk_bb = d2 + deg
     blk_ab = d2 * s
@@ -524,7 +529,7 @@ def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
         return (inv_det * (blk_bb * ra - blk_ab * rb),
                 inv_det * (blk_aa * rb - blk_ab * ra))
 
-    return operator, rhs, block_jacobi
+    return block_jacobi
 
 
 def _band_keep(band, slots, key, gidx, deg, in_max: int):
@@ -566,21 +571,26 @@ def _band_keep(band, slots, key, gidx, deg, in_max: int):
 def make_nonlocal_system_band(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
                               norm_factor: float, local_weight: float,
                               alpha: float, nonlocal_weight: float,
-                              candidates, nbr_slots, in_cap: int, band):
+                              candidates, nbr_slots, in_cap: int, band,
+                              precond_kind: str = "mg"):
     """``make_nonlocal_system`` over row bands, for slot-keyed in-edge
-    tables and the multigrid preconditioner: src_lab, ref_lab, confidence
-    and the graph (nbr_ids [..., n, k] global pixel ids, nbr_slots,
-    nbr_w) hold one band's rows (``band``, a ``parallel.mesh.RowBand``);
-    every rank passes the same candidates [..., K, M].
+    tables and either preconditioner: src_lab, ref_lab, confidence and
+    the graph (nbr_ids [..., n, k] global pixel ids, nbr_slots, nbr_w)
+    hold one band's rows (``band``, a ``parallel.mesh.RowBand``); every
+    rank passes the same candidates [..., K, M].
 
     Each slot keeps its strongest in-edges up to the whole graph's width,
     ranked across bands (``_band_keep``), so the operator is the whole
     one.  A matvec reads the candidates' values from the ranks that hold
     them and adds the slots' in-edge sums over the bands in rank order (one
     gather of [K*M] rows per matvec); the grid terms and the V-cycle take
-    one-row halos.  A leading batch axis folds into the rows as in
-    ``make_nonlocal_system``.
+    one-row halos.  The block-Jacobi inverse is per pixel once its
+    diagonal holds the in-edge degree summed over the bands and the grid
+    degree over a halo: the whole one's rows bit for bit.  A leading batch
+    axis folds into the rows as in ``make_nonlocal_system``.
     """
+    if precond_kind not in PRECOND_KINDS:
+        raise ValueError(f"precond_kind={precond_kind!r}")
     hl, w = src_lab.shape[-3], src_lab.shape[-2]
     g = src_lab.shape[0] if src_lab.dim() == 4 else 1
     n = hl * w                         # band pixels per item
@@ -686,9 +696,13 @@ def make_nonlocal_system_band(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
     rhs = (d2 * s * r, d2 * r)
     # out- and in-degree of the kept pairs on the diagonal
     deg_nl = both_deg.reshape(s.shape[:-1])[..., None]
-    precond = make_mg_preconditioner(d2 * s * s + deg_nl, d2 * s,
-                                     d2 + deg_nl, 2.0 * gx2, 2.0 * gy2, band)
-    return operator, rhs, precond
+    if precond_kind == "mg":
+        precond = make_mg_preconditioner(d2 * s * s + deg_nl, d2 * s,
+                                         d2 + deg_nl, 2.0 * gx2, 2.0 * gy2,
+                                         band)
+        return operator, rhs, precond
+    deg = 2.0 * laplacian_degree(gx2, gy2_ext, band)[..., None] + deg_nl
+    return operator, rhs, _block_jacobi(d2, s, deg)
 
 
 def solve_nonlocal(a0, b0, src_lab, ref_lab, confidence, nbr_ids, nbr_w,
@@ -702,18 +716,16 @@ def solve_nonlocal(a0, b0, src_lab, ref_lab, confidence, nbr_ids, nbr_w,
     run, final ||r||^2).  With a leading batch axis on every operand the
     B systems run as one through ``cg_solve_grouped``: iterations and
     ||r||^2 are then [B] tensors, each item's own.  With ``band`` (a
-    ``parallel.mesh.RowBand``; slot-keyed tables and the mg V-cycle only)
+    ``parallel.mesh.RowBand``; slot-keyed tables, either preconditioner)
     every operand is one band's rows (``make_nonlocal_system_band``) and
     the dot products add over the bands in rank order."""
     if band is not None:
-        if precond_kind != "mg" or transpose == "scatter" or (
-                candidates is None or nbr_slots is None):
-            raise ValueError("row bands solve the slot-keyed tables with "
-                             "the mg preconditioner only")
+        if transpose == "scatter" or candidates is None or nbr_slots is None:
+            raise ValueError("row bands solve the slot-keyed tables only")
         operator, rhs, precond = make_nonlocal_system_band(
             src_lab, ref_lab, confidence, nbr_ids, nbr_w, norm_factor,
             local_weight, alpha, nonlocal_weight, candidates, nbr_slots,
-            in_cap, band)
+            in_cap, band, precond_kind)
     else:
         operator, rhs, precond = make_nonlocal_system(
             src_lab, ref_lab, confidence, nbr_ids, nbr_w, norm_factor,

@@ -45,28 +45,25 @@ def solve_wls(a_up: torch.Tensor, b_up: torch.Tensor,
     gate and gradient weights, and ``cg_solve_grouped`` keeps each pair's
     step sizes: iterations and ||r||^2 are then [B] tensors.
 
-    With ``band`` (a ``parallel.mesh.RowBand``; mg only) every operand is
-    one band's rows: the gradient weights, the Laplacian and the V-cycle
-    take one-row halos, and the dot products add over the bands in rank
-    order (``solve.cg``)."""
+    With ``band`` (a ``parallel.mesh.RowBand``) every operand is one
+    band's rows: the gradient weights, the Laplacian, the V-cycle and the
+    Jacobi diagonal take one-row halos, and the dot products add over the
+    bands in rank order (``solve.cg``)."""
     if precond_kind not in PRECOND_KINDS:
         raise ValueError(f"precond_kind={precond_kind!r}")
-    if band is not None and precond_kind != "mg":
-        raise ValueError("row bands solve with the mg preconditioner only")
     rough = roughness_gate(a_up, b_up, cnt_lab_unit)[..., None]
     gx, gy = gradient_weights(cnt_lab_unit[..., 0], 1.0, alpha, band)
     lam32 = torch.tensor(lam, dtype=torch.float32).to(gx.device)
     gx2 = gx * gx * lam32
     gy2 = gy * gy * lam32
 
+    gy2_ext = gy2 if band is None else band.halo(gy2, 1, 0, dim=-2)[0]
     if band is None:
         def operator(x):
             a, b = x
             return (rough * a + laplacian_apply(a, gx2, gy2),
                     rough * b + laplacian_apply(b, gx2, gy2))
     else:
-        gy2_ext = band.halo(gy2, 1, 0, dim=-2)[0]
-
         def operator(x):
             a, b = x
             # one halo for both: the Laplacian is elementwise over channels
@@ -80,7 +77,8 @@ def solve_wls(a_up: torch.Tensor, b_up: torch.Tensor,
         precond = make_mg_preconditioner(rough, torch.zeros_like(rough),
                                          rough, gx2, gy2, band)
     else:
-        diag = (rough[..., 0] + laplacian_degree(gx2, gy2))[..., None]
+        diag = (rough[..., 0] + laplacian_degree(gx2, gy2_ext,
+                                                 band))[..., None]
 
         def precond(res):
             return (res[0] / diag, res[1] / diag)

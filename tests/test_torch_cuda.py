@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from nct_tpu_torch.models import vgg19
 from nct_tpu_torch.ops import cuda_nn
 from nct_tpu_torch.ops.exact_nn import (
     exact_nn_bidir_plain, exact_nn_plain, nn_bidir_tables_plain, prep_tables,
@@ -530,14 +531,12 @@ def test_ring_two_ranks_on_card_bitwise_nn_bidir(card, tmp_path):
 
 
 def test_space_mesh_pair_on_card_within_vmap_rule(card, tmp_path):
-    """A 1x2 space mesh on one card (row bands): both ranks' ``transfer_pair``
-    are equal and within the JAX package's batch contract (2 LSB at >= 95%
-    of values, mean <= 0.5) of the single-process pair (float32 VGG), with
-    16 directed launches and no bidirectional one per rank.  Not held
-    bitwise: at this style geometry (128x176) cuDNN convolves the row
-    bands from conv2_1 on otherwise than the whole image, so the band taps
-    differ in the last bits (``chip_smoke.py`` holds the 452x680 and
-    665x1000 pairs bitwise, where the taps agree)."""
+    """A 1x2 space mesh on one card (row bands): both ranks'
+    ``transfer_pair`` are equal and bitwise the single-process pair
+    (float32 VGG through ``conv3x3``, whose sums do not depend on a band's
+    height), so within the JAX package's batch contract (2 LSB at >= 95%
+    of values, mean <= 0.5) too, with 16 directed launches and no
+    bidirectional one per rank, and 44 ``conv3x3`` launches per pair."""
     import torch_mesh_workers as workers
     from nct_tpu_torch.parallel.mesh import launch
 
@@ -545,21 +544,45 @@ def test_space_mesh_pair_on_card_within_vmap_rule(card, tmp_path):
     cnt = rng.integers(0, 256, (120, 160, 3)).astype(np.uint8)
     stl = rng.integers(0, 256, (128, 176, 3)).astype(np.uint8)
     ranks = launch(workers.card_pair, 2, cnt, stl, store_dir=str(tmp_path))
+    assert ranks[0]["single_launches"] == {"nn_bidir": 4, "nn_directed": 0,
+                                           "conv3x3": 44}
     for rank in ranks:
-        assert rank["launches"] == {"nn_bidir": 0, "nn_directed": 16}
+        assert rank["row_sharded"]
+        assert rank["launches"] == {"nn_bidir": 0, "nn_directed": 16,
+                                    "conv3x3": 44}
         np.testing.assert_array_equal(rank["pair"], ranks[0]["pair"])
+        np.testing.assert_array_equal(rank["pair"], ranks[0]["single"])
         diff = np.abs(rank["pair"].astype(int)
                       - ranks[0]["single"].astype(int))
         within, mean = float((diff <= 2).mean()), float(diff.mean())
         assert within >= 0.95 and mean <= 0.5, (within, mean)
 
 
+def test_reference_parity_space_mesh_pair_on_card_bitwise(card, tmp_path):
+    """``Config.reference_parity`` (PatchMatch at every level, block-Jacobi
+    nonlocal) under a 1x2 space mesh on row bands: both ranks equal and
+    bitwise the single-process pair, with no NN kernel launch."""
+    import torch_mesh_workers as workers
+    from nct_tpu_torch.parallel.mesh import launch
+
+    rng = np.random.default_rng(6)
+    cnt = rng.integers(0, 256, (120, 160, 3)).astype(np.uint8)
+    stl = rng.integers(0, 256, (128, 176, 3)).astype(np.uint8)
+    ranks = launch(workers.card_pair, 2, cnt, stl, True,
+                   store_dir=str(tmp_path))
+    for rank in ranks:
+        assert rank["row_sharded"]
+        assert rank["launches"] == {"nn_bidir": 0, "nn_directed": 0,
+                                    "conv3x3": 44}
+        np.testing.assert_array_equal(rank["pair"], ranks[0]["single"])
+
+
 def test_band_vgg_taps_on_card_within_float32_rounding(card, tmp_path):
-    """The VGG taps over a 1x2 space mesh's row bands (float32) against the
-    whole image's, at the card test's pair and the default pair: within
-    float32 rounding (rtol 1e-5, atol 1e-5 of the largest tap value, as
-    ``test_torch_space_shard.py`` holds them on the CPU); prints how many
-    values differ at all (cuDNN picks its algorithm by shape)."""
+    """The VGG taps over a 1x2 space mesh's row bands (float32, through
+    ``conv3x3``) against the whole image's, at the card test's pair and the
+    default pair: bitwise (no value differs), hence within float32
+    rounding (rtol 1e-5, atol 1e-5 of the largest tap value, as
+    ``test_torch_space_shard.py`` holds them on the CPU with oneDNN on)."""
     from nct_tpu_torch.parallel.mesh import launch
     import torch_mesh_workers as workers
 
@@ -571,8 +594,52 @@ def test_band_vgg_taps_on_card_within_float32_rounding(card, tmp_path):
         print(f"band VGG taps {hw[0]}x{hw[1]} ({torch.cuda.get_device_name()}"
               f"): values differing / max |diff| / max |tap| "
               f"{ {t: (n, f'{d:.3g}', f'{m:.4g}') for t, (n, d, m, _) in rec.items()} }")
-        for tap, (_, d, m, close) in rec.items():
-            assert close, (hw, tap, d, m)
+        for tap, (n, d, m, close) in rec.items():
+            assert n == 0 and close, (hw, tap, n, d, m)
+
+
+# VGG-19's convolutions (Cin, Cout) and their grids for a 452x680 image
+def _vgg_layer_shapes(h: int, w: int):
+    dims = vgg19.feature_dims(h, w)
+    cin = 3
+    for name, cout in vgg19.VGG19_CONV_LAYERS:
+        yield name, cin, cout, dims[name]
+        cin = cout
+
+
+@pytest.mark.parametrize("layer", [name for name, _ in
+                                   vgg19.VGG19_CONV_LAYERS])
+def test_conv3x3_matches_cudnn_at_vgg_shapes(card, layer):
+    """The kernel against ``F.conv2d`` with TF32 off (its plain version) at
+    each VGG-19 layer's shape of the 452x680 image: rtol 1e-5, atol 1e-5 of
+    the largest output (both sum float32 products, in other orders); one
+    launch per call; a band of rows (the rows above and below it padded
+    in) gives the whole call's rows bit for bit, and so does a call given
+    the weight in the kernel's layout."""
+    from nct_tpu_torch.ops import conv3x3
+
+    name, cin, cout, (h, w) = next(t for t in _vgg_layer_shapes(452, 680)
+                                   if t[0] == layer)
+    g = torch.Generator().manual_seed(cin * 1000 + cout)
+    x = torch.relu(torch.randn(1, cin, h, w, generator=g)).to(card)
+    wt = (torch.randn(cout, cin, 3, 3, generator=g)
+          * np.sqrt(2.0 / (9 * cin))).to(card)
+    b = (0.1 * torch.randn(cout, generator=g)).to(card)
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1))
+    before = conv3x3.LAUNCHES["conv3x3"]
+    got = conv3x3.conv3x3(xp, wt, b)
+    assert conv3x3.LAUNCHES["conv3x3"] == before + 1
+    want = conv3x3.conv3x3_plain(xp, wt, b)
+    torch.cuda.synchronize()
+    top = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * top)
+    # rows [r0, r1) from the padded rows [r0, r1 + 2)
+    r0, r1 = h // 3, h // 3 + max(1, h // 5)
+    band = conv3x3.conv3x3(xp[:, :, r0:r1 + 2], wt, b)
+    assert torch.equal(band, got[:, :, r0:r1])
+    # the weight in the kernel's layout made once, as VGG19 keeps it
+    kept = conv3x3.conv3x3(xp, wt, b, conv3x3.kernel_weight(wt))
+    assert torch.equal(kept, got)
 
 
 def _chip_smoke():

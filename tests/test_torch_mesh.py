@@ -14,13 +14,16 @@ of indices equal; ties may fall on another block there), and on
 integer-valued features bitwise against JAX's and the port's exact search.
 The mesh pipeline is held bitwise against the port's single-process path,
 which the pipeline tests hold against JAX: the row-sharded space meshes
-(their dot products add over the bands in rank order), the data mesh and
-the replicated PatchMatch path.  The ranks and the single-process
+(their dot products add over the bands in rank order; PatchMatch too), the
+replicated stages a space mesh keeps for two memberships, and the data
+mesh.  The ranks and the single-process
 references run with oneDNN off (``torch_mesh_workers.plain_convolutions``):
 oneDNN's convolutions may round a band's rows otherwise than the whole
 image's (``tests/test_torch_space_shard.py`` holds band VGG taps to rtol
 1e-5 with it on).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -115,8 +118,8 @@ def _world(request, n):
 @pytest.fixture(scope="module")
 def tiny_refs():
     """The port's single-process results the mesh runs must equal (oneDNN
-    off, as in the ranks): one pair, a vmap bucket of 2 and the PatchMatch
-    pair."""
+    off, as in the ranks): one pair, a vmap bucket of 2, the PatchMatch
+    pair and the pair with two memberships."""
     cnt, stl, seeds = workers.tiny_pairs(2, 40, 48, 44, 52)
     model = vgg19.init_params()
     with torch.backends.mkldnn.flags(enabled=False):
@@ -129,7 +132,10 @@ def tiny_refs():
         pm = pipeline.transfer_pair(model, cnt[0], stl[0], 2.0,
                                     workers.TINY_PM, seed=seeds[0],
                                     device="cpu").numpy()
-    return {"pair": pair, "bucket": bucket, "pair_pm": pm}
+        p2 = pipeline.transfer_pair(model, cnt[0], stl[0], 2.0,
+                                    workers.TINY_P2, seed=seeds[0],
+                                    device="cpu").numpy()
+    return {"pair": pair, "bucket": bucket, "pair_pm": pm, "pair_p2": p2}
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -249,15 +255,28 @@ def test_space_mesh_pair_bitwise_single_process(world2, tiny_refs):
 
 def test_space_mesh_patchmatch_pair_bitwise_single_process(world2,
                                                            tiny_refs):
-    """A PatchMatch level keeps a 1x2 space mesh on the replicated path
-    (``pipeline.row_sharded`` is False): both ranks return the
+    """A PatchMatch level runs on row bands under a 1x2 space mesh too
+    (``pipeline.row_sharded`` is True): both ranks return the
     single-process pair bit for bit."""
     from nct_tpu_torch import Config
-    assert not pipeline.row_sharded(Config(fine_strategy="patchmatch",
-                                           space_mesh=_FakeMesh()))
+    assert pipeline.row_sharded(Config(fine_strategy="patchmatch",
+                                       space_mesh=_FakeMesh()))
     for rank in world2["pipeline"]:
         np.testing.assert_array_equal(rank["pair_space_pm"],
                                       tiny_refs["pair_pm"])
+
+
+def test_space_mesh_replicated_pair_bitwise_single_process(world2,
+                                                           tiny_refs):
+    """Two memberships keep a 1x2 space mesh on the replicated stages
+    (``pipeline.row_sharded`` is False: the ring at the exact levels, every
+    other stage whole on each rank): both ranks return the single-process
+    pair bit for bit."""
+    assert not pipeline.row_sharded(dataclasses.replace(
+        workers.TINY_P2, space_mesh=_FakeMesh()))
+    for rank in world2["pipeline"]:
+        np.testing.assert_array_equal(rank["pair_space_replicated"],
+                                      tiny_refs["pair_p2"])
 
 
 class _FakeMesh:

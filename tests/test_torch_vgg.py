@@ -35,6 +35,23 @@ def test_all_taps_f32_match_jax(weights, hw):
                                    atol=1e-4 * np.abs(r).max())
 
 
+def test_kernel_weight_made_once_per_weight_version():
+    """VGG19 keeps each layer's weight in ``conv3x3``'s [Cin, 3, 3, Cout]
+    layout: the same tensor while the weight is unchanged, a new one after
+    an in-place update."""
+    model = tv.init_params(torch.Generator().manual_seed(2))
+    w = model.convs["conv1_2"].weight
+    first = model._kernel_weight("conv1_2", w)
+    torch.testing.assert_close(first, w.permute(1, 2, 3, 0), rtol=0, atol=0)
+    assert first.is_contiguous()
+    assert model._kernel_weight("conv1_2", w) is first
+    with torch.no_grad():
+        w.mul_(2.0)
+    again = model._kernel_weight("conv1_2", w)
+    assert again is not first
+    torch.testing.assert_close(again, 2.0 * first, rtol=0, atol=0)
+
+
 def test_single_tap_matches_full_forward(weights):
     _, model = weights
     img = torch.from_numpy(np.random.default_rng(6).integers(

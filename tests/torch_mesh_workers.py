@@ -29,10 +29,13 @@ TINY = Config(
 )
 
 
-# TINY with PatchMatch at level 1: outside the row-sharded slice, so a
-# space mesh runs it on the replicated path
+# TINY with PatchMatch at level 1 (on row bands under a space mesh)
 TINY_PM = dataclasses.replace(TINY, exact_nn_levels=1,
                               fine_strategy="patchmatch")
+
+# TINY with two k-means memberships: outside the row-sharded stages, so a
+# space mesh runs it on the replicated path
+TINY_P2 = dataclasses.replace(TINY, knn_memberships=2)
 
 
 def tiny_pairs(b: int, h: int, w: int, hs: int, ws: int, seed: int = 0):
@@ -71,8 +74,9 @@ def pipeline_cases(device: str = "cpu") -> dict:
     space mesh (row-sharded; the bucket through the ring and, with
     ``ring_nn=False``, through each rank's ``nn_bidir`` on the gathered
     levels), a bucket of 2 under a 2x1 data mesh, a PatchMatch pair under
-    the 1x2 mesh (the replicated path) and the error paths; every result as
-    uint8 numpy."""
+    the 1x2 mesh (row bands too), a pair with two memberships under it
+    (the replicated stages) and the error paths; every result as uint8
+    numpy."""
     cnt, stl, seeds = tiny_pairs(2, 40, 48, 44, 52)
     model = vgg19.init_params()
     space = make_mesh(n_data=1, n_space=2, device=device)
@@ -92,6 +96,10 @@ def pipeline_cases(device: str = "cpu") -> dict:
         model, cnt[0], stl[0], 2.0,
         dataclasses.replace(TINY_PM, space_mesh=space), seed=seeds[0]
     ).cpu().numpy()
+    out["pair_space_replicated"] = pipeline.transfer_pair(
+        model, cnt[0], stl[0], 2.0,
+        dataclasses.replace(TINY_P2, space_mesh=space), seed=seeds[0]
+    ).cpu().numpy()
     out["scan_error"] = _errors(
         lambda: make_batch_transfer(TINY, data, mode="scan"))
     out["split_error"] = _errors(lambda: make_batch_transfer(TINY, data)(
@@ -108,28 +116,38 @@ def grid_bucket(device: str = "cpu") -> np.ndarray:
         vgg19.init_params(), cnt, stl, seeds, 2.0).cpu().numpy()
 
 
-def card_pair(cnt: np.ndarray, stl: np.ndarray) -> dict:
+def card_pair(cnt: np.ndarray, stl: np.ndarray,
+              parity: bool = False) -> dict:
     """On a card, 2 ranks: ``transfer_pair`` under a 1x2 space mesh with
     float32 VGG (row-sharded), and (rank 0) the single-process pair it
-    must equal."""
+    must equal, under the default Config or (``parity``)
+    ``Config.reference_parity``; with each run's kernel launches."""
+    from nct_tpu_torch.ops import conv3x3
+
     model = vgg19.init_params()
     mesh = make_mesh(n_data=1, n_space=2)
-    config = Config(vgg_compute_dtype="float32")
-    cuda_nn.LAUNCHES.update(nn_bidir=0, nn_directed=0)
-    got = pipeline.transfer_pair(
-        model, cnt, stl, 2.0, dataclasses.replace(config, space_mesh=mesh))
-    out = {"pair": got.cpu().numpy(), "launches": dict(cuda_nn.LAUNCHES)}
+    config = (Config.reference_parity if parity else Config)(
+        vgg_compute_dtype="float32")
+
+    def counted(cfg):
+        cuda_nn.LAUNCHES.update(nn_bidir=0, nn_directed=0)
+        conv3x3.LAUNCHES["conv3x3"] = 0
+        got = pipeline.transfer_pair(model, cnt, stl, 2.0, cfg).cpu().numpy()
+        return got, {**cuda_nn.LAUNCHES, **conv3x3.LAUNCHES}
+
+    sharded = dataclasses.replace(config, space_mesh=mesh)
+    out = {"row_sharded": pipeline.row_sharded(sharded)}
+    out["pair"], out["launches"] = counted(sharded)
     if mesh.index("space") == 0:
-        out["single"] = pipeline.transfer_pair(model, cnt, stl, 2.0,
-                                               config).cpu().numpy()
+        out["single"], out["single_launches"] = counted(config)
     return out
 
 
 def card_band_taps(images: list) -> list:
-    """On a card, 2 ranks: each image's VGG taps (float32) over the 1x2
-    space mesh's row bands, gathered, beside the whole image's: per image
-    {tap: (values that differ, max |diff|, max |whole|, within rtol 1e-5
-    and atol 1e-5 x max |whole|)}."""
+    """On a card, 2 ranks: each image's VGG taps (float32, the ``conv3x3``
+    kernel) over the 1x2 space mesh's row bands, gathered, beside the whole
+    image's: per image {tap: (values that differ, max |diff|, max |whole|,
+    within rtol 1e-5 and atol 1e-5 x max |whole|)}."""
     from nct_tpu_torch.parallel.mesh import RowBand, image_bands
 
     model = vgg19.init_params().cuda()
