@@ -21,12 +21,15 @@ no result, without them.  Phases, each of which raises on failure:
   3b. the directed NN kernel at the same shapes and checks, and bitwise
      equal to the bidirectional kernel's row result on the same tables;
   3c. ``conv3x3`` (VGG-19's float32 3x3 convolution, one fmaf chain per
-     output) against ``F.conv2d`` with TF32 off at every VGG-19 layer
-     shape of the 452x680 and 665x1000 images (rtol 1e-5, atol 1e-5 of
-     the largest output), with CUDA-event times of the kernel, the plain
-     version, one ``F.conv2d`` call with the bias and the float32 bound
-     per layer, and the float32 VGG forward of each geometry's pair
-     through the kernel and through cuDNN;
+     output): every tile, with and without the fused ReLU, bitwise
+     ``conv3x3_chain`` (the chain in correctly rounded steps) and each
+     other at ``conv_chain_cases()``; then against ``F.conv2d`` with TF32
+     off at every VGG-19 layer shape of the 452x680 and 665x1000 images
+     (rtol 1e-5, atol 1e-5 of the largest output), with the tile the rule
+     picks, its blocks and resident blocks per SM, CUDA-event times of
+     every tile, the plain version, one ``F.conv2d`` call with the bias
+     and the float32 bound per layer, and the float32 VGG forward of each
+     geometry's pair through the kernel and through cuDNN;
   4. slice: ``transfer_pair`` under the default Config on the seeded
      452x680 / 600x960 pair with seeded VGG-19 weights, one cold and three
      warm runs, 4 kernel launches per pair, every output bitwise equal to
@@ -301,7 +304,7 @@ def build_kernels() -> None:
         with open(lib[:-3] + ".log") as f:
             for line in f:
                 if any(w in line for w in ("registers", "smem", "spill",
-                                           "wgmma")):
+                                           "wgmma", "Compiling entry")):
                     log("[build]   " + line.strip())
                     wgmma_lines += "wgmma" in line
     log(f"[build]   ptxas lines that mention wgmma: {wgmma_lines}")
@@ -310,7 +313,16 @@ def build_kernels() -> None:
         blocks, smem = cuda_nn.occupancy(name)
         log(f"[build]   {name}: {blocks} resident blocks per SM at {smem} B "
             f"of dynamic shared memory each")
-    log(f"[build]   conv3x3: {conv3x3.occupancy()} resident blocks per SM")
+    tiles = conv3x3.library_configs()
+    for i, (t, want) in enumerate(zip(tiles, conv3x3.CONFIGS)):
+        log(f"[build]   conv3x3 tile {i}: {t['rows']}x{t['cols']}x"
+            f"{t['channels']}, {t['threads']} threads, {t['stages']} stages "
+            f"of {t['smem']} B in all, {conv3x3.occupancy(i)} resident "
+            f"blocks per SM (built for {t['min_blocks']})")
+        if (len(tiles) != len(conv3x3.CONFIGS)
+                or tuple(t[k] for k in want._fields) != tuple(want)):
+            raise AssertionError(f"conv3x3 tile {i}: the library's {t} is "
+                                 f"not ops/conv3x3.py's {want}")
 
 
 def _features(torch, gen, h, w, c, integer: bool):
@@ -511,6 +523,64 @@ def check_kernels(torch) -> tuple[dict, dict]:
 CONV_GEOMETRIES = (((452, 680), (600, 960)), ((665, 1000), (625, 1000)))
 CONV_RTOL = 1e-5       # rtol, and atol as a share of the largest output
 CONV_REPS = 5
+CONV_DESIGN = ("one fmaf chain per output over (ci, ky, kx) ascending; a "
+               "thread owns 1-2 rows x 4 consecutive columns x 4-8 "
+               "channels and runs every tap from registers (6 input values "
+               "a row, broadcast float4 weights); a 2-stage cp.async ring "
+               "of 8-channel chunks with offsets computed once; three tiles "
+               "(8x32x32, 8x16x32, 8x16x16; 128 threads) picked by a fixed "
+               "rule on the grid's fill; bias and ReLU in the epilogue")
+
+
+def conv_chain_cases() -> list[tuple[str, int, int, int, int, int]]:
+    """(label, n, cin, cout, h, w) at which every tile of ``conv3x3`` is
+    held bitwise to ``conv3x3_chain``: every VGG-19 layer of a ragged 61x93
+    content (cin 3 at conv1_1; widths 93, 47, 24, 12, 6), a batch of 2, a
+    one-row band, channel counts that fill no chunk and no tile (one not a
+    multiple of 4), and conv1_2 and conv5_1 of 452x680."""
+    from nct_tpu_torch.models import vgg19
+
+    cases = []
+    dims = vgg19.feature_dims(61, 93)
+    cin = 3
+    for name, cout in vgg19.VGG19_CONV_LAYERS:
+        cases.append((f"61x93 {name}", 1, cin, cout) + dims[name])
+        cin = cout
+    return cases + [("n=2 at 31x47", 2, 64, 128, 31, 47),
+                    ("one-row band of 85", 1, 512, 512, 1, 85),
+                    ("cin 5, cout 6", 1, 5, 6, 9, 13),
+                    ("cin 11, cout 70", 1, 11, 70, 17, 37),
+                    ("452x680 conv1_2", 1, 64, 64, 452, 680),
+                    ("452x680 conv5_1", 1, 512, 512, 29, 43)]
+
+
+def conv_chain_check(torch, case, seed: int) -> dict:
+    """Every tile of ``conv3x3`` with and without ReLU at one
+    ``conv_chain_cases()`` case on the card: {(relu, tile): bitwise
+    ``conv3x3_chain``}, and the other tiles' outputs bitwise tile 0's."""
+    import torch.nn.functional as F
+
+    from nct_tpu_torch.ops import conv3x3
+
+    _, n, cin, cout, h, w = case
+    gen = torch.Generator().manual_seed(seed)
+    xp = F.pad(torch.randn(n, cin, h, w, generator=gen), (0, 0, 1, 1)).cuda()
+    wt = (torch.randn(cout, cin, 3, 3, generator=gen)
+          * math.sqrt(2.0 / (9 * cin))).cuda()
+    b = (0.1 * torch.randn(cout, generator=gen)).cuda()
+    wk = conv3x3.kernel_weight(wt)
+    held = {}
+    chain = conv3x3.conv3x3_chain(xp, wt, b)
+    for relu in (False, True):
+        # conv3x3_chain(..., relu=True) is torch.relu of its result
+        want = torch.relu(chain) if relu else chain
+        outs = [conv3x3.conv3x3(xp, wt, b, wk, relu=relu, config=c)
+                for c in range(len(conv3x3.CONFIGS))]
+        torch.cuda.synchronize()
+        for c, got in enumerate(outs):
+            held[(relu, c)] = (torch.equal(got, want)
+                               and torch.equal(got, outs[0]))
+    return held
 
 
 def _conv_bound_ms(h, w, cin, cout, f32_peak, bytes_peak) -> float:
@@ -523,21 +593,43 @@ def _conv_bound_ms(h, w, cin, cout, f32_peak, bytes_peak) -> float:
 
 
 def check_conv3x3(torch) -> dict:
-    """Phase 3c: ``conv3x3`` against its plain version (``F.conv2d``, TF32
-    off) at every VGG-19 layer shape of both geometries, with CUDA-event
-    times of the kernel, the plain version, one ``F.conv2d`` call with the
-    bias (the library yardstick) and the bound per layer; then the float32
-    VGG forward of each geometry's pair through the kernel and through
-    cuDNN.  Returns the kernels-line record (the 452x680 layers' sums; the
-    launches per pair filled in by phase 11b)."""
+    """Phase 3c: every tile of ``conv3x3`` bitwise ``conv3x3_chain`` and
+    each other at each shape of ``conv_chain_cases()`` (the card test runs
+    every case), with and without ReLU; then ``conv3x3`` against its plain
+    version (``F.conv2d``, TF32 off) at every VGG-19 layer shape of both
+    geometries, with the tile the rule picks, its grid and resident
+    blocks, CUDA-event times of every tile, the plain version, one
+    ``F.conv2d`` call with the bias (the library yardstick) and the bound
+    per layer; then the float32 VGG forward of each geometry's pair through
+    the kernel and through cuDNN.  Returns the kernels-line record (the
+    452x680 layers' sums at the picked tiles; the launches per pair filled
+    in by phase 11b)."""
     import torch.nn.functional as F
 
     from nct_tpu_torch.models import vgg19
     from nct_tpu_torch.ops import conv3x3
     from nct_tpu_torch.utils import flops as flops_mod
 
+    t0 = time.perf_counter()
+    bad, seen = [], set()
+    for i, case in enumerate(conv_chain_cases()):
+        if case[1:] in seen:        # a layer of the shape of one checked
+            continue
+        seen.add(case[1:])
+        held = conv_chain_check(torch, case, 100 + i)
+        log(f"[conv3x3] chain {case[0]} (n {case[1]}, {case[2]}->{case[3]}, "
+            f"{case[4]}x{case[5]}): every tile bitwise conv3x3_chain and "
+            f"tile 0, with and without ReLU: {all(held.values())}")
+        bad += [f"{case[0]} tile {c} relu {r}" for (r, c), ok in held.items()
+                if not ok]
+    log(f"[conv3x3] chain checks of {len(seen)} shapes done in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError(f"phase 3c: conv3x3 is not its chain at {bad}")
     f32_peak = flops_mod.F32_PEAKS[torch.cuda.get_device_name()]
     bytes_peak = flops_mod.device_peaks()[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    resident = [conv3x3.occupancy(c) for c in range(len(conv3x3.CONFIGS))]
     gen = torch.Generator().manual_seed(3)
     rec = {"name": "conv3x3", "route": "cuda",
            "source": "nct_tpu_torch/csrc/conv3x3.cu",
@@ -545,11 +637,12 @@ def check_conv3x3(torch) -> dict:
                        "no Pallas kernel)",
            "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
            "bound_ms": 0.0, "bound_by": "operations", "library_ms": 0.0,
-           "geometries": {}}
+           "design": CONV_DESIGN, "geometries": {}}
     model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
     for gi, (hw_c, hw_s) in enumerate(CONV_GEOMETRIES):
         dims = vgg19.feature_dims(*hw_c)
         geo = {"layers": {}}
+        sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
         cin = 3
         for name, cout in vgg19.VGG19_CONV_LAYERS:
             h, w = dims[name]
@@ -560,6 +653,7 @@ def check_conv3x3(torch) -> dict:
             b = (0.1 * torch.randn(cout, generator=gen)).cuda()
             # the kernel's weight layout, made once as VGG19 keeps it
             wk = conv3x3.kernel_weight(wt)
+            pick = conv3x3.pick_config(1, h, w, cout, sms)
             got = conv3x3.conv3x3(xp, wt, b, wk)
             want = conv3x3.conv3x3_plain(xp, wt, b)
             torch.cuda.synchronize()
@@ -571,32 +665,49 @@ def check_conv3x3(torch) -> dict:
             def library():
                 with conv3x3.no_tf32():
                     return F.conv2d(xp, wt, b, padding=(0, 1))
-            ms = _time_ms(torch, lambda: conv3x3.conv3x3(xp, wt, b, wk),
-                          CONV_REPS)
+            tiles = [_time_ms(torch, lambda c=c: conv3x3.conv3x3(
+                xp, wt, b, wk, config=c), CONV_REPS)
+                for c in range(len(conv3x3.CONFIGS))]
+            ms = tiles[pick]
             plain = _time_ms(torch, lambda: conv3x3.conv3x3_plain(xp, wt, b),
                              CONV_REPS)
             lib = _time_ms(torch, library, CONV_REPS)
             bound = _conv_bound_ms(h, w, cin, cout, f32_peak, bytes_peak)
+            blocks = conv3x3.grid_blocks(pick, 1, h, w, cout)
             geo["layers"][name] = {"hw": [h, w], "cin": cin, "cout": cout,
-                                   "ms": ms, "plain_ms": plain,
-                                   "library_ms": lib, "bound_ms": bound,
-                                   "max_abs_err": err}
+                                   "tile": pick, "blocks": blocks,
+                                   "resident_per_sm": resident[pick],
+                                   "ms": ms, "tile_ms": tiles,
+                                   "plain_ms": plain, "library_ms": lib,
+                                   "bound_ms": bound, "max_abs_err": err}
+            tflops = 2.0 * h * w * cin * cout * 9 / ms / 1e9
             log(f"[conv3x3] {hw_c[0]}x{hw_c[1]} {name} {h}x{w} {cin}->{cout}: "
                 f"max |err| {err:.3g} of {top:.4g} (within rtol "
-                f"{CONV_RTOL}: {close}); kernel {ms:.3f} ms "
-                f"({2.0 * h * w * cin * cout * 9 / ms / 1e9:.1f} TFLOP/s, "
-                f"{bound / ms:.3f} of bound {bound:.3f} ms), plain "
+                f"{CONV_RTOL}: {close}); tile {pick} ({blocks} blocks, "
+                f"{resident[pick]} resident per SM, {blocks / sms:.2f} per "
+                f"SM): kernel {ms:.3f} ms ({tflops:.1f} "
+                f"TFLOP/s, {bound / ms:.3f} of bound {bound:.3f} ms, "
+                f"{ms / lib:.3f}x F.conv2d); tiles "
+                f"{' / '.join(f'{t:.3f}' for t in tiles)} ms; plain "
                 f"{plain:.3f} ms, F.conv2d {lib:.3f} ms")
             if not close:
                 raise AssertionError(f"phase 3c: conv3x3 disagrees with "
                                      f"F.conv2d at {hw_c} {name}")
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            if gi == 0:
-                for k, v in (("ms", ms), ("plain_ms", plain),
-                             ("bound_ms", bound), ("library_ms", lib)):
+            for k, v in (("ms", ms), ("plain_ms", plain),
+                         ("library_ms", lib), ("bound_ms", bound)):
+                sums[k] += v
+                if gi == 0:
                     rec[k] += v
             cin = cout
             del x, xp, got, want, wk
+        worst = max(v["ms"] / v["library_ms"] for v in geo["layers"].values())
+        log(f"[conv3x3] {hw_c[0]}x{hw_c[1]}, 16 layers: kernel "
+            f"{sums['ms']:.3f} ms, F.conv2d {sums['library_ms']:.3f} ms "
+            f"({sums['ms'] / sums['library_ms']:.3f}x), plain "
+            f"{sums['plain_ms']:.3f} ms, bound "
+            f"{sums['bound_ms']:.3f} ms ({sums['bound_ms'] / sums['ms']:.3f} "
+            f"of it); the slowest layer against F.conv2d {worst:.3f}x")
         # the float32 forward of the pair: through the kernel, then cuDNN
         imgs = [torch.randint(0, 256, hw + (3,), dtype=torch.uint8,
                               generator=gen).cuda() for hw in (hw_c, hw_s)]
@@ -608,18 +719,20 @@ def check_conv3x3(torch) -> dict:
         forward()
         launches = conv3x3.LAUNCHES["conv3x3"]
         fwd = _time_ms(torch, forward, 3)
-        vgg19.conv3x3 = lambda x, w, b, wk: conv3x3.conv3x3_plain(x, w, b)
+        vgg19.conv3x3 = (lambda x, w, b, wk, relu=False:
+                         conv3x3.conv3x3_plain(x, w, b, relu))
         try:
             fwd_cudnn = _time_ms(torch, forward, 3)
         finally:
             vgg19.conv3x3 = conv3x3.conv3x3
-        geo.update(pair_forward_ms=fwd, pair_forward_cudnn_ms=fwd_cudnn,
+        geo.update(sums, pair_forward_ms=fwd, pair_forward_cudnn_ms=fwd_cudnn,
                    pair_forward_launches=launches)
         log(f"[conv3x3] float32 VGG forward of the {hw_c[0]}x{hw_c[1]} / "
             f"{hw_s[0]}x{hw_s[1]} pair to conv5_1: kernel {fwd:.3f} ms "
             f"({launches} launches), cuDNN {fwd_cudnn:.3f} ms")
         rec["geometries"]["{}x{}".format(*hw_c)] = geo
         torch.cuda.empty_cache()
+    log(f"[conv3x3] phase 3c took {time.perf_counter() - t0:.1f} s")
     return rec
 
 

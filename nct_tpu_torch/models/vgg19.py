@@ -15,9 +15,10 @@ in float32 on those values through ``F.conv2d``: a bf16 x bf16 product is
 exact in f32, so this is JAX's ``preferred_element_type=f32`` (an f32 tap
 from bf16 operands), where a bf16 ``F.conv2d`` would round its output to
 bf16.  With float32 (the space mesh's rule, ``nct_tpu/parallel/batch.py``)
-each convolution goes through ``ops.conv3x3``: on the card the hand kernel
-``csrc/conv3x3.cu``, whose sum order for an output depends only on
-(ci, ky, kx), on the CPU ``F.conv2d``.  Convolutions run with TF32 off
+each convolution goes through ``ops.conv3x3``, with the ReLU after it: on
+the card the hand kernel ``csrc/conv3x3.cu``, whose sum order for an
+output depends only on (ci, ky, kx) and which applies the ReLU in its
+epilogue, on the CPU ``F.conv2d``.  Convolutions run with TF32 off
 (``no_tf32``: cuDNN's and cuBLAS's TF32 flags off for the call), so float32
 means float32 on the card as on the CPU.
 
@@ -148,16 +149,16 @@ class VGG19(nn.Module):
                     pad = (1, 1) if band is None else (1 - top, 1 - bottom)
                     wt = (self._kernel_weight(name, conv.weight)
                           if x.is_cuda else None)
+                    # the ReLU in the kernel's epilogue
                     x = conv3x3(F.pad(x, (0, 0) + pad), conv.weight,
-                                conv.bias, wt)
+                                conv.bias, wt, relu=True)
                 elif band is None:
                     x = F.conv2d(x, rnd(conv.weight), padding=1)
-                    x = x + rnd(conv.bias)[None, :, None, None]
+                    x = torch.relu(x + rnd(conv.bias)[None, :, None, None])
                 else:
                     x = F.conv2d(F.pad(x, (0, 0, 1 - top, 1 - bottom)),
                                  rnd(conv.weight), padding=(0, 1))
-                    x = x + rnd(conv.bias)[None, :, None, None]
-                x = torch.relu(x)
+                    x = torch.relu(x + rnd(conv.bias)[None, :, None, None])
                 if name in needed:
                     out[name] = x[0].permute(1, 2, 0).contiguous()
                 if i == deepest:

@@ -652,6 +652,23 @@ def _chip_smoke():
     return chip_smoke
 
 
+@pytest.mark.parametrize("label", [c[0] for c in
+                                   _chip_smoke().conv_chain_cases()])
+def test_conv3x3_every_tile_bitwise_chain(card, label):
+    """Every tile of the kernel (the C entry's config index, which the
+    wrapper's rule otherwise picks), with and without the fused ReLU, bit
+    for bit ``conv3x3_chain`` (one correctly rounded fma per (ci, ky, kx)
+    step, ascending) and each other, at chip_smoke.py phase 3c's cases:
+    every VGG-19 layer of a ragged 61x93 content, a batch of 2, a one-row
+    band, channel counts that fill no chunk or tile, and conv1_2 and
+    conv5_1 of 452x680."""
+    cs = _chip_smoke()
+    cases = cs.conv_chain_cases()
+    i = [c[0] for c in cases].index(label)
+    held = cs.conv_chain_check(torch, cases[i], 100 + i)
+    assert all(held.values()), [k for k, ok in held.items() if not ok]
+
+
 def test_vgg19_deploy_net_matches_models_vgg19_on_card(card):
     """The VGG-19 deploy net of chip_smoke.py phase 12 through the port's
     ``Net`` on the card: conv1_1..conv5_1 against ``models.vgg19``'s taps
