@@ -224,9 +224,22 @@ no result, without them.  Phases, each of which raises on failure:
      equal, bitwise the single process with its iterations, 44
      ``conv3x3`` launches, each rank's peak at most 0.65x the single
      process's, with the seconds, the exchanges' host ms and calls and
-     the peak GiB by stage; then both configurations over 1x4, one cold
-     run each, for their per-rank peaks, every rank bitwise the 1x2
-     phase's single-process pair with its iterations.
+     the peak GiB by stage; then pm_jacobi over 1x4, one cold run for
+     its per-rank peaks, every rank bitwise the 1x2 phase's
+     single-process pair with its iterations;
+ 18. the P > 1 k-NN merge and short images on row bands: (a) the bench's
+     452x680 / 600x960 pair under ``Config(knn_memberships=3)`` (float32
+     VGG) over 1x2 (2 gloo ranks on the card), one cold run beside a
+     single-process run on rank 0: ranks equal, bitwise the single
+     process with its iterations, 16 ``nn_directed`` and 44 ``conv3x3``
+     launches a rank, each rank's peak at most 0.65x the single
+     process's, with the seconds, the exchanges' host ms and calls and
+     the peak GiB by stage; (b) a 40x64 / 48x64 pair (3 units of 16 rows
+     each) under the default Config over 1x4, so that rank 3 holds a band
+     of zero rows at every grid: every rank bitwise the single process
+     with its iterations, and each rank's launches those of its bands (a
+     ring step launches only where its A band and the visiting B block
+     hold rows, a convolution only on rows: none on rank 3).
 The line before the last holds {"kernels": [...]}, the one before it the
 card's name and power limit; the last line is {"ok": true, "device": ...}.
 """
@@ -3521,7 +3534,9 @@ def check_shard(torch, smi: str) -> None:
 # the single process) and over 1x4; first (17a, 1x2) the band VGG taps at
 # four geometries and the card test's pair
 PM_SHARD_CONFIGS = ("parity", "pm_jacobi")
-PM_SHARD_RANKS = (2, 4)
+# (ranks, configurations): both over 1x2, pm_jacobi alone over 1x4 (a
+# parity pair takes ~80 s a rank at 1x4: the time limit keeps it out)
+PM_SHARD_WORLDS = ((2, PM_SHARD_CONFIGS), (4, ("pm_jacobi",)))
 CARD_PAIR_HW = ((120, 160), (128, 176))
 BAND_TAP_HW = ((120, 160), (128, 176), (452, 680), (600, 960))
 
@@ -3614,9 +3629,9 @@ def shard_pm_rank(n_space: int, names, first: bool) -> dict:
 
 def check_shard_pm(torch, smi: str) -> None:
     """Phase 17: ``shard_pm_rank`` over 1x2 (17a, then both configurations
-    beside the single process) and over 1x4 (both configurations, one cold
-    run each, for their per-rank peaks); every rank of both worlds is held
-    bitwise to the 1x2 world's single-process pair and its iterations."""
+    beside the single process) and over 1x4 (pm_jacobi, one cold run, for
+    its per-rank peaks); every rank of both worlds is held bitwise to the
+    1x2 world's single-process pair and its iterations."""
     from nct_tpu_torch import Config
     from nct_tpu_torch.parallel.mesh import launch
 
@@ -3624,11 +3639,11 @@ def check_shard_pm(torch, smi: str) -> None:
     bad = []
     singles = {}      # the 1x2 world's single-process pairs
     exact = Config().exact_nn_levels
-    for n in PM_SHARD_RANKS:
+    for n, names in PM_SHARD_WORLDS:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        first = n == PM_SHARD_RANKS[0]
-        ranks = launch(shard_pm_rank, n, n, PM_SHARD_CONFIGS, first)
+        first = n == PM_SHARD_WORLDS[0][0]
+        ranks = launch(shard_pm_rank, n, n, names, first)
         if first:
             for r in ranks:
                 log(f"[shard-pm] 17a rank {r['rank']} band VGG taps (float32, "
@@ -3647,7 +3662,7 @@ def check_shard_pm(torch, smi: str) -> None:
                 if not held:
                     bad.append(f"17a rank {r['rank']} card pair")
         (hc, wc), (hs, ws) = ranks[0]["geometry"]
-        for name in PM_SHARD_CONFIGS:
+        for name in names:
             label = f"[shard-pm] 1x{n} {name} {hc}x{wc} / {hs}x{ws}"
             ring = 0 if name == "parity" else 2 * n * exact
             want = {"nn_bidir": 0, "nn_directed": ring,
@@ -3693,6 +3708,132 @@ def check_shard_pm(torch, smi: str) -> None:
             f"the spawn")
     if bad:
         raise AssertionError(f"phase 17 failed: {bad}")
+
+
+# phase 18: the P > 1 merge on the bench's pair over 1x2 (a), and a pair of
+# 3 units (16 rows each) over 1x4, whose rank 3 holds empty bands (b)
+MULTI_SHARD_MEMBERSHIPS = 3
+SHORT_PAIR_HW = ((40, 64), (48, 64))
+SHORT_PAIR_RANKS = 4
+# convolutions of a pair: a content band's (13 to conv5_1, 18 in the
+# re-extractions) and a style band's (13)
+CONTENT_CONVS, STYLE_CONVS = 31, 13
+
+
+def band_launches(hw_c, hw_s, n: int, exact: int) -> list[dict]:
+    """Each rank's kernel launches for a pair over 1 x ``n`` row bands of
+    the default family: per exact level and direction one ring step with
+    a launch for each visiting block that holds rows, where the rank's own
+    A band holds rows; the VGG convolutions of the bands that hold rows."""
+    from nct_tpu_torch.parallel.mesh import image_bands
+
+    held = [[b1 > b0 for b0, b1 in zip(bounds, bounds[1:])]
+            for bounds in (image_bands(hw_c[0], n), image_bands(hw_s[0], n))]
+    return [{"nn_bidir": 0,
+             "nn_directed": exact * (held[0][r] * sum(held[1])
+                                     + held[1][r] * sum(held[0])),
+             "conv3x3": CONTENT_CONVS * held[0][r] + STYLE_CONVS * held[1][r]}
+            for r in range(n)]
+
+
+def shard_multi_rank(n_space: int) -> dict:
+    """Phase 18 in one rank of an ``n_space``-rank gloo world on the one
+    card: over 2 ranks (18a) one cold row-sharded pair of the bench's pair
+    under ``Config(knn_memberships=3)``, over 4 (18b) one of the short
+    pair under the default Config; each beside, on rank 0, its
+    single-process pair (float32 VGG throughout)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from nct_tpu_torch import Config
+    from nct_tpu_torch.models import vgg19
+    from nct_tpu_torch.parallel.mesh import make_mesh
+    from nct_tpu_torch.tools import bench
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(n_data=1, n_space=n_space)
+    model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
+    if n_space == 2:
+        cnt, stl = bench.load_pair()
+        config = Config(knn_memberships=MULTI_SHARD_MEMBERSHIPS,
+                        vgg_compute_dtype="float32")
+    else:
+        # white noise from numpy's seed 18
+        rng = np.random.default_rng(18)
+        cnt, stl = (rng.integers(0, 256, hw + (3,)).astype(np.uint8)
+                    for hw in SHORT_PAIR_HW)
+        config = Config(vgg_compute_dtype="float32")
+    peaks = StagePeaks(torch)
+    out = {"rank": mesh.index("space"),
+           "geometry": (cnt.shape[:2], stl.shape[:2])}
+    dist.barrier()
+    out["run"] = _shard_pair(torch, peaks, model, cnt, stl,
+                             dataclasses.replace(config, space_mesh=mesh))
+    dist.barrier()
+    if mesh.index("space") == 0:
+        out["single"] = _shard_pair(torch, peaks, model, cnt, stl, config)
+    return out
+
+
+def check_shard_multi(torch, smi: str) -> None:
+    """Phase 18: ``shard_multi_rank`` over 1x2 (18a) and 1x4 (18b); every
+    rank equal to rank 0, bitwise its single-process pair with its
+    iterations and with its own bands' launches; at 1x2 each rank's peak
+    at most 0.65x the single process's."""
+    from nct_tpu_torch import Config
+    from nct_tpu_torch.parallel.mesh import launch
+
+    t0 = time.perf_counter()
+    bad = []
+    exact = Config().exact_nn_levels
+    for n, part in ((2, "18a"), (SHORT_PAIR_RANKS, "18b")):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        ranks = launch(shard_multi_rank, n, n)
+        (hc, wc), (hs, ws) = ranks[0]["geometry"]
+        what = (f"P = {MULTI_SHARD_MEMBERSHIPS}" if n == 2
+                else "default, 3 units")
+        label = f"[shard-multi] {part} 1x{n} {what} {hc}x{wc} / {hs}x{ws}"
+        single = ranks[0]["single"]
+        want = band_launches((hc, wc), (hs, ws), n, exact)
+        log(f"{label} single process ({smi}): {single['s']:.3f} s, "
+            f"launches {single['launches']}, (nl, wls) iterations "
+            f"{single['iters']}, peak GiB by stage {single['peak_gib']}")
+        for r in ranks:
+            run = r["run"]
+            c = run["comm"]
+            log(f"{label} rank {r['rank']} (cold; {smi}): {run['s']:.3f} s, "
+                f"launches {run['launches']} (want {want[r['rank']]}), "
+                f"(nl, wls) iterations {run['iters']}, host ms "
+                + ", ".join(f"{k} {c[k + '_s'] * 1e3:.1f} ({c[k + '_calls']}"
+                            f" calls)" for k in ("halo", "reduce", "gather",
+                                                 "exchange"))
+                + f"; peak GiB by stage {run['peak_gib']}")
+            if run["launches"] != want[r["rank"]]:
+                bad.append(f"{part} rank {r['rank']} launches")
+            if not torch.equal(run["out"], ranks[0]["run"]["out"]):
+                bad.append(f"{part} rank {r['rank']} differs from rank 0")
+            held, n_diff, max_diff = bitwise(torch, run["out"],
+                                             single["out"])
+            ratio = run["peak_gib"]["total"] / single["peak_gib"]["total"]
+            log(f"{label} rank {r['rank']} bitwise the single process "
+                f"{held} ({n_diff} values differ, max |diff| {max_diff}); "
+                f"iterations equal {run['iters'] == single['iters']}; peak "
+                f"{ratio:.3f}x the single process's"
+                + (f" (at most {SHARD_PEAK_RATIO_MAX}; {smi})" if n == 2
+                   else f" ({smi})"))
+            if not held or run["iters"] != single["iters"]:
+                bad.append(f"{part} rank {r['rank']} against the single "
+                           f"process")
+            if n == 2 and ratio > SHARD_PEAK_RATIO_MAX:
+                bad.append(f"{part} rank {r['rank']} peak {ratio:.3f}x")
+        log(f"[shard-multi] {part} done at {time.perf_counter() - t0:.1f} s "
+            f"with the spawn")
+    if bad:
+        raise AssertionError(f"phase 18 failed: {bad}")
 
 
 def main() -> int:
@@ -3748,6 +3889,8 @@ def main() -> int:
     check_shard_pm(torch, smi)
     phase_done("phase 17 (PatchMatch, block-Jacobi and Jacobi WLS on row "
                "bands)")
+    check_shard_multi(torch, smi)
+    phase_done("phase 18 (P > 1 merge and a short pair on row bands)")
     log(f"[time] whole run {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [bidir, directed, conv]}))
     log(smi)

@@ -26,9 +26,11 @@ Under a space mesh, ``forward(..., band=)`` runs the body on one band of
 the input's rows (``parallel.mesh.RowBand``): each 3x3 convolution takes a
 one-row halo from the neighbouring bands (zero rows at the image's edges,
 the convolution's own padding), and each pool works on its band alone,
-which starts on an even row (the band rule's 16-row units).  In float32 a
-band's taps are the whole image's rows bit for bit: on the card by the
-kernel's construction, on the CPU with oneDNN off (the plain convolution
+which starts on an even row (the band rule's 16-row units).  A band of
+zero rows (a short image over many ranks) convolves and pools nothing but
+still serves its neighbours' halos.  In float32 a band's taps are the
+whole image's rows bit for bit: on the card by the kernel's
+construction, on the CPU with oneDNN off (the plain convolution
 gives a row the same bits either way; oneDNN's may round a band's rows
 otherwise, within float32 rounding).  A bfloat16 forward stays on
 ``F.conv2d`` for bands too, where cuDNN may add a band's rows in another
@@ -155,17 +157,20 @@ class VGG19(nn.Module):
                 elif band is None:
                     x = F.conv2d(x, rnd(conv.weight), padding=1)
                     x = torch.relu(x + rnd(conv.bias)[None, :, None, None])
-                else:
+                elif x.shape[2]:
                     x = F.conv2d(F.pad(x, (0, 0, 1 - top, 1 - bottom)),
                                  rnd(conv.weight), padding=(0, 1))
                     x = torch.relu(x + rnd(conv.bias)[None, :, None, None])
+                else:                           # a band of zero rows
+                    x = x.new_empty((1, conv.out_channels, 0, x.shape[3]))
                 if name in needed:
                     out[name] = x[0].permute(1, 2, 0).contiguous()
                 if i == deepest:
                     break
                 x = rnd(x)
                 if name in _POOL_AFTER:
-                    x = F.max_pool2d(x, 2, 2, ceil_mode=True)
+                    x = (F.max_pool2d(x, 2, 2, ceil_mode=True) if x.shape[2]
+                         else x[..., ::2])      # zero rows: only W halves
                     if band is not None:
                         band = band.coarsen()
         return out

@@ -216,12 +216,19 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     reads ``weight_t`` (``kernel_weight(weight)``, made here when not
     given: a caller that convolves with one weight again and again keeps
     it) with the tile ``pick_config`` chooses (``config`` forces one: the
-    tests run every tile); CPU tensors through ``conv3x3_plain``."""
+    tests run every tile); CPU tensors through ``conv3x3_plain``.  Zero
+    output rows (H = 0: a row band that holds none) give an empty result
+    and launch nothing."""
+    n, hp, w = x.shape[0], x.shape[-2], x.shape[-1]
+    cout = weight.shape[0]
+    if x.dim() == 4 and hp == 2:
+        # a band of zero rows (its two padding rows only): nothing to
+        # convolve, and nothing is launched
+        return x.new_empty((n, cout, 0, w), dtype=torch.float32)
     if x.device.type == "cpu":
         return conv3x3_plain(x, weight, bias, relu)
     _check(x, weight, bias, weight_t)
-    n, cin, hp, w = x.shape
-    cout = weight.shape[0]
+    cin = x.shape[1]
     if config is None:
         config = pick_config(n, hp - 2, w, cout, _sms(x.device.index or 0))
     elif not 0 <= config < len(CONFIGS):

@@ -127,20 +127,29 @@ def _check_tables(fa, ma, fb, mb) -> None:
 
 def _launch(kind: str, fa, ma, fb, mb):
     """Launch one instance on checked tables (one pair, or a batch over the
-    grid's z axis); returns its key tensors, [B, ...] for a batch."""
-    lib = _lib()
+    grid's z axis); returns its key tensors, [B, ...] for a batch.  Tables
+    of zero rows launch nothing (and count nothing): their rows and
+    columns hold the "no match" key, distance inf and index 0."""
     dev = fa.device
     lead = tuple(fa.shape[:-2])
     batch = lead[0] if lead else 1
     na_pad, nb_pad, kc = fa.shape[-2], fb.shape[-2], fa.shape[-1]
+    inf_key = encode_keys(torch.tensor([float("inf")], device=dev),
+                          torch.zeros(1, dtype=torch.int64, device=dev))
+    row_keys = inf_key.expand(lead + (na_pad,)).contiguous()
+    if not (na_pad and nb_pad and batch):
+        # an empty operand (a row band of zero rows): every row and column
+        # keeps the key the kernel starts from, and nothing is launched
+        # (CUDA refuses an empty grid)
+        if kind == "nn_bidir":
+            return row_keys, inf_key.expand(lead + (nb_pad,)).contiguous()
+        return (row_keys,)
+    lib = _lib()
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     ni, nb_tiles = na_pad // TILE, nb_pad // TILE
     # the batch's blocks count towards the ~64 per SM
     n_split = min(nb_tiles, -(-_BLOCKS_PER_SM * n_sm // (ni * batch)))
     tiles_per_split = -(-nb_tiles // n_split)
-    inf_key = encode_keys(torch.tensor([float("inf")], device=dev),
-                          torch.zeros(1, dtype=torch.int64, device=dev))
-    row_keys = inf_key.expand(lead + (na_pad,)).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (fa.data_ptr(), ma.data_ptr(), fb.data_ptr(), mb.data_ptr(),
             na_pad, nb_pad, kc, tiles_per_split, batch, row_keys.data_ptr())

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from nct_tpu_torch.ops.fmath import sqrt32
+from nct_tpu_torch.ops.fmath import sqrt32, sum_last
 
 
 def l2_normalize(feat: torch.Tensor, eps: float = 1e-12):
@@ -16,8 +16,10 @@ def l2_normalize(feat: torch.Tensor, eps: float = 1e-12):
     response is the min-max normalized L2 magnitude (per item of a batch).
     """
     f32 = feat.float()
-    mag = sqrt32(torch.sum(f32 * f32, dim=-1))
+    mag = sqrt32(sum_last(f32 * f32))
     normalized = (f32 / torch.clamp(mag, min=eps)[..., None]).to(feat.dtype)
+    if not mag.numel():                 # a row band of zero rows
+        return normalized, mag
     lo = torch.amin(mag, dim=(-2, -1), keepdim=True)
     hi = torch.amax(mag, dim=(-2, -1), keepdim=True)
     response = (mag - lo) / torch.clamp(hi - lo, min=eps)
@@ -26,4 +28,4 @@ def l2_normalize(feat: torch.Tensor, eps: float = 1e-12):
 
 def cosine_error(a_norm: torch.Tensor, b_norm: torch.Tensor) -> torch.Tensor:
     """Per-pixel matching error ``-<a, b>`` over channels."""
-    return -torch.sum(a_norm.float() * b_norm.float(), dim=-1)
+    return -sum_last(a_norm.float() * b_norm.float())

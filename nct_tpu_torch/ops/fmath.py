@@ -9,13 +9,36 @@ XLA's CPU backend contracts a product feeding an add into one fused
 multiply-add, and evaluates ``exp`` with a Cephes polynomial in such
 fused steps; ``fma32``, ``dot3_fma`` and ``exp32`` reproduce those
 roundings.  Every step is float64 arithmetic, exact on the card as on the
-CPU, so both give the same bits.
+CPU, so both give the same bits.  ``sum_last`` sums rows in an order that
+does not depend on the row count, so that a row band's sums are the whole
+grid's on the card too.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+# CUDA's reduction splits each output's sum over more threads when there
+# are fewer outputs than this (ATen's ``setReduceConfig``: the block holds
+# up to 16 outputs a row), so a sum's order would follow the row count
+_MIN_ROWS = 16
+
+
+def sum_last(x: torch.Tensor, dtype: torch.dtype | None = None
+             ) -> torch.Tensor:
+    """``x.sum(-1, dtype=dtype)`` in an order that does not depend on how
+    many rows ``x`` holds: on the card fewer than 16 rows are summed
+    padded with zero rows to 16, so a row band of a few pixels (or a tiny
+    level) adds each row as the whole grid does.  The CPU's order is per
+    row already."""
+    rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
+    if not x.is_cuda or rows == 0 or rows >= _MIN_ROWS:
+        return x.sum(-1, dtype=dtype)
+    flat = torch.nn.functional.pad(x.reshape(rows, x.shape[-1]),
+                                   (0, 0, 0, _MIN_ROWS - rows))
+    return flat.sum(-1, dtype=dtype)[:rows].reshape(x.shape[:-1])
 
 
 def sqrt32(x: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from nct_tpu_torch.ops.fmath import sum_last
+
 
 def patch_offsets(patch_size: int) -> list[tuple[int, int]]:
     """(dx, dy) taps, dy-major over [-ps/2, ps/2]."""
@@ -68,7 +70,7 @@ def gather_patch_rows(b_pad: torch.Tensor, cx: torch.Tensor,
         vals.append(b_pad[boff + (ty + half) * wp + tx + half])
         masks.append((ty >= 0) & (ty < hb) & (tx >= 0) & (tx < wb))
     v = torch.stack(vals, dim=-2)
-    return (v.reshape(v.shape[:-2] + (-1,)),
+    return (v.flatten(-2),
             torch.stack(masks, dim=-1).float())
 
 
@@ -98,9 +100,9 @@ def _eval_candidates(pa, pam, fetch, cand, valid):
     pb, pbm = fetch(cand)
     prod = pa * pb.float()
     if cand.dim() == 4:
-        num = -torch.stack([p.sum(-1) for p in prod])
+        num = -torch.stack([sum_last(p) for p in prod])
     else:
-        num = -prod.sum(-1)
+        num = -sum_last(prod)
     cnt = (pam * pbm).sum(-1)
     d = torch.where(cnt > 0, num / torch.clamp(cnt, min=1.0), 1.0)
     return torch.where(valid, d, float("inf"))
@@ -265,9 +267,11 @@ def _patchmatch_band(a_norm, b_norm, nnf0, uniforms, iters: int,
     dev = a_norm.device
     half = patch_size // 2
 
-    a_ext, a_top, _ = band.halo(a_norm, _REACH + half, _REACH + half)
-    top = min(_REACH, band.start)
-    n_win = top + rows + min(_REACH, ha - band.stop)
+    a_ext, a_top, a_bottom = band.halo(a_norm, _REACH + half,
+                                       _REACH + half)
+    # the field's halo rows (none for a band of zero rows)
+    top = min(_REACH, a_top)
+    n_win = top + rows + min(_REACH, a_bottom)
     pa, pam = patchify(a_ext, patch_size)
     k = pa.shape[-2]
     pa = pa.narrow(-4, a_top - top, n_win).reshape(

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from nct_tpu_torch.ops.fmath import sum_last
 from nct_tpu_torch.ops.patchmatch import gather_patch_rows, patchify
 
 
@@ -131,13 +132,13 @@ def window_refine(
         else:
             g = strip[(idx + boff).reshape(-1)].reshape(
                 lead + (ha, wa, nd, cs))                    # [Ha, Wa, nd, Cs]
-        d = -torch.sum(a1[..., None, :] * g, dim=-1, dtype=torch.float32)
+        d = -sum_last(a1[..., None, :] * g, dtype=torch.float32)
         d_rows.append(d.movedim(-1, 0))                     # [nd, Ha, Wa]
     ring_idx = torch.stack(
         [boff + torch.clamp(idx0 + dy * wb + dx, 0, nb - 1)
          for dx, dy in rings])
     gr = b1[ring_idx]                                       # [R, Ha, Wa, Cs]
-    d_rows.append(-torch.sum(a1[None] * gr, dim=-1, dtype=torch.float32))
+    d_rows.append(-sum_last(a1[None] * gr, dtype=torch.float32))
     d_center = torch.cat(d_rows, dim=0)                     # [S2, Ha, Wa]
     grid = (1,) * bx0.dim()
     sdx = shifts[:, 0].reshape((-1,) + grid)
@@ -191,7 +192,7 @@ def window_refine(
 
     def full_eval(cand_x, cand_y):
         g, gm = patch_rows(cand_x, cand_y)          # [Ha, Wa, K*C], [.., K]
-        num = -torch.sum(pa_f * g.float(), dim=-1)
+        num = -sum_last(pa_f * g.float())
         cnt = torch.sum(pam_f * gm, dim=-1)
         return torch.where(cnt > 0, num / torch.clamp(cnt, min=1.0), 1.0)
 

@@ -18,9 +18,10 @@ function with the whole bucket) the bucket splits by items over the data
 axis, each data row runs its items as one vmap pass, and the results are
 gathered so that every rank returns the whole bucket, like JAX's global
 array.  The space axis splits each pair by rows (``pipeline.row_sharded``:
-every stage on row bands for the default family, the exact levels through
-the ring over the bands); other configurations keep the replicated stages
-with the ring at the exact levels.
+every stage on row bands, any membership count, the exact levels through
+the ring over the bands; a short image leaves the trailing ranks empty
+bands); the scatter transpose keeps the replicated stages with the ring
+at the exact levels.
 """
 
 from __future__ import annotations

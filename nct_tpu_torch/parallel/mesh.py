@@ -21,7 +21,9 @@ Row bands (the counterpart of GSPMD's row sharding over ``space``):
 ``image_bands`` splits an input image's rows into one band per space rank,
 with boundaries on multiples of ``UNIT_ROWS`` (16 = 2**4, one factor of
 two per ceil-mode pool before ``conv5_1``), so that every VGG grid, pyramid
-level and solver grid of the pair starts each band on a whole row;
+level and solver grid of the pair starts each band on a whole row (an
+image of fewer units than ranks gives the trailing ranks bands of zero
+rows, at every grid);
 ``RowBand`` is one grid's split seen from one rank, with the exchanges the
 band stages need: ``halo`` (edge rows swapped with the bands above and
 below), ``reduce_sum`` (partials gathered and added in rank order, so every
@@ -153,14 +155,17 @@ def _all_gather(mesh: "Mesh", axis: str, t: torch.Tensor) -> list:
 
 def image_bands(h: int, n: int, unit: int = UNIT_ROWS) -> list[int]:
     """Row boundaries [0, b_1, .., b_{n-1}, h] of ``n`` bands of an image
-    of ``h`` rows: each inner boundary a multiple of ``unit``, as near the
-    even split as that allows, every band at least one unit (the last takes
-    the ceil-mode overhang).  Raises ValueError when the image has fewer
-    units than ``n``, naming the least height."""
+    of ``h`` rows: each inner boundary a multiple of ``unit`` (or ``h``),
+    as near the even split as that allows, every band at least one unit
+    (the last takes the ceil-mode overhang).
+
+    An image of fewer units than ``n`` gives each of its first ``units``
+    ranks one unit and the trailing ranks a band of zero rows (boundaries
+    at ``h``): such a rank holds nothing, yet joins every exchange of the
+    band stages, which take zero-row bands as they come."""
     units = -(-h // unit)
     if n > units:
-        raise ValueError(f"a space axis of {n} ranks needs images of at "
-                         f"least {unit * (n - 1) + 1} rows; got {h}")
+        return [min(k * unit, h) for k in range(n)] + [h]
     bounds = [0]
     for k in range(1, n):
         b = math.floor(k * h / (n * unit) + 0.5)
@@ -172,9 +177,13 @@ def image_bands(h: int, n: int, unit: int = UNIT_ROWS) -> list[int]:
 class RowBand:
     """One grid's row split over ``mesh``'s ``axis``, seen from one rank:
     band j holds rows [starts[j], starts[j+1]) of ``h`` (the last to ``h``).
+    A band may hold no rows (``image_bands`` of a short image gives the
+    trailing ranks such bands, each starting at ``h``): it asks for no
+    halo and sends none, and joins every exchange all the same.
 
     ``of_image(bounds, shift, h)`` is the band of the grid at input /
-    2**shift (a VGG tap or pyramid level with ceil dims ``h``).  Tensors of
+    2**shift (a VGG tap or pyramid level with ceil dims ``h``; an empty
+    band starts at ``h`` on every grid).  Tensors of
     a band hold its rows on dimension ``dim`` (an image [..., rows, W, C]
     on -3, a map [..., rows, W] on -2); leading axes are a batch.
     """
@@ -187,7 +196,8 @@ class RowBand:
     @classmethod
     def of_image(cls, mesh: Mesh, axis: str, bounds: list, shift: int,
                  h: int) -> "RowBand":
-        return cls(mesh, axis, tuple(b >> shift for b in bounds[:-1]), h)
+        return cls(mesh, axis, tuple(b >> shift if b < bounds[-1] else h
+                                     for b in bounds[:-1]), h)
 
     @property
     def n(self) -> int:
@@ -201,6 +211,11 @@ class RowBand:
         """Rows [start, stop) of band j."""
         stop = self.starts[j + 1] if j + 1 < self.n else self.h
         return self.starts[j], stop
+
+    def holds(self, j: int) -> bool:
+        """Whether band j holds any rows."""
+        start, stop = self.span(j)
+        return stop > start
 
     @property
     def start(self) -> int:
@@ -226,13 +241,14 @@ class RowBand:
 
     def coarsen(self) -> "RowBand | None":
         """The band of the grid at half resolution (ceil dims), or None
-        when a band would start on an odd row or lose its last row."""
-        if any(s % 2 for s in self.starts) or any(
-                self.span(j)[1] - self.span(j)[0] < 2
-                for j in range(self.n - 1)):
+        when a band holding rows would start on an odd row.  Empty bands
+        (at ``h``) stay empty at the new ``h``."""
+        if any(s % 2 for s in self.starts if s < self.h):
             return None
+        h = -(-self.h // 2)
         return RowBand(self.mesh, self.axis,
-                       tuple(s // 2 for s in self.starts), -(-self.h // 2))
+                       tuple(s // 2 if s < self.h else h
+                             for s in self.starts), h)
 
     def halo(self, t: torch.Tensor, above: int, below: int,
              dim: int = -3) -> tuple[torch.Tensor, int, int]:
@@ -248,8 +264,11 @@ class RowBand:
         start, stop = self.start, self.stop
 
         def wanted(j):
-            """The rows band j asks for: above it, then below it."""
+            """The rows band j asks for: above it, then below it (none
+            for an empty band)."""
             js, je = self.span(j)
+            if not self.holds(j):
+                return (js, js), (je, je)
             return ((js - min(above, js), js),
                     (je, je + min(below, self.h - je)))
 

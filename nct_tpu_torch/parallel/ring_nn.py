@@ -203,8 +203,10 @@ def ring_band_nn(a_band: torch.Tensor, b_band: torch.Tensor,
     [..., rows_b, Wb, C] (L2-normalized; an optional leading batch axis on
     both) and gets its band of the result: (nnf [..., rows_a, Wa, 2] int32
     global (x, y), annd [..., rows_a, Wa] f32), earliest global index on
-    ties.  ``timing`` collects the steps' CUDA events and the host's
-    staging and waiting time."""
+    ties.  A band of zero rows on either side searches nothing at the
+    steps it takes part in (no launch), yet passes every block on.
+    ``timing`` collects the steps' CUDA events and the host's staging and
+    waiting time."""
     if a_band.device != b_band.device:
         raise ValueError("a_norm and b_norm must be on one device")
     half = patch_size // 2
@@ -227,19 +229,25 @@ def ring_band_nn(a_band: torch.Tensor, b_band: torch.Tensor,
         last = s == n - 1
         if not last:
             ring.post()
-        cuda = timing is not None and fa.device.type == "cuda"
-        if cuda:
-            events = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-            events[0].record()
-        d, i = _search(fa, ma, *(ring.dev if ring else block))
-        if cuda:
-            events[1].record()
-            timing.step_events.append(events)
-        keys = cuda_nn.encode_keys(d, i + first[(r + s) % n]) ^ _SIGN
-        best = keys if best is None else torch.minimum(best, keys)
+        j = (r + s) % n
+        # an empty A band or visiting block has nothing to search: the
+        # step only passes the block on
+        if na and band_b.holds(j):
+            cuda = timing is not None and fa.device.type == "cuda"
+            if cuda:
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record()
+            d, i = _search(fa, ma, *(ring.dev if ring else block))
+            if cuda:
+                events[1].record()
+                timing.step_events.append(events)
+            keys = cuda_nn.encode_keys(d, i + first[j]) ^ _SIGN
+            best = keys if best is None else torch.minimum(best, keys)
         if not last:
             ring.swap()
+    if best is None:
+        best = torch.zeros(lead + (0,), dtype=torch.int64, device=fa.device)
     d, i = cuda_nn.decode_keys((best ^ _SIGN)[..., :na])
     return (unpack_nnf(i, band_b.h * wb, band_a.rows, wa, wb),
             d.reshape(lead + (band_a.rows, wa)))
@@ -250,7 +258,8 @@ def ring_exact_nn(a_norm: torch.Tensor, b_norm: torch.Tensor, mesh,
                   timing: RingTiming | None = None):
     """``ring_band_nn`` on whole features: every rank of ``axis`` calls it
     with the same a_norm [..., Ha, Wa, C] / b_norm [..., Hb, Wb, C], takes
-    its band of rows of each (``image_bands`` with one-row units) and gets
+    its band of rows of each (``image_bands`` with one-row units: with
+    fewer rows than ranks the trailing ranks hold none) and gets
     the whole result, the bands gathered: the contract of
     ``cuda_nn.exact_nn`` (nnf [..., Ha, Wa, 2] int32, annd [..., Ha, Wa]
     f32), earliest global index on ties."""

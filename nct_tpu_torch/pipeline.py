@@ -35,21 +35,24 @@ Under ``Config.space_mesh`` (a ``parallel.mesh.Mesh`` with more than one
 rank on ``space_axis``) every rank of the space group calls the function
 with the same pair or bucket, and every rank returns the whole result,
 bitwise equal on every rank.  For the configurations ``row_sharded``
-accepts (one membership and the slot-keyed in-edge tables; any search,
+accepts (the slot-keyed in-edge tables; any membership count, search,
 preconditioner and level count) each rank holds and computes its band of
 rows of the pair (``parallel.mesh.image_bands``; the JAX package's GSPMD
-row sharding): the VGG body, the pyramids, the colour and feature stages,
-the k-NN graph and both solves run on bands with one-row halos; the exact
-levels search through the ring over row bands (``parallel.ring_nn``) or,
-with ``ring_nn=False``, through ``nn_bidir`` on the gathered levels;
+row sharding; an image with fewer 16-row units than ranks leaves the
+trailing ranks bands of zero rows, which still join every exchange): the
+VGG body, the pyramids, the colour and feature stages, the k-NN graph
+(either membership count) and both solves run on bands with one-row
+halos; the exact levels search through the ring over row bands
+(``parallel.ring_nn``) or, with ``ring_nn=False``, through ``nn_bidir``
+on the gathered levels;
 window refine and PatchMatch search a band of one image against the
 gathered other level (PatchMatch's propagation through a 15-row halo per
 iteration); the BDS votes and the candidates read gathered style (and
 candidate) operands; k-means runs on the gathered conv5_1 level and the
 coarse multigrid levels are gathered; dot products add over the bands in
-rank order.  The output rows are gathered at the end.  ``knn_memberships
-> 1`` and the scatter transpose keep the replicated stages (the exact
-levels through the ring, every other stage on every rank whole).
+rank order.  The output rows are gathered at the end.  The scatter
+transpose keeps the replicated stages (the exact levels through the ring,
+every other stage on every rank whole).
 """
 
 from __future__ import annotations
@@ -150,15 +153,14 @@ def check_config(config: Config) -> None:
 def row_sharded(config: Config) -> bool:
     """True when ``config.space_mesh`` splits the pair by rows (more than
     one rank on ``space_axis``) and the configuration is one the band
-    stages run: one membership and the slot-keyed in-edge tables
-    (``nl_transpose`` "auto" or "tables"), with any search (exact levels,
+    stages run: the slot-keyed in-edge tables (``nl_transpose`` "auto" or
+    "tables"), with any membership count, any search (exact levels,
     window refine, PatchMatch at any level) and either preconditioner of
     either solve (mg or block-Jacobi nonlocal, mg or Jacobi WLS), so
-    ``Config.reference_parity`` too.  ``knn_memberships > 1`` and the
-    scatter transpose keep the replicated stages under a mesh."""
+    ``Config.reference_parity`` too.  The scatter transpose keeps the
+    replicated stages under a mesh."""
     mesh = config.space_mesh
     return (mesh is not None and mesh.shape[config.space_axis] > 1
-            and config.knn_memberships == 1
             and config.nl_transpose != "scatter")
 
 
@@ -467,10 +469,14 @@ def _pools(tap: str) -> int:
 
 def _halo_counts(src: RowBand, needs) -> tuple[int, int]:
     """The halo (rows above, rows below) that gives every band its source
-    rows: ``needs`` [(first, last)] per band of ``src``'s axis; every rank
-    takes the largest, so all ranks call the halo alike."""
+    rows: ``needs`` [(first, last)] per band of ``src``'s axis (None for a
+    band of zero rows, which needs none); every rank takes the largest, so
+    all ranks call the halo alike."""
     above = below = 0
-    for j, (lo, hi) in enumerate(needs):
+    for j, need in enumerate(needs):
+        if need is None:
+            continue
+        lo, hi = need
         start, stop = src.span(j)
         above = max(above, start - lo)
         below = max(below, hi + 1 - stop)
@@ -481,7 +487,7 @@ def _band_resize(x, src: RowBand, dst: RowBand, out_w: int):
     """``resize.resize_bilinear`` of a band: ``x`` holds ``src``'s rows,
     the result ``dst``'s rows of the resize to (dst.h, out_w)."""
     needs = [resize.source_rows(dst.h, src.h, *dst.span(j))
-             for j in range(dst.n)]
+             if dst.holds(j) else None for j in range(dst.n)]
     ext, top, _ = src.halo(x, *_halo_counts(src, needs))
     return resize.resize_bilinear(ext, dst.h, out_w,
                                   rows=(src.start - top, src.h, dst.start,
@@ -495,6 +501,9 @@ def _band_upsample(field, src: RowBand, dst: RowBand, aw: int, bh: int,
     ratio = dst.h / src.h
     needs = []
     for j in range(dst.n):
+        if not dst.holds(j):
+            needs.append(None)
+            continue
         y0, y1 = dst.span(j)
         ys = ((torch.arange(y0, y1, dtype=torch.float32) + 0.5) / ratio).int()
         ys = torch.clamp(ys, 0, src.h - 1)
@@ -528,13 +537,16 @@ def _band_points(band: RowBand, values, ids):
     ids = ids.to(values.device)
     owner = band.owner(ids // w)
     local = torch.where(owner == band.r, ids - band.start * w, 0)
-    if flat.dim() == 3:
-        mine = torch.gather(flat, 1, local.reshape(local.shape[0], -1, 1)
-                            .expand(-1, -1, flat.shape[-1])).reshape(
-                                ids.shape + (flat.shape[-1],))
+    if not band.rows:                   # a band of zero rows fills none
+        mine = values.new_zeros(ids.shape + (flat.shape[-1],))
     else:
-        mine = flat[local]
-    mine = torch.where((owner == band.r)[..., None], mine, 0.0)
+        if flat.dim() == 3:
+            mine = torch.gather(flat, 1, local.reshape(local.shape[0], -1, 1)
+                                .expand(-1, -1, flat.shape[-1])).reshape(
+                                    ids.shape + (flat.shape[-1],))
+        else:
+            mine = flat[local]
+        mine = torch.where((owner == band.r)[..., None], mine, 0.0)
     parts = torch.stack(band.all_parts(mine))
     return torch.gather(parts, 0, owner[None, ..., None].expand(
         (1,) + mine.shape))[0]
@@ -656,8 +668,13 @@ def _band_level_solve(model, config: Config, l: int, numlayer: int, taps,
     cnt_lab_u8 = bgr_u8_to_lab_u8(down_cnt)
     cnt_lab_d = cnt_lab_u8.float() / 255.0
     stride = 2 ** l
-    pixel_labels = cluster.labels_for_pixels(label_map, ah, aw, stride,
-                                             rows=(bl.start, bl.stop))
+    if config.knn_memberships > 1:
+        pixel_labels = cluster.multi_labels_for_pixels(
+            label_map, membership, ah, aw, stride, config.knn_memberships,
+            rows=(bl.start, bl.stop))
+    else:
+        pixel_labels = cluster.labels_for_pixels(label_map, ah, aw, stride,
+                                                 rows=(bl.start, bl.stop))
     member_pix = cluster.membership_for_pixels(membership, ah, aw, stride)
     candidates = draws.candidates(l, member_pix, min(2048, ah * aw))
     del member_pix

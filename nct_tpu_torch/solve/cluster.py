@@ -94,11 +94,14 @@ def membership_for_pixels(membership: torch.Tensor, h: int, w: int,
 
 def multi_labels_for_pixels(label_map: torch.Tensor, membership: torch.Tensor,
                             h: int, w: int, stride: int,
-                            num_memberships: int) -> torch.Tensor:
+                            num_memberships: int,
+                            rows: tuple[int, int] | None = None
+                            ) -> torch.Tensor:
     """Per-pixel list of up to P cluster memberships, primary first:
     int64 [h, w, min(P, K)] (label_map [lh, lw], membership [K, lh, lw]);
     with a leading batch axis on both, [B, h, w, min(P, K)], each item
-    ranked on its own scores.
+    ranked on its own scores.  ``rows`` = (y0, y1): only those rows (a
+    band), as ``labels_for_pixels`` takes them.
 
     Cell scores are 2 for the primary cluster, 1 for a dilated member and 0
     otherwise; the P best are taken stably (equal scores keep the lower
@@ -116,5 +119,7 @@ def multi_labels_for_pixels(label_map: torch.Tensor, membership: torch.Tensor,
     cells = torch.where(got > 0, order, order[..., :1])
     lh, lw = label_map.shape[-2], label_map.shape[-1]
     ys = _cells(h, stride, lh, label_map.device)
+    if rows is not None:
+        ys = ys[rows[0]:rows[1]]
     xs = _cells(w, stride, lw, label_map.device)
     return cells[..., ys[:, None], xs[None, :], :]

@@ -73,12 +73,13 @@ def knn_graph(
     The P > 1 merge scores every row on its own, so its fold is bitwise by
     construction (the JAX package vmaps it plainly, with the same result).
 
-    A band of rows (single membership; under a space mesh): ``lab_unit``
-    and ``pixel_labels`` hold the band's rows, ``row0`` is the flat index
-    of its first pixel in the whole level (ids stay global) and
+    A band of rows (under a space mesh, either membership count):
+    ``lab_unit`` and ``pixel_labels`` hold the band's rows, ``row0`` is the
+    flat index of its first pixel in the whole level (ids stay global) and
     ``cand_colors`` [..., K, M, 3] the candidates' colours, gathered from
     the ranks that hold them, and ``n_total`` the level's pixels.  Every
-    row is scored on its own, so the band's rows are the whole graph's rows
+    row is scored on its own (a pixel is never its own neighbour: the
+    query ids are global), so the band's rows are the whole graph's rows
     bit for bit.
     """
     if lab_unit.dim() == 4:
@@ -88,10 +89,11 @@ def knn_graph(
     n = h * w
     colors = lab_unit.reshape(n, 3).float()
     candidates = candidates.long().to(lab_unit.device)
-    if pixel_labels.dim() == 3 and pixel_labels.shape[-1] > 1:
-        return _knn_graph_multi(colors, pixel_labels.reshape(n, -1).long(),
-                                candidates, k_num, chunk)
     gid = torch.arange(row0, row0 + n, device=colors.device)
+    if pixel_labels.dim() == 3 and pixel_labels.shape[-1] > 1:
+        labels = pixel_labels.reshape(n, pixel_labels.shape[-1]).long()
+        return _knn_graph_multi(colors, labels, candidates, k_num, chunk,
+                                gid, cand_colors)
     return _knn_graph_sorted(colors, pixel_labels.reshape(n).long(),
                              candidates, k_num, chunk, gid, cand_colors)
 
@@ -173,19 +175,20 @@ def _knn_graph_folded(lab_unit: torch.Tensor, pixel_labels: torch.Tensor,
     kc, m = candidates.shape[-2], candidates.shape[-1]
     boff = torch.arange(b, device=dev)[:, None]
     multi = pixel_labels.dim() == 4 and pixel_labels.shape[-1] > 1
-    labels = (pixel_labels.reshape(b, n, -1).long()
-              + boff[..., None] * kc).reshape(b * n, -1)
+    p = pixel_labels.shape[-1] if multi else 1
+    labels = (pixel_labels.reshape(b, n, p).long()
+              + boff[..., None] * kc).reshape(b * n, p)
     cands = (candidates.long().to(dev)
              + boff[..., None] * n_ids).reshape(b * kc, m)
     colors = lab_unit.reshape(b * n, 3).float()
+    gid = (boff * n_ids + row0
+           + torch.arange(n, device=dev)[None, :]).reshape(-1)
+    if cand_colors is not None:
+        cand_colors = cand_colors.reshape(b * kc, m, 3)
     if multi:
         ids, wts, slots = _knn_graph_multi(colors, labels, cands, k_num,
-                                           chunk)
+                                           chunk, gid, cand_colors)
     else:
-        gid = (boff * n_ids + row0
-               + torch.arange(n, device=dev)[None, :]).reshape(-1)
-        if cand_colors is not None:
-            cand_colors = cand_colors.reshape(b * kc, m, 3)
         ids, wts, slots = _knn_graph_sorted(colors, labels.reshape(-1),
                                             cands, k_num, chunk, gid,
                                             cand_colors)
@@ -195,14 +198,17 @@ def _knn_graph_folded(lab_unit: torch.Tensor, pixel_labels: torch.Tensor,
 
 
 def _knn_graph_multi(colors: torch.Tensor, labels: torch.Tensor,
-                     candidates: torch.Tensor, k_num: int, chunk: int):
+                     candidates: torch.Tensor, k_num: int, chunk: int,
+                     gid: torch.Tensor, cand_colors: torch.Tensor | None):
     """Multi-membership graph: colors [N, 3], labels [N, P], candidates
-    [K, M].  Every row is scored on its own, so the result does not depend
-    on ``chunk``."""
+    [K, M] int64 ids of the rows' ``gid`` numbering, ``cand_colors`` their
+    colours (None: ``colors[candidates]``).  Every row is scored on its
+    own, so the result does not depend on ``chunk``."""
     n, p = labels.shape
     dev = colors.device
     m = candidates.shape[1]
-    cand_colors = colors[candidates]                   # [K, M, 3]
+    if cand_colors is None:
+        cand_colors = colors[candidates]               # [K, M, 3]
     cand_sq = dot3_fma(cand_colors, cand_colors)
     ids_o = torch.empty((n, k_num), dtype=torch.int64, device=dev)
     w_o = torch.empty((n, k_num), dtype=torch.float32, device=dev)
@@ -211,7 +217,7 @@ def _knn_graph_multi(colors: torch.Tensor, labels: torch.Tensor,
     for s0 in range(0, n, chunk):
         ql = labels[s0:s0 + chunk]                                 # [B, P]
         b = ql.shape[0]
-        qi = torch.arange(s0, s0 + b, device=dev)
+        qi = gid[s0:s0 + b]
         qc = colors[s0:s0 + b]                                     # [B, 3]
         cand_ids = candidates[ql].reshape(b, p * m)
         cross = dot3_fma(qc[:, None, :],

@@ -92,8 +92,9 @@ def laplacian_degree(wx: torch.Tensor, wy: torch.Tensor, band=None):
         deg[..., 1:, :] += wy[..., :-1, :]
         return deg
     rows = wx.shape[-2]
-    top = 1 if band.r > 0 else 0
-    down = rows - 1 + (1 if band.r < band.n - 1 else 0)
+    # the rows ``band.halo`` adds: none for a band of zero rows
+    top = 1 if rows and band.start > 0 else 0
+    down = rows - 1 + (1 if rows and band.stop < band.h else 0)
     deg[..., :down, :] += wy[..., top:top + down, :]
     deg[..., 1 - top:, :] += wy[..., :rows - 1 + top, :]
     return deg
@@ -637,7 +638,9 @@ def make_nonlocal_system_band(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
     sort_key = torch.where(keep, key, float(n_slots * 16))
     order, sorted_t, rank = _rank_in_targets(flat_t, sort_key)
     real = sorted_t < n_slots
-    width = max(int(torch.where(real, rank + 1, 0).amax()), 1)
+    # (a band of zero rows holds no pairs: a table of width 1, all empty)
+    width = max(int(torch.where(real, rank + 1, 0).amax())
+                if rank.numel() else 0, 1)
     sentinel = g * n * k
     in_tab = torch.full((g * n_slots + 1, width), sentinel,
                         dtype=torch.int64, device=dev)
@@ -646,9 +649,9 @@ def make_nonlocal_system_band(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
         torch.where(real, order + goff * (n * k), sentinel).reshape(-1))
     in_tab = in_tab[:-1]
     valid = in_tab < sentinel
-    in_tab_c = torch.clamp(in_tab, max=sentinel - 1)
-    in_src = torch.where(valid, in_tab_c // k, 0)
-    in_w = torch.where(valid, pair_w_flat[in_tab_c], 0.0)
+    in_src = torch.where(valid, in_tab // k, 0)
+    # the sentinel reads an appended zero (a band of zero rows has no pairs)
+    in_w = torch.where(valid, F.pad(pair_w_flat, (0, 1))[in_tab], 0.0)
 
     # slot sums over every band (rank order) land on the owned candidates
     cs_order = torch.argsort(cand_flat, stable=True)
@@ -665,8 +668,10 @@ def make_nonlocal_system_band(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
         """u [N, C] -> sum_j w_ij (u_i - u_j) over both edge directions;
         the candidates' values and the slots' in-sums from every band."""
         c = u.shape[-1]
-        mine = torch.where(owned[:, None], u[take], 0.0)
-        part = torch.sum((in_w[..., None] * u[in_src]).double(), dim=1)
+        # a band of zero rows reads one zero row (its reads are all masked)
+        src = u if u.shape[0] else u.new_zeros((1, c))
+        mine = torch.where(owned[:, None], src[take], 0.0)
+        part = torch.sum((in_w[..., None] * src[in_src]).double(), dim=1)
         parts = band.all_parts(torch.cat([mine.double(), part], dim=-1))
         cand_u = torch.stack([p[:, :c] for p in parts])[
             cand_owner, slot_ids].float()

@@ -113,8 +113,12 @@ def error_confidence(err: torch.Tensor, band=None) -> torch.Tensor:
     """BDS feature error [..., H, W] -> data-term confidence
     max(1 - minmax(err), 1e-6), the min and max taken per item (over
     every band of ``band``'s axis when ``err`` is one band's rows)."""
-    lo = torch.amin(err, dim=(-2, -1), keepdim=True)
-    hi = torch.amax(err, dim=(-2, -1), keepdim=True)
+    if err.numel():
+        lo = torch.amin(err, dim=(-2, -1), keepdim=True)
+        hi = torch.amax(err, dim=(-2, -1), keepdim=True)
+    else:                               # a band of zero rows
+        lo = err.new_full(err.shape[:-2] + (1, 1), float("inf"))
+        hi = -lo
     if band is not None:
         lo, hi = band.reduce(lo, "min"), band.reduce(hi, "max")
     e = (err - lo) / torch.clamp(hi - lo, min=1e-30)

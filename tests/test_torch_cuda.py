@@ -194,6 +194,57 @@ def test_zero_patch_distance_is_positive_zero(card):
     torch.testing.assert_close(got[3], ref[3].to(got[3].dtype), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("lead", [(), (2,)], ids=["pair", "batch"])
+def test_zero_row_operands_launch_nothing(card, lead):
+    """A row band of zero rows: both NN instances on an empty A or B table
+    and ``conv3x3`` on zero output rows return results of the right
+    shapes (rows of an empty B keep the key (+inf, 0)) and launch
+    nothing."""
+    from nct_tpu_torch.ops import conv3x3
+
+    rng = np.random.default_rng(8)
+    f, m = cuda_nn.padded_tables(_integer(rng, 6, 7, 16, card), 3)
+    if lead:
+        f, m = f.expand(lead + f.shape).contiguous(), m.expand(
+            lead + m.shape).contiguous()
+    ef, em = f[..., :0, :], m[..., :0]
+    before = dict(cuda_nn.LAUNCHES)
+    n = f.shape[-2]
+    for fa, ma, fb, mb in ((ef, em, f, m), (f, m, ef, em), (ef, em, ef, em)):
+        na, nb = fa.shape[-2], fb.shape[-2]
+        d_ab, i_ab, d_ba, i_ba = cuda_nn.nn_bidir_tables(fa, ma, fb, mb)
+        d_dir, i_dir = cuda_nn.nn_directed_tables(fa, ma, fb, mb)
+        for d, i, rows in ((d_ab, i_ab, na), (d_ba, i_ba, nb),
+                           (d_dir, i_dir, na)):
+            assert tuple(d.shape) == tuple(i.shape) == lead + (rows,)
+            assert torch.isinf(d).all() and (d > 0).all() and not i.any()
+    assert cuda_nn.LAUNCHES == before and n > 0
+    x = torch.zeros((1, 8, 2, 9), device=card)
+    w = torch.ones((4, 8, 3, 3), device=card)
+    conv_before = conv3x3.LAUNCHES["conv3x3"]
+    y = conv3x3.conv3x3(x, w, torch.zeros(4, device=card), relu=True)
+    assert tuple(y.shape) == (1, 4, 0, 9) and y.device == x.device
+    assert conv3x3.LAUNCHES["conv3x3"] == conv_before
+
+
+@pytest.mark.parametrize("depth,dtype", [(64, torch.float32),
+                                         (576, torch.float32),
+                                         (4608, torch.float32),
+                                         (512, torch.bfloat16)])
+def test_sum_last_does_not_depend_on_rows(card, depth, dtype):
+    """``fmath.sum_last`` of the first rows of a tensor is those rows of
+    its whole sum, bit for bit, for every row count: the per-pixel sums
+    of a row band of a few pixels are the whole grid's."""
+    from nct_tpu_torch.ops.fmath import sum_last
+
+    g = torch.Generator().manual_seed(depth)
+    x = torch.randn(40, depth, generator=g).to(card, dtype)
+    want = sum_last(x, dtype=torch.float32)
+    for rows in (1, 3, 4, 5, 8, 12, 15, 16, 17, 40):
+        got = sum_last(x[:rows].clone(), dtype=torch.float32)
+        assert torch.equal(got, want[:rows]), rows
+
+
 @pytest.mark.parametrize("integer", [True, False])
 def test_batched_launch_bitwise_per_item(card, integer):
     """One launch over the batch grid axis gives every item the keys of its

@@ -15,8 +15,8 @@ integer-valued features bitwise against JAX's and the port's exact search.
 The mesh pipeline is held bitwise against the port's single-process path,
 which the pipeline tests hold against JAX: the row-sharded space meshes
 (their dot products add over the bands in rank order; PatchMatch too), the
-replicated stages a space mesh keeps for two memberships, and the data
-mesh.  The ranks and the single-process
+replicated stages a space mesh keeps for the scatter transpose, and the
+data mesh.  The ranks and the single-process
 references run with oneDNN off (``torch_mesh_workers.plain_convolutions``):
 oneDNN's convolutions may round a band's rows otherwise than the whole
 image's (``tests/test_torch_space_shard.py`` holds band VGG taps to rtol
@@ -119,7 +119,7 @@ def _world(request, n):
 def tiny_refs():
     """The port's single-process results the mesh runs must equal (oneDNN
     off, as in the ranks): one pair, a vmap bucket of 2, the PatchMatch
-    pair and the pair with two memberships."""
+    pair and the pair with the scatter transpose."""
     cnt, stl, seeds = workers.tiny_pairs(2, 40, 48, 44, 52)
     model = vgg19.init_params()
     with torch.backends.mkldnn.flags(enabled=False):
@@ -132,10 +132,11 @@ def tiny_refs():
         pm = pipeline.transfer_pair(model, cnt[0], stl[0], 2.0,
                                     workers.TINY_PM, seed=seeds[0],
                                     device="cpu").numpy()
-        p2 = pipeline.transfer_pair(model, cnt[0], stl[0], 2.0,
-                                    workers.TINY_P2, seed=seeds[0],
-                                    device="cpu").numpy()
-    return {"pair": pair, "bucket": bucket, "pair_pm": pm, "pair_p2": p2}
+        scatter = pipeline.transfer_pair(model, cnt[0], stl[0], 2.0,
+                                         workers.TINY_SCATTER, seed=seeds[0],
+                                         device="cpu").numpy()
+    return {"pair": pair, "bucket": bucket, "pair_pm": pm,
+            "pair_scatter": scatter}
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -268,15 +269,15 @@ def test_space_mesh_patchmatch_pair_bitwise_single_process(world2,
 
 def test_space_mesh_replicated_pair_bitwise_single_process(world2,
                                                            tiny_refs):
-    """Two memberships keep a 1x2 space mesh on the replicated stages
-    (``pipeline.row_sharded`` is False: the ring at the exact levels, every
-    other stage whole on each rank): both ranks return the single-process
-    pair bit for bit."""
+    """The scatter transpose keeps a 1x2 space mesh on the replicated
+    stages (``pipeline.row_sharded`` is False: the ring at the exact
+    levels, every other stage whole on each rank): both ranks return the
+    single-process pair bit for bit."""
     assert not pipeline.row_sharded(dataclasses.replace(
-        workers.TINY_P2, space_mesh=_FakeMesh()))
+        workers.TINY_SCATTER, space_mesh=_FakeMesh()))
     for rank in world2["pipeline"]:
         np.testing.assert_array_equal(rank["pair_space_replicated"],
-                                      tiny_refs["pair_p2"])
+                                      tiny_refs["pair_scatter"])
 
 
 class _FakeMesh:

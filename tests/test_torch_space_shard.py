@@ -224,9 +224,15 @@ def test_image_bands_rule(h, n, bounds):
         assert all((b >> shift) << shift == b for b in got[:-1])
 
 
-def test_image_bands_too_many_ranks_names_the_least_height():
-    with pytest.raises(ValueError, match="at least 33 rows; got 32"):
-        tmesh.image_bands(32, 3)
+@pytest.mark.parametrize("h,n,bounds", [
+    (32, 3, [0, 16, 32, 32]), (40, 4, [0, 16, 32, 40, 40]),
+    (64, 8, [0, 16, 32, 48, 64, 64, 64, 64, 64]),
+    (68, 8, [0, 16, 32, 48, 64, 68, 68, 68, 68]), (15, 2, [0, 15, 15])])
+def test_image_bands_too_many_ranks_gives_empty_bands(h, n, bounds):
+    """Fewer 16-row units than ranks: one unit for each of the first
+    ranks, a band of zero rows (boundaries at h) for the others
+    (``tests/test_torch_space_shard_short.py`` runs the pairs)."""
+    assert tmesh.image_bands(h, n) == bounds
 
 
 @pytest.mark.parametrize("n", WORLDS)

@@ -23,8 +23,8 @@ this process runs the JAX pairs.  The rules:
     vmap bucket, and a 2-frame parity sequence (level-0 PatchMatch
     warm-started on bands) bitwise the single-process sequence; over 4
     ranks (a 64x48 / 68x52 pair) both configurations bitwise too;
-  * ``knn_memberships > 1`` and the scatter transpose still keep the
-    replicated stages.
+  * the scatter transpose still keeps the replicated stages (several
+    memberships run on row bands: ``test_torch_space_shard_multi.py``).
 """
 
 import dataclasses
@@ -69,16 +69,16 @@ class _FakeMesh:
     ({"nl_precond": "block_jacobi"}, True),
     ({"wls_precond": "jacobi"}, True),
     ({"nl_transpose": "tables"}, True),
-    ({"knn_memberships": 2}, False),
+    ({"knn_memberships": 2}, True),
     ({"nl_transpose": "scatter"}, False),
     ({"knn_memberships": 3, "nl_transpose": "scatter",
       "wls_precond": "jacobi"}, False),
 ], ids=["default", "patchmatch", "pm_level0", "block_jacobi", "wls_jacobi",
         "tables", "memberships2", "scatter", "variants"])
 def test_row_sharded_truth_table(overrides, want):
-    """Every search and preconditioner runs on row bands; several
-    memberships and the scatter transpose replicate; one space rank or no
-    mesh never shards."""
+    """Every search, preconditioner and membership count runs on row
+    bands; the scatter transpose replicates; one space rank or no mesh
+    never shards."""
     assert pipeline.row_sharded(Config(space_mesh=_FakeMesh(2),
                                        **overrides)) is want
     assert not pipeline.row_sharded(Config(space_mesh=_FakeMesh(1),
@@ -90,7 +90,7 @@ def test_reference_parity_row_sharded():
     assert pipeline.row_sharded(Config.reference_parity(
         space_mesh=_FakeMesh(4), vgg_compute_dtype="float32"))
     assert not pipeline.row_sharded(Config.reference_parity(
-        space_mesh=_FakeMesh(2), knn_memberships=2))
+        space_mesh=_FakeMesh(2), nl_transpose="scatter"))
 
 
 def _unit(rng, shape):

@@ -33,9 +33,13 @@ TINY = Config(
 TINY_PM = dataclasses.replace(TINY, exact_nn_levels=1,
                               fine_strategy="patchmatch")
 
-# TINY with two k-means memberships: outside the row-sharded stages, so a
-# space mesh runs it on the replicated path
+# TINY with two k-means memberships (the P > 1 merge; on row bands under
+# a space mesh)
 TINY_P2 = dataclasses.replace(TINY, knn_memberships=2)
+
+# TINY with the scatter transpose: the one configuration a space mesh
+# still runs on the replicated stages
+TINY_SCATTER = dataclasses.replace(TINY, nl_transpose="scatter")
 
 
 def tiny_pairs(b: int, h: int, w: int, hs: int, ws: int, seed: int = 0):
@@ -44,6 +48,29 @@ def tiny_pairs(b: int, h: int, w: int, hs: int, ws: int, seed: int = 0):
     cnt = rng.integers(0, 256, (b, h, w, 3)).astype(np.uint8)
     stl = rng.integers(0, 256, (b, hs, ws, 3)).astype(np.uint8)
     return cnt, stl, list(range(b))
+
+
+def seeded_vgg_params() -> dict:
+    """The port's seeded VGG weights (``vgg19.init_params``) in the JAX
+    package's {name: {"w": HWIO, "b": [out]}} layout, for both sides of a
+    test (drawing them with JAX costs its first compiles)."""
+    return {name: {"w": conv.weight.permute(2, 3, 1, 0).numpy(),
+                   "b": conv.bias.numpy()}
+            for name, conv in vgg19.init_params().convs.items()}
+
+
+def save_taps_weights(path: str, params: dict) -> None:
+    """The JAX package's VGG parameters through conv5_1 (the pipeline's
+    deepest tap) as an npz file that ``vgg19.load_params`` reads: ranks
+    load it, where weights passed to ``launch`` are pickled once per
+    rank (~3 s a rank)."""
+    arrays = {}
+    for name, _ in vgg19.VGG19_CONV_LAYERS:
+        arrays[f"{name}_w"] = np.asarray(params[name]["w"])
+        arrays[f"{name}_b"] = np.asarray(params[name]["b"])
+        if name == "conv5_1":
+            break
+    np.savez(path, **arrays)
 
 
 def ring_cases(n_space: int, cases: dict, device: str = "cpu") -> dict:
@@ -74,8 +101,8 @@ def pipeline_cases(device: str = "cpu") -> dict:
     space mesh (row-sharded; the bucket through the ring and, with
     ``ring_nn=False``, through each rank's ``nn_bidir`` on the gathered
     levels), a bucket of 2 under a 2x1 data mesh, a PatchMatch pair under
-    the 1x2 mesh (row bands too), a pair with two memberships under it
-    (the replicated stages) and the error paths; every result as uint8
+    the 1x2 mesh (row bands too), a pair with the scatter transpose under
+    it (the replicated stages) and the error paths; every result as uint8
     numpy."""
     cnt, stl, seeds = tiny_pairs(2, 40, 48, 44, 52)
     model = vgg19.init_params()
@@ -98,7 +125,7 @@ def pipeline_cases(device: str = "cpu") -> dict:
     ).cpu().numpy()
     out["pair_space_replicated"] = pipeline.transfer_pair(
         model, cnt[0], stl[0], 2.0,
-        dataclasses.replace(TINY_P2, space_mesh=space), seed=seeds[0]
+        dataclasses.replace(TINY_SCATTER, space_mesh=space), seed=seeds[0]
     ).cpu().numpy()
     out["scan_error"] = _errors(
         lambda: make_batch_transfer(TINY, data, mode="scan"))

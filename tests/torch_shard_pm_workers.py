@@ -42,7 +42,7 @@ CONFIGS = {
                         exact_nn_levels=1, **SMALL),
 }
 # (h, w) of the pairs: the content, then the style; the tall pair gives
-# a 1 x 4 mesh its four 16-row units (the band rule's least height, 49)
+# each rank of a 1 x 4 mesh a 16-row unit (no band of zero rows)
 PAIR_HW = (40, 48, 44, 52)
 TALL_HW = (64, 48, 68, 52)
 
