@@ -239,7 +239,11 @@ no result, without them.  Phases, each of which raises on failure:
      of zero rows at every grid: every rank bitwise the single process
      with its iterations, and each rank's launches those of its bands (a
      ring step launches only where its A band and the visiting B block
-     hold rows, a convolution only on rows: none on rank 3).
+     hold rows, a convolution only on rows: none on rank 3); (c) in (a)'s
+     world, the same pair under ``Config(knn_memberships=3,
+     nl_transpose="scatter", wls_precond="jacobi")`` (the variants
+     configuration: the scatter transpose on row bands), with (a)'s
+     checks.
 The line before the last holds {"kernels": [...]}, the one before it the
 card's name and power limit; the last line is {"ok": true, "device": ...}.
 """
@@ -989,10 +993,8 @@ def check_variants(torch) -> None:
     gen = torch.Generator().manual_seed(0)
     model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
     cnt, stl = _pair(torch, gen, CONTENT_HW, STYLE_HW, smooth=False)
-    parity = Config.reference_parity()
-    _timed_pairs(torch, "parity", model, parity, cnt, stl, 1,
-                 {"nn_bidir": 0, "nn_directed": 0})
-    _stage_split(torch, "parity", model, parity, cnt, stl)
+    # Config.reference_parity()'s single-process pairs run in phase 10b's
+    # scan (bf16 VGG) and phase 17 (float32 VGG), launches checked there
     variants = Config(knn_memberships=3, nl_transpose="scatter",
                       wls_precond="jacobi")
     _timed_pairs(torch, "variants", model, variants, cnt, stl, 2,
@@ -1403,27 +1405,40 @@ def check_vmap_bucket(torch, scan: dict) -> dict:
 
 def _scan_items(torch, model, config, cnt_b, stl_b, seeds) -> dict:
     """The scan of a bucket's items: ``transfer_pair`` per item in turn
-    (what ``make_batch_transfer(mode="scan")`` runs), with their traces."""
+    (what ``make_batch_transfer(mode="scan")`` runs), with their traces;
+    each item must launch ``nn_bidir`` once per exact level and nothing
+    else, counted from 0 just before it, and give a checked output."""
     from nct_tpu_torch import pipeline
+    from nct_tpu_torch.ops import cuda_nn
 
-    outs, traces = [], []
+    want = {"nn_bidir": min(config.exact_nn_levels, config.num_levels),
+            "nn_directed": 0}
+    outs, traces, launches = [], [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i, seed in enumerate(seeds):
+        reset_counts()
         out, trace = pipeline.transfer_pair(model, cnt_b[i], stl_b[i], 2.0,
                                             config, seed=seed,
                                             return_intermediates="stats")
+        launches.append(dict(cuda_nn.LAUNCHES))
         outs.append(out)
         traces.append(trace)
     torch.cuda.synchronize()
-    return {"outs": outs, "traces": traces, "s": time.perf_counter() - t0}
+    s = time.perf_counter() - t0
+    for i, out in enumerate(outs):
+        _check_output(torch, out, CONTENT_HW)
+        if launches[i] != want:
+            raise AssertionError(f"scan item {i}: kernel launches "
+                                 f"{launches[i]}, expected {want}")
+    return {"outs": outs, "traces": traces, "s": s}
 
 
 # phase 10: (label, Config, bucket size, warm runs, stage split)
 VMAP_CONFIGS = (
-    ("10a-pm", "patchmatch", 4, 0, False),
+    ("10a-pm", "patchmatch", 2, 0, False),
     ("10b-parity", "parity", 2, 0, False),
-    ("10c-variants", "variants", 4, 0, False),
+    ("10c-variants", "variants", 2, 0, False),
 )
 
 
@@ -1627,7 +1642,7 @@ def mesh_rank(cnt_b, stl_b, seeds) -> dict:
 
     # 11c: phase 8b's 4 pairs over a 2x1 data mesh, 2 per rank as vmap
     dist.barrier()
-    out["data"] = _mesh_runs(torch, 3, lambda: make_batch_transfer(
+    out["data"] = _mesh_runs(torch, 2, lambda: make_batch_transfer(
         Config(), data)(model, cnt_b, stl_b, seeds, 2.0))
     torch.cuda.empty_cache()
 
@@ -2571,19 +2586,33 @@ def check_train_resume(torch) -> None:
                         f'"{os.path.join(tmp, prefix)}"\nrandom_seed: 1\n')
         t0 = time.perf_counter()
         resume = ["--snapshot", os.path.join(tmp, "whole_iter_4.npz")]
-        for prefix, extra in (("whole", ["--deterministic"]),
-                              ("resumed", ["--deterministic", *resume]),
-                              ("default", resume)):
-            proc = subprocess.run(
+
+        def start(prefix: str, extra: list) -> subprocess.Popen:
+            return subprocess.Popen(
                 [sys.executable, "-m", "nct_tpu_torch.tools.caffe_tool",
                  "train", "--solver", os.path.join(tmp, f"{prefix}.prototxt"),
                  "--device", "cuda", *extra],
-                capture_output=True, text=True, cwd=repo, timeout=300,
-                env=dict(os.environ, PYTHONPATH=repo))
-            if proc.returncode != 0:
-                raise AssertionError(f"phase 13d: caffe_tool train exited "
-                                     f"{proc.returncode}:\n{proc.stdout}\n"
-                                     f"{proc.stderr}")
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=repo, env=dict(os.environ, PYTHONPATH=repo))
+
+        # the uninterrupted run first; both resumes of its snapshot then
+        # run side by side (each process's work is its own)
+        for wave in ((("whole", ["--deterministic"]),),
+                     (("resumed", ["--deterministic", *resume]),
+                      ("default", resume))):
+            procs = [start(prefix, extra) for prefix, extra in wave]
+            try:
+                outs = [p.communicate(timeout=300) for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            for p, (stdout, stderr) in zip(procs, outs):
+                if p.returncode != 0:
+                    raise AssertionError(f"phase 13d: caffe_tool train "
+                                         f"exited {p.returncode}:\n{stdout}"
+                                         f"\n{stderr}")
         whole = np.load(os.path.join(tmp, "whole_iter_8.npz"))
         resumed = np.load(os.path.join(tmp, "resumed_iter_8.npz"))
         keys = sorted(k for k in whole.files
@@ -2601,7 +2630,8 @@ def check_train_resume(torch) -> None:
         f"params and history arrays bitwise the uninterrupted run; resumed "
         f"without --deterministic: {len(close)} / {len(keys)} within rtol "
         f"{RESUME_DEFAULT_RTOL} atol {RESUME_DEFAULT_ATOL}, max |diff| "
-        f"{worst:.3g} ({time.perf_counter() - t0:.1f} s, 3 processes)")
+        f"{worst:.3g} ({time.perf_counter() - t0:.1f} s, 3 processes, "
+        f"the two resumes side by side)")
     if not keys or len(same) != len(keys) or len(close) != len(keys):
         raise AssertionError("phase 13d: the resumed run differs")
 
@@ -2666,11 +2696,17 @@ def check_train_mesh(torch) -> None:
 
 
 def check_training(torch, smi: str) -> dict:
-    """Phase 13: JPEG decoding and the Caffe training path on the card."""
+    """Phase 13: JPEG decoding and the Caffe training path on the card.
+    13d's processes run beside 13b's CLI process: each is mostly process
+    start-up, and neither reads what the other writes."""
+    from concurrent.futures import ThreadPoolExecutor
+
     out = {"decode_ms": check_jpeg(torch, smi)}
-    check_jpeg_cli(torch)
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        resume = pool.submit(check_train_resume, torch)
+        check_jpeg_cli(torch)
+        resume.result()
     out["caffenet"] = check_caffenet_training(torch, smi)
-    check_train_resume(torch)
     check_train_mesh(torch)
     return out
 
@@ -3294,19 +3330,19 @@ def check_bench_tools(torch, bidir: dict) -> None:
                                  f"counted, {res}")
 
     # (a) the bench in a new process, as a user runs it: its counts start
-    # at 0 with the process; one cold, the warm reps, a warm and a timed
-    # scan of SCAN_ITEMS pairs each
+    # at 0 with the process; one cold pair and the warm reps (its scan
+    # mode runs the scan batch of phase 8b, and is left out for time)
     proc = subprocess.run(
         [sys.executable, "-m", "nct_tpu_torch.tools.bench", "--reps",
-         str(BENCH_PROCESS_REPS)], capture_output=True, text=True, cwd=repo,
-        env=dict(os.environ, PYTHONPATH=repo), timeout=600)
+         str(BENCH_PROCESS_REPS), "--no-scan"], capture_output=True,
+        text=True, cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+        timeout=600)
     if proc.returncode != 0:
         raise AssertionError(f"phase 15a: the bench exited "
                              f"{proc.returncode}:\n{proc.stderr[-4000:]}")
     res = _tool_result("bench 15a", json.loads(
         proc.stdout.strip().splitlines()[-1]))
-    pairs = 1 + BENCH_PROCESS_REPS + 2 * bench.SCAN_ITEMS
-    correct("15a", res, pairs, res["nn_bidir_launches"])
+    correct("15a", res, 1 + BENCH_PROCESS_REPS, res["nn_bidir_launches"])
     # (b) the upscaled and capped geometries, in this process
     for size in BENCH_SIZES:
         reset_counts()
@@ -3317,8 +3353,9 @@ def check_bench_tools(torch, bidir: dict) -> None:
     log(f"[bench] nn_bidir launches counted from 0: {json.dumps(counts)}")
     # (c)-(f)
     reset_counts()
+    # the vmap mode (phase 8b times the scan batch)
     _tool_result("bench_batch 15c", bench_batch.run(
-        batch=BENCH_BATCH, mode="both", reps=BENCH_BATCH_REPS))
+        batch=BENCH_BATCH, mode="vmap", reps=BENCH_BATCH_REPS))
     _tool_result("bench_serving 15d", bench_serving.run(
         n=BENCH_SERVING_N, mesh=True))
     for pm in (False, True):
@@ -3335,9 +3372,10 @@ def check_bench_tools(torch, bidir: dict) -> None:
 
 
 # phase 16: the 1000 px pair (the JAX package's MAX_SIZE geometry) under a
-# space mesh on row bands, 2 gloo ranks on the card, then 4 for their peaks
+# space mesh on row bands, 2 gloo ranks on the card (a 1x4 run of it too
+# until the time limit took it out: 18b and 17's pm_jacobi keep 1x4)
 SHARD_SIZE = 1000
-SHARD_RANKS = (2, 4)
+SHARD_RANKS = (2,)
 SHARD_PEAK_RATIO_MAX = 0.65
 
 
@@ -3433,54 +3471,91 @@ def _shard_pair(torch, peaks, model, cnt, stl, config) -> dict:
             "comm": dict(mesh_mod.COMM), "peak_gib": peaks.gib()}
 
 
-def shard_rank(n_space: int, runs: int, single: bool) -> dict:
-    """Phase 16 in one rank of an ``n_space``-rank gloo world on the one
-    card: ``runs`` row-sharded pairs (the first cold) and, on rank 0 when
-    ``single``, the single-process pair after them."""
-    import dataclasses
+# phases 16-18 share their worlds: one of 2 ranks and one of 4, each rank
+# building its mesh and the seeded VGG-19 once (a spawn costs ~12 s)
+BAND_WORLDS = ((2, ("16", "17", "18a", "18c")), (4, ("17", "18b")))
 
+
+def band_rank(n_space: int, parts) -> dict:
+    """Phases 16-18 in one rank of an ``n_space``-rank gloo world on the
+    one card: each of ``parts`` ("16", "17", "18a", "18b", "18c") in
+    turn over one 1 x ``n_space`` mesh and one seeded VGG-19; returns each
+    phase's results under its number ("16", "17", "18")."""
     import torch
-    import torch.distributed as dist
 
-    from nct_tpu_torch import Config
     from nct_tpu_torch.models import vgg19
     from nct_tpu_torch.parallel.mesh import make_mesh
-    from nct_tpu_torch.tools import bench
 
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = make_mesh(n_data=1, n_space=n_space)
     model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
+    out = {}
+    if "16" in parts:
+        out["16"] = shard_rank(torch, mesh, model)
+        torch.cuda.empty_cache()
+    if "17" in parts:
+        out["17"] = shard_pm_rank(torch, mesh, model)
+        torch.cuda.empty_cache()
+    multi = [p for p in parts if p.startswith("18")]
+    if multi:
+        out["18"] = shard_multi_rank(torch, mesh, model, multi)
+    return out
+
+
+def band_worlds(torch, plan=BAND_WORLDS) -> dict:
+    """``band_rank`` in each world of ``plan`` ((ranks, parts), ...);
+    returns each world's rank results by its rank count."""
+    from nct_tpu_torch.parallel.mesh import launch
+
+    worlds = {}
+    for n, parts in plan:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        worlds[n] = launch(band_rank, n, n, tuple(parts))
+        log(f"[bands] 1x{n} world ({', '.join(parts)}) done in "
+            f"{time.perf_counter() - t0:.1f} s with the spawn")
+    return worlds
+
+
+def shard_rank(torch, mesh, model) -> dict:
+    """Phase 16 in one rank of a band world: one cold row-sharded pair
+    and, on rank 0 of the 2-rank world, the single-process pair after
+    it."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from nct_tpu_torch import Config
+    from nct_tpu_torch.tools import bench
+
     cnt, stl = bench.load_pair(SHARD_SIZE)
     f32 = Config(vgg_compute_dtype="float32")
     peaks = StagePeaks(torch)
-    out = {"rank": mesh.index("space"), "runs": [],
+    out = {"rank": mesh.index("space"),
            "geometry": (cnt.shape[:2], stl.shape[:2])}
-    for _ in range(runs):
-        dist.barrier()
-        out["runs"].append(_shard_pair(
-            torch, peaks, model, cnt, stl,
-            dataclasses.replace(f32, space_mesh=mesh)))
     dist.barrier()
-    if single and mesh.index("space") == 0:
+    out["run"] = _shard_pair(torch, peaks, model, cnt, stl,
+                             dataclasses.replace(f32, space_mesh=mesh))
+    dist.barrier()
+    if mesh.shape["space"] == SHARD_RANKS[0] and mesh.index("space") == 0:
         out["single"] = _shard_pair(torch, peaks, model, cnt, stl, f32)
     return out
 
 
-def check_shard(torch, smi: str) -> None:
-    """Phase 16: the 1000 px pair on row bands over 1x2 (one cold and one
-    warm run, against a single-process run of the same call) and over 1x4
-    (one run, for the per-rank peak)."""
+def check_shard(torch, smi: str, worlds: dict | None = None) -> None:
+    """Phase 16: the 1000 px pair on row bands over 1x2 (one cold run,
+    against a single-process run of the same call); ``worlds`` holds
+    ``band_worlds``' results (the phase's own world is spawned when it is
+    None)."""
     from nct_tpu_torch import Config
-    from nct_tpu_torch.parallel.mesh import launch
 
-    t0 = time.perf_counter()
+    worlds = worlds or band_worlds(torch, [(n, ("16",))
+                                           for n in SHARD_RANKS])
     bad = []
     exact = Config().exact_nn_levels
     for n in SHARD_RANKS:
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        first = n == SHARD_RANKS[0]
-        ranks = launch(shard_rank, n, n, 2 if first else 1, first)
+        ranks = [r["16"] for r in worlds[n]]
         want = {"nn_bidir": 0, "nn_directed": 2 * n * exact,
                 "conv3x3": CONVS_PER_PAIR}
         (hc, wc), (hs, ws) = ranks[0]["geometry"]
@@ -3491,29 +3566,23 @@ def check_shard(torch, smi: str) -> None:
                 f"launches {single['launches']}, (nl, wls) iterations "
                 f"{single['iters']}, peak GiB by stage {single['peak_gib']}")
         for r in ranks:
-            for i, run in enumerate(r["runs"]):
-                c = run["comm"]
-                log(f"{label} rank {r['rank']} run {i} "
-                    f"({'cold' if i == 0 else 'warm'}; {smi}): "
-                    f"{run['s']:.3f} s, launches {run['launches']}, "
-                    f"(nl, wls) iterations {run['iters']}, host ms "
-                    + ", ".join(f"{k} {c[k + '_s'] * 1e3:.1f} ({c[k + '_calls']}"
-                                f" calls)" for k in ("halo", "reduce",
-                                                     "gather", "exchange"))
-                    + f"; peak GiB by stage {run['peak_gib']}")
-                if run["launches"] != want:
-                    bad.append(f"1x{n} rank {r['rank']} run {i} launches")
-                if not torch.equal(run["out"], ranks[0]["runs"][i]["out"]):
-                    bad.append(f"1x{n} rank {r['rank']} run {i} differs from "
-                               f"rank 0")
-                if i and not torch.equal(run["out"], r["runs"][0]["out"]):
-                    bad.append(f"1x{n} rank {r['rank']} warm run differs "
-                               f"from the cold one")
+            run = r["run"]
+            c = run["comm"]
+            log(f"{label} rank {r['rank']} (cold; {smi}): {run['s']:.3f} s, "
+                f"launches {run['launches']}, (nl, wls) iterations "
+                f"{run['iters']}, host ms "
+                + ", ".join(f"{k} {c[k + '_s'] * 1e3:.1f} ({c[k + '_calls']}"
+                            f" calls)" for k in ("halo", "reduce", "gather",
+                                                 "exchange"))
+                + f"; peak GiB by stage {run['peak_gib']}")
+            if run["launches"] != want:
+                bad.append(f"1x{n} rank {r['rank']} launches")
+            if not torch.equal(run["out"], ranks[0]["run"]["out"]):
+                bad.append(f"1x{n} rank {r['rank']} differs from rank 0")
             if single:
-                held, n_diff, max_diff = bitwise(torch, r["runs"][0]["out"],
+                held, n_diff, max_diff = bitwise(torch, run["out"],
                                                  single["out"])
-                ratio = (r["runs"][0]["peak_gib"]["total"]
-                         / single["peak_gib"]["total"])
+                ratio = run["peak_gib"]["total"] / single["peak_gib"]["total"]
                 log(f"{label} rank {r['rank']} bitwise the single process "
                     f"{held} ({n_diff} values differ, max |diff| "
                     f"{max_diff}); peak {ratio:.3f}x the single process's "
@@ -3523,8 +3592,6 @@ def check_shard(torch, smi: str) -> None:
                                f"process")
                 if ratio > SHARD_PEAK_RATIO_MAX:
                     bad.append(f"1x{n} rank {r['rank']} peak {ratio:.3f}x")
-        log(f"[shard] 1x{n} done at {time.perf_counter() - t0:.1f} s with "
-            f"the spawn")
     if bad:
         raise AssertionError(f"phase 16 failed: {bad}")
 
@@ -3574,26 +3641,23 @@ def _band_tap_diffs(torch, mesh, model, hw) -> dict:
                     != whole[t]).sum()) for t in vgg19.PIPELINE_TAPS}
 
 
-def shard_pm_rank(n_space: int, names, first: bool) -> dict:
-    """Phase 17 in one rank of an ``n_space``-rank gloo world on the one
-    card: (17a, when ``first``) the band taps and the card test's pair,
-    then one cold row-sharded pair of each configuration in ``names`` and,
-    on rank 0 when ``first``, its single-process pair."""
+def shard_pm_rank(torch, mesh, model) -> dict:
+    """Phase 17 in one rank of a band world: in the first world of
+    ``PM_SHARD_WORLDS`` (17a) the band taps and the card test's pair,
+    then one cold row-sharded pair of each of the world's configurations
+    and, on rank 0 of the first world, its single-process pair."""
     import dataclasses
 
     import numpy as np
-    import torch
     import torch.distributed as dist
 
     from nct_tpu_torch import Config, pipeline
-    from nct_tpu_torch.models import vgg19
-    from nct_tpu_torch.parallel.mesh import make_mesh
     from nct_tpu_torch.tools import bench
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    mesh = make_mesh(n_data=1, n_space=n_space)
+    n_space = mesh.shape["space"]
+    names = dict(PM_SHARD_WORLDS)[n_space]
+    first = n_space == PM_SHARD_WORLDS[0][0]
     lead = mesh.index("space") == 0
-    model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
     out = {"rank": mesh.index("space")}
     if first:
         out["band_taps"] = {"{}x{}".format(*hw): _band_tap_diffs(
@@ -3627,23 +3691,22 @@ def shard_pm_rank(n_space: int, names, first: bool) -> dict:
     return out
 
 
-def check_shard_pm(torch, smi: str) -> None:
+def check_shard_pm(torch, smi: str, worlds: dict | None = None) -> None:
     """Phase 17: ``shard_pm_rank`` over 1x2 (17a, then both configurations
     beside the single process) and over 1x4 (pm_jacobi, one cold run, for
     its per-rank peaks); every rank of both worlds is held bitwise to the
-    1x2 world's single-process pair and its iterations."""
+    1x2 world's single-process pair and its iterations.  ``worlds`` as
+    ``check_shard``'s."""
     from nct_tpu_torch import Config
-    from nct_tpu_torch.parallel.mesh import launch
 
-    t0 = time.perf_counter()
+    worlds = worlds or band_worlds(torch, [(n, ("17",))
+                                           for n, _ in PM_SHARD_WORLDS])
     bad = []
     singles = {}      # the 1x2 world's single-process pairs
     exact = Config().exact_nn_levels
     for n, names in PM_SHARD_WORLDS:
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
         first = n == PM_SHARD_WORLDS[0][0]
-        ranks = launch(shard_pm_rank, n, n, names, first)
+        ranks = [r["17"] for r in worlds[n]]
         if first:
             for r in ranks:
                 log(f"[shard-pm] 17a rank {r['rank']} band VGG taps (float32, "
@@ -3704,15 +3767,15 @@ def check_shard_pm(torch, smi: str) -> None:
                 if first and ratio > SHARD_PEAK_RATIO_MAX:
                     bad.append(f"1x{n} {name} rank {r['rank']} peak "
                                f"{ratio:.3f}x")
-        log(f"[shard-pm] 1x{n} done at {time.perf_counter() - t0:.1f} s with "
-            f"the spawn")
     if bad:
         raise AssertionError(f"phase 17 failed: {bad}")
 
 
-# phase 18: the P > 1 merge on the bench's pair over 1x2 (a), and a pair of
-# 3 units (16 rows each) over 1x4, whose rank 3 holds empty bands (b)
+# phase 18: the P > 1 merge on the bench's pair over 1x2 (a), a pair of 3
+# units (16 rows each) over 1x4, whose rank 3 holds empty bands (b), and
+# the variants configuration (the scatter transpose) in (a)'s world (c)
 MULTI_SHARD_MEMBERSHIPS = 3
+SHARD_MULTI_PARTS = ("18a", "18b", "18c")
 SHORT_PAIR_HW = ((40, 64), (48, 64))
 SHORT_PAIR_RANKS = 4
 # convolutions of a pair: a content band's (13 to conv5_1, 18 in the
@@ -3736,104 +3799,128 @@ def band_launches(hw_c, hw_s, n: int, exact: int) -> list[dict]:
             for r in range(n)]
 
 
-def shard_multi_rank(n_space: int) -> dict:
-    """Phase 18 in one rank of an ``n_space``-rank gloo world on the one
-    card: over 2 ranks (18a) one cold row-sharded pair of the bench's pair
-    under ``Config(knn_memberships=3)``, over 4 (18b) one of the short
-    pair under the default Config; each beside, on rank 0, its
-    single-process pair (float32 VGG throughout)."""
+def shard_multi_config(part: str):
+    """The Config of a part of phase 18 (float32 VGG, as a space mesh runs
+    it)."""
+    from nct_tpu_torch import Config
+
+    if part == "18a":
+        return Config(knn_memberships=MULTI_SHARD_MEMBERSHIPS,
+                      vgg_compute_dtype="float32")
+    if part == "18c":
+        return Config(knn_memberships=MULTI_SHARD_MEMBERSHIPS,
+                      nl_transpose="scatter", wls_precond="jacobi",
+                      vgg_compute_dtype="float32")
+    return Config(vgg_compute_dtype="float32")
+
+
+def shard_multi_rank(torch, mesh, model, parts) -> dict:
+    """Phase 18 in one rank of a band world: over 2 ranks one cold
+    row-sharded run of the bench's pair for each of ``parts`` 18a
+    (``Config(knn_memberships=3)``) and 18c (the variants configuration),
+    over 4 (18b) one of the short pair under the default Config; each
+    beside, on rank 0, its single-process pair (float32 VGG
+    throughout)."""
     import dataclasses
 
     import numpy as np
-    import torch
     import torch.distributed as dist
 
-    from nct_tpu_torch import Config
-    from nct_tpu_torch.models import vgg19
-    from nct_tpu_torch.parallel.mesh import make_mesh
     from nct_tpu_torch.tools import bench
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    mesh = make_mesh(n_data=1, n_space=n_space)
-    model = vgg19.init_params(torch.Generator().manual_seed(19)).cuda()
-    if n_space == 2:
+    if mesh.shape["space"] == 2:
         cnt, stl = bench.load_pair()
-        config = Config(knn_memberships=MULTI_SHARD_MEMBERSHIPS,
-                        vgg_compute_dtype="float32")
     else:
         # white noise from numpy's seed 18
         rng = np.random.default_rng(18)
         cnt, stl = (rng.integers(0, 256, hw + (3,)).astype(np.uint8)
                     for hw in SHORT_PAIR_HW)
-        config = Config(vgg_compute_dtype="float32")
     peaks = StagePeaks(torch)
     out = {"rank": mesh.index("space"),
-           "geometry": (cnt.shape[:2], stl.shape[:2])}
-    dist.barrier()
-    out["run"] = _shard_pair(torch, peaks, model, cnt, stl,
-                             dataclasses.replace(config, space_mesh=mesh))
-    dist.barrier()
-    if mesh.index("space") == 0:
-        out["single"] = _shard_pair(torch, peaks, model, cnt, stl, config)
+           "geometry": (cnt.shape[:2], stl.shape[:2]), "parts": {}}
+    for part in parts:
+        config = shard_multi_config(part)
+        got = out["parts"][part] = {}
+        dist.barrier()
+        got["run"] = _shard_pair(torch, peaks, model, cnt, stl,
+                                 dataclasses.replace(config, space_mesh=mesh))
+        dist.barrier()
+        if mesh.index("space") == 0:
+            got["single"] = _shard_pair(torch, peaks, model, cnt, stl, config)
     return out
 
 
-def check_shard_multi(torch, smi: str) -> None:
-    """Phase 18: ``shard_multi_rank`` over 1x2 (18a) and 1x4 (18b); every
-    rank equal to rank 0, bitwise its single-process pair with its
-    iterations and with its own bands' launches; at 1x2 each rank's peak
-    at most 0.65x the single process's."""
+def check_shard_multi(torch, smi: str, parts=SHARD_MULTI_PARTS,
+                      worlds: dict | None = None) -> None:
+    """Phase 18: ``shard_multi_rank`` over 1x2 (18a and 18c) and 1x4
+    (18b), each part of ``parts``; every rank equal to rank 0, bitwise its
+    single-process pair with its iterations and with its own bands'
+    launches; at 1x2 each rank's peak at most 0.65x the single process's.
+    ``worlds`` as ``check_shard``'s."""
     from nct_tpu_torch import Config
-    from nct_tpu_torch.parallel.mesh import launch
 
-    t0 = time.perf_counter()
     bad = []
     exact = Config().exact_nn_levels
-    for n, part in ((2, "18a"), (SHORT_PAIR_RANKS, "18b")):
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        ranks = launch(shard_multi_rank, n, n)
+    plan = [(n, world_parts) for n, world_parts in (
+        (2, [p for p in ("18a", "18c") if p in parts]),
+        (SHORT_PAIR_RANKS, [p for p in ("18b",) if p in parts]))
+        if world_parts]
+    worlds = worlds or band_worlds(torch, plan)
+    what = {"18a": f"P = {MULTI_SHARD_MEMBERSHIPS}",
+            "18b": "default, 3 units",
+            "18c": f"variants (P = {MULTI_SHARD_MEMBERSHIPS}, scatter, "
+                   f"Jacobi WLS)"}
+    for n, world_parts in plan:
+        ranks = [r["18"] for r in worlds[n]]
         (hc, wc), (hs, ws) = ranks[0]["geometry"]
-        what = (f"P = {MULTI_SHARD_MEMBERSHIPS}" if n == 2
-                else "default, 3 units")
-        label = f"[shard-multi] {part} 1x{n} {what} {hc}x{wc} / {hs}x{ws}"
-        single = ranks[0]["single"]
         want = band_launches((hc, wc), (hs, ws), n, exact)
-        log(f"{label} single process ({smi}): {single['s']:.3f} s, "
-            f"launches {single['launches']}, (nl, wls) iterations "
-            f"{single['iters']}, peak GiB by stage {single['peak_gib']}")
-        for r in ranks:
-            run = r["run"]
-            c = run["comm"]
-            log(f"{label} rank {r['rank']} (cold; {smi}): {run['s']:.3f} s, "
-                f"launches {run['launches']} (want {want[r['rank']]}), "
-                f"(nl, wls) iterations {run['iters']}, host ms "
-                + ", ".join(f"{k} {c[k + '_s'] * 1e3:.1f} ({c[k + '_calls']}"
-                            f" calls)" for k in ("halo", "reduce", "gather",
-                                                 "exchange"))
-                + f"; peak GiB by stage {run['peak_gib']}")
-            if run["launches"] != want[r["rank"]]:
-                bad.append(f"{part} rank {r['rank']} launches")
-            if not torch.equal(run["out"], ranks[0]["run"]["out"]):
-                bad.append(f"{part} rank {r['rank']} differs from rank 0")
-            held, n_diff, max_diff = bitwise(torch, run["out"],
-                                             single["out"])
-            ratio = run["peak_gib"]["total"] / single["peak_gib"]["total"]
-            log(f"{label} rank {r['rank']} bitwise the single process "
-                f"{held} ({n_diff} values differ, max |diff| {max_diff}); "
-                f"iterations equal {run['iters'] == single['iters']}; peak "
-                f"{ratio:.3f}x the single process's"
-                + (f" (at most {SHARD_PEAK_RATIO_MAX}; {smi})" if n == 2
-                   else f" ({smi})"))
-            if not held or run["iters"] != single["iters"]:
-                bad.append(f"{part} rank {r['rank']} against the single "
-                           f"process")
-            if n == 2 and ratio > SHARD_PEAK_RATIO_MAX:
-                bad.append(f"{part} rank {r['rank']} peak {ratio:.3f}x")
-        log(f"[shard-multi] {part} done at {time.perf_counter() - t0:.1f} s "
-            f"with the spawn")
+        for part in world_parts:
+            label = (f"[shard-multi] {part} 1x{n} {what[part]} {hc}x{wc} / "
+                     f"{hs}x{ws}")
+            bad += _check_shard_part(torch, smi, label, part, n, ranks,
+                                     want)
     if bad:
         raise AssertionError(f"phase 18 failed: {bad}")
+
+
+def _check_shard_part(torch, smi: str, label: str, part: str, n: int,
+                      ranks: list, want: list) -> list:
+    """One part of phase 18 against its single-process pair; returns what
+    failed."""
+    bad = []
+    single = ranks[0]["parts"][part]["single"]
+    log(f"{label} single process ({smi}): {single['s']:.3f} s, "
+        f"launches {single['launches']}, (nl, wls) iterations "
+        f"{single['iters']}, peak GiB by stage {single['peak_gib']}")
+    first = ranks[0]["parts"][part]["run"]
+    for r in ranks:
+        run = r["parts"][part]["run"]
+        c = run["comm"]
+        log(f"{label} rank {r['rank']} (cold; {smi}): {run['s']:.3f} s, "
+            f"launches {run['launches']} (want {want[r['rank']]}), "
+            f"(nl, wls) iterations {run['iters']}, host ms "
+            + ", ".join(f"{k} {c[k + '_s'] * 1e3:.1f} ({c[k + '_calls']}"
+                        f" calls)" for k in ("halo", "reduce", "gather",
+                                             "exchange"))
+            + f"; peak GiB by stage {run['peak_gib']}")
+        if run["launches"] != want[r["rank"]]:
+            bad.append(f"{part} rank {r['rank']} launches")
+        if not torch.equal(run["out"], first["out"]):
+            bad.append(f"{part} rank {r['rank']} differs from rank 0")
+        held, n_diff, max_diff = bitwise(torch, run["out"], single["out"])
+        ratio = run["peak_gib"]["total"] / single["peak_gib"]["total"]
+        log(f"{label} rank {r['rank']} bitwise the single process "
+            f"{held} ({n_diff} values differ, max |diff| {max_diff}); "
+            f"iterations equal {run['iters'] == single['iters']}; peak "
+            f"{ratio:.3f}x the single process's"
+            + (f" (at most {SHARD_PEAK_RATIO_MAX}; {smi})" if n == 2
+               else f" ({smi})"))
+        if not held or run["iters"] != single["iters"]:
+            bad.append(f"{part} rank {r['rank']} against the single "
+                       f"process")
+        if n == 2 and ratio > SHARD_PEAK_RATIO_MAX:
+            bad.append(f"{part} rank {r['rank']} peak {ratio:.3f}x")
+    return bad
 
 
 def main() -> int:
@@ -3884,13 +3971,16 @@ def main() -> int:
     phase_done("phase 14 (data sources and dataset tools)")
     check_bench_tools(torch, bidir)
     phase_done("phase 15 (benchmark tools)")
-    check_shard(torch, smi)
-    phase_done("phase 16 (1000 px pair on row bands, 1x2 and 1x4 meshes)")
-    check_shard_pm(torch, smi)
+    worlds = band_worlds(torch)
+    phase_done("phases 16-18 worlds (1x2, then 1x4)")
+    check_shard(torch, smi, worlds)
+    phase_done("phase 16 (1000 px pair on row bands, 1x2 mesh)")
+    check_shard_pm(torch, smi, worlds)
     phase_done("phase 17 (PatchMatch, block-Jacobi and Jacobi WLS on row "
                "bands)")
-    check_shard_multi(torch, smi)
-    phase_done("phase 18 (P > 1 merge and a short pair on row bands)")
+    check_shard_multi(torch, smi, worlds=worlds)
+    phase_done("phase 18 (P > 1 merge, a short pair and the scatter "
+               "transpose on row bands)")
     log(f"[time] whole run {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [bidir, directed, conv]}))
     log(smi)

@@ -34,15 +34,16 @@ run their own iterations (``cg_solve_grouped``).
 Under ``Config.space_mesh`` (a ``parallel.mesh.Mesh`` with more than one
 rank on ``space_axis``) every rank of the space group calls the function
 with the same pair or bucket, and every rank returns the whole result,
-bitwise equal on every rank.  For the configurations ``row_sharded``
-accepts (the slot-keyed in-edge tables; any membership count, search,
-preconditioner and level count) each rank holds and computes its band of
-rows of the pair (``parallel.mesh.image_bands``; the JAX package's GSPMD
-row sharding; an image with fewer 16-row units than ranks leaves the
+bitwise equal on every rank.  Every configuration (any membership count,
+search, transpose, preconditioner and level count) runs there on row
+bands (``row_sharded``): each rank holds and computes its band of rows of
+the pair (``parallel.mesh.image_bands``; the JAX package's GSPMD row
+sharding; an image with fewer 16-row units than ranks leaves the
 trailing ranks bands of zero rows, which still join every exchange): the
 VGG body, the pyramids, the colour and feature stages, the k-NN graph
-(either membership count) and both solves run on bands with one-row
-halos; the exact levels search through the ring over row bands
+(either membership count) and both solves (the in-edge tables or the
+scatter transpose) run on bands with one-row halos; the exact levels
+search through the ring over row bands
 (``parallel.ring_nn``) or, with ``ring_nn=False``, through ``nn_bidir``
 on the gathered levels;
 window refine and PatchMatch search a band of one image against the
@@ -50,9 +51,8 @@ gathered other level (PatchMatch's propagation through a 15-row halo per
 iteration); the BDS votes and the candidates read gathered style (and
 candidate) operands; k-means runs on the gathered conv5_1 level and the
 coarse multigrid levels are gathered; dot products add over the bands in
-rank order.  The output rows are gathered at the end.  The scatter
-transpose keeps the replicated stages (the exact levels through the ring,
-every other stage on every rank whole).
+rank order.  The output rows are gathered at the end.  No stage runs the
+whole pair on a rank.
 """
 
 from __future__ import annotations
@@ -67,7 +67,7 @@ from nct_tpu_torch.ops.color import bgr_u8_to_lab_u8, unit_lab_to_bgr_u8
 from nct_tpu_torch.ops.patchmatch import patchmatch, random_search_mags
 from nct_tpu_torch.ops.window_refine import window_refine
 from nct_tpu_torch.parallel.mesh import Mesh, RowBand, image_bands
-from nct_tpu_torch.parallel.ring_nn import ring_band_nn, ring_exact_nn
+from nct_tpu_torch.parallel.ring_nn import ring_band_nn
 from nct_tpu_torch.solve import cluster, knn, stats
 from nct_tpu_torch.solve.nonlocal_solve import solve_nonlocal
 from nct_tpu_torch.solve.wls import apply_transform, solve_wls
@@ -151,17 +151,12 @@ def check_config(config: Config) -> None:
 
 
 def row_sharded(config: Config) -> bool:
-    """True when ``config.space_mesh`` splits the pair by rows (more than
-    one rank on ``space_axis``) and the configuration is one the band
-    stages run: the slot-keyed in-edge tables (``nl_transpose`` "auto" or
-    "tables"), with any membership count, any search (exact levels,
-    window refine, PatchMatch at any level) and either preconditioner of
-    either solve (mg or block-Jacobi nonlocal, mg or Jacobi WLS), so
-    ``Config.reference_parity`` too.  The scatter transpose keeps the
-    replicated stages under a mesh."""
+    """True when ``config.space_mesh`` splits the pair by rows: more than
+    one rank on ``space_axis``.  The band stages run every configuration
+    that ``check_config`` accepts (any membership count, search,
+    transpose and preconditioner of either solve)."""
     mesh = config.space_mesh
-    return (mesh is not None and mesh.shape[config.space_axis] > 1
-            and config.nl_transpose != "scatter")
+    return mesh is not None and mesh.shape[config.space_axis] > 1
 
 
 def _resolve_device(device, config: Config | None = None) -> torch.device:
@@ -249,13 +244,10 @@ def stage1_channels(config: Config, content_pixels: int, own_pixels: int,
 
 
 def _level_match(config: Config, l: int, rs: int, draws, bds_weight: float,
-                 ann_prev, bnn_prev, cnt_feat_l, stl_feat_l, down_stl,
-                 ring: bool = True):
+                 ann_prev, bnn_prev, cnt_feat_l, stl_feat_l, down_stl):
     """Correspondence search + BDS guidance.  ``ann_prev``/``bnn_prev``:
     the previous level's fields, or at level 0 the warm start (or None).
-    ``ring``: under a space mesh the exact levels search through the ring
-    (else ``nn_bidir`` on this rank).  Returns (ann, bnn, guide_bgr,
-    bds_err)."""
+    Returns (ann, bnn, guide_bgr, bds_err)."""
     ah, aw = cnt_feat_l.shape[-3], cnt_feat_l.shape[-2]
     bh, bw = down_stl.shape[-3], down_stl.shape[-2]
     fdt = _dtype(config.feature_dtype)
@@ -263,13 +255,7 @@ def _level_match(config: Config, l: int, rs: int, draws, bds_weight: float,
     fs = stl_feat_l.float()
     fc_n = features.l2_normalize(cnt_feat_l.float())[0].to(fdt)
     fs_n = features.l2_normalize(fs)[0].to(fdt)
-    mesh = config.space_mesh
-    if l < config.exact_nn_levels and ring and mesh is not None and (
-            mesh.shape[config.space_axis] > 1):
-        # row-sharded tables, one directed ring per direction
-        ann, _ = ring_exact_nn(fc_n, fs_n, mesh, config.space_axis, ps)
-        bnn, _ = ring_exact_nn(fs_n, fc_n, mesh, config.space_axis, ps)
-    elif l < config.exact_nn_levels:
+    if l < config.exact_nn_levels:
         ann, _, bnn, _ = cuda_nn.exact_nn_bidir(fc_n, fs_n, ps)
     elif config.fine_strategy == "window" and l > 0:
         ann0 = nnf.upsample(ann_prev, ah, aw, bh, bw)
@@ -396,8 +382,9 @@ def _run_levels(model, config: Config, taps, draws, bds_weight: float, cnt,
     """The coarse-to-fine loop over one pair or a bucket (a leading batch
     axis on ``cnt`` and ``stl``).  ``ann``/``bnn``: the level-0 warm start
     or None.  Returns (refined, per-level trace if ``record``, level-0
-    {"ann", "bnn"}).  Under a row-sharding space mesh (``row_sharded``)
-    the loop runs on row bands (``_run_band_levels``)."""
+    {"ann", "bnn"}).  Under a space mesh of more than one space rank
+    (``row_sharded``) the loop runs on row bands (``_run_band_levels``);
+    ``ring`` picks its exact-level search there."""
     if row_sharded(config):
         return _run_band_levels(model, config, taps, draws, bds_weight, cnt,
                                 stl, ann, bnn, record, ring)
@@ -414,7 +401,7 @@ def _run_levels(model, config: Config, taps, draws, bds_weight: float, cnt,
     for l in range(numlayer):
         ann, bnn, guide_bgr, bds_err = _level_match(
             config, l, max(int(ranges[l]), 1), draws, bds_weight, ann, bnn,
-            cnt_feat_l, stl_feats[taps[l]], stl_pyr[l], ring)
+            cnt_feat_l, stl_feats[taps[l]], stl_pyr[l])
         (refined, cnt_feat_l, a_d, b_d, a_f, b_f, nl_info,
          wls_info) = _level_solve(
             model, config, l, numlayer, taps, draws, guide_bgr, bds_err,
@@ -858,9 +845,8 @@ def transfer_batch(
     ``space_mesh``, under which each ring step is one batched launch).
     ``device`` defaults as in ``transfer_pair`` and raises without a card;
     ``device="cpu"`` runs the plain path.  ``ring_nn=False``: under a
-    space mesh each rank searches the exact levels itself with
-    ``nn_bidir`` (on the gathered levels when the stages run on row
-    bands) instead of through the ring.  ``draws``: the bucket's draws,
+    space mesh each rank searches the gathered exact levels itself with
+    ``nn_bidir`` instead of through the ring.  ``draws``: the bucket's draws,
     with ``BatchDraws``' methods (default ``BatchDraws(seeds)``).
 
     Returns the uint8 BGR results [B, H, W, 3] on ``device``; with

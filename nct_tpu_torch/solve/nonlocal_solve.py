@@ -16,8 +16,11 @@ in-degree (raised above ``in_cap`` when needed, so the cap never drops most
 of the graph); pixel-keyed tables (graphs without slots) list each pixel's
 first 2k.  Overflow is zeroed on both sides so the operator stays
 symmetric.  ``transpose="scatter"`` applies the exact uncapped transpose by
-a scatter-add instead.  Scatter-adds are ``index_put_(accumulate=True)``,
-deterministic on the card.
+a scatter-add instead: each pair deposits at its target slot, every slot's
+deposits add in float64 and round once, and the slot sums land on their
+candidate pixels as the tables' do (graphs without slots deposit at target
+pixels in float32).  Scatter-adds are ``index_put_(accumulate=True)``,
+sorted and deterministic on the card.
 """
 
 from __future__ import annotations
@@ -301,6 +304,20 @@ def nonlocal_degree(nbr_ids: torch.Tensor, nbr_w: torch.Tensor,
     return deg
 
 
+def _slot_sums(slots: torch.Tensor, vals: torch.Tensor,
+               n_slots: int) -> torch.Tensor:
+    """Every slot's deposits in float64: slots [L] (folded slot of each
+    pair), vals [L] or [L, C] float32, added in pair order.  A float64 sum
+    of m float32 terms is exact while their exponents span under 29 -
+    log2(m) bits, and then any split of the pairs (row bands) adds to the
+    same bits; beyond that a split may round a sum differently, which
+    shows after the one rounding to float32 only near a halfway point."""
+    out = vals.new_zeros((n_slots,) + tuple(vals.shape[1:]),
+                         dtype=torch.float64)
+    out.index_put_((slots,), vals.double(), accumulate=True)
+    return out
+
+
 def _rank_in_targets(flat_t: torch.Tensor, sort_key: torch.Tensor):
     """Sort each row's pairs by ``sort_key`` (stable) and rank them among
     the pairs of the same target.  flat_t, sort_key [G, L]: G independent
@@ -341,8 +358,9 @@ def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
     in-edges ranked on its own keys (slots or pixels) and capped at its own
     width, so the table keeps each item's own pairs (the table is as wide
     as the widest item's, and each item's in-degree sums over its own
-    width).  The scatter transpose deposits each pair at its folded target:
-    a target only ever receives its own item's pairs, in their order.
+    width).  The scatter transpose deposits each pair at its folded target
+    slot (or pixel): a target only ever receives its own item's pairs, in
+    their order.
     """
     if precond_kind not in PRECOND_KINDS:
         raise ValueError(f"precond_kind={precond_kind!r}")
@@ -390,14 +408,42 @@ def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
         when the graph has slots)."""
         return u[cand_flat][nbr_slots] if use_slots else u[nbr_ids]
 
-    if transpose == "scatter":
+    if use_slots:
+        # slot sums land on their pixels through one sorted scatter
+        cs_order = torch.argsort(cand_flat, stable=True)
+        cs_ids = cand_flat[cs_order]
+
+        def land(slot_sums):
+            """Slot sums [slots, ...] (float32) added onto their candidate
+            pixels, each pixel's slots in slot order: [N, ...]."""
+            out = slot_sums.new_zeros((n,) + tuple(slot_sums.shape[1:]))
+            out.index_put_((cs_ids,), slot_sums[cs_order], accumulate=True)
+            return out
+
+    if transpose == "scatter" and use_slots:
+        slots_flat = nbr_slots.reshape(-1)
+        n_all_slots = g * n_slots
+        in_deg = land(_slot_sums(slots_flat, pair_w.reshape(-1),
+                                 n_all_slots).float())
+        both_deg = (torch.sum(pair_w, dim=1) + in_deg)[:, None]
+
+        def nl_apply(u):
+            """u [N, C] -> sum_j w_ij (u_i - u_j) over both edge directions;
+            each pair deposits w u_source at its target slot."""
+            out_sum = torch.sum(pair_w[..., None] * out_gather(u), dim=1)
+            deposits = (pair_w[..., None] * u[:, None, :]).reshape(
+                n * k, u.shape[-1])
+            in_sum = land(_slot_sums(slots_flat, deposits,
+                                     n_all_slots).float())
+            return both_deg * u - out_sum - in_sum
+    elif transpose == "scatter":
         in_deg = torch.zeros(n, dtype=torch.float32, device=dev)
         in_deg.index_put_((ids_flat,), pair_w.reshape(-1), accumulate=True)
         both_deg = (torch.sum(pair_w, dim=1) + in_deg)[:, None]
 
         def nl_apply(u):
             """u [N, C] -> sum_j w_ij (u_i - u_j) over both edge directions;
-            each pair deposits w u_source at its target."""
+            each pair deposits w u_source at its target pixel."""
             out_sum = torch.sum(pair_w[..., None] * out_gather(u), dim=1)
             in_sum = torch.zeros_like(u)
             in_sum.index_put_(
@@ -456,15 +502,7 @@ def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
             torch.sum(in_w[i * item_targets:(i + 1) * item_targets,
                            :wi].double(), dim=1)
             for i, wi in enumerate(widths)]).float()
-        if use_slots:
-            # slot sums land on their pixels through one sorted scatter
-            cs_order = torch.argsort(cand_flat, stable=True)
-            cs_ids = cand_flat[cs_order]
-            in_deg = torch.zeros(n, dtype=torch.float32, device=dev)
-            in_deg.index_put_((cs_ids,), target_sums[cs_order],
-                              accumulate=True)
-        else:
-            in_deg = target_sums
+        in_deg = land(target_sums) if use_slots else target_sums
         both_deg = (torch.sum(pair_w, dim=1) + in_deg)[:, None]
 
         def nl_apply(u):
@@ -480,9 +518,7 @@ def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
                                       * item_targets, :wi].double(), dim=1)
                     for i, wi in enumerate(widths)]).float()
             if use_slots:
-                in_sum_c, in_sum = in_sum, torch.zeros_like(u)
-                in_sum.index_put_((cs_ids,), in_sum_c[cs_order],
-                                  accumulate=True)
+                in_sum = land(in_sum)
             return both_deg * u - out_sum - in_sum
 
     def operator(x):
@@ -500,7 +536,7 @@ def make_nonlocal_system(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
     rhs = (d2 * s * r, d2 * r)
 
     # k-NN degree of the operator's (capped, on the tables path) weights
-    if transpose == "tables" and use_slots:
+    if use_slots:
         deg_nl = both_deg.reshape(s.shape[:-1])[..., None]
     else:
         deg_nl = nonlocal_degree(nbr_ids, pair_w, n).reshape(
@@ -573,25 +609,31 @@ def make_nonlocal_system_band(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
                               norm_factor: float, local_weight: float,
                               alpha: float, nonlocal_weight: float,
                               candidates, nbr_slots, in_cap: int, band,
-                              precond_kind: str = "mg"):
-    """``make_nonlocal_system`` over row bands, for slot-keyed in-edge
-    tables and either preconditioner: src_lab, ref_lab, confidence and
-    the graph (nbr_ids [..., n, k] global pixel ids, nbr_slots, nbr_w)
-    hold one band's rows (``band``, a ``parallel.mesh.RowBand``); every
-    rank passes the same candidates [..., K, M].
+                              precond_kind: str = "mg",
+                              transpose: str = "auto"):
+    """``make_nonlocal_system`` over row bands, for a graph with candidate
+    slots, either transpose and either preconditioner: src_lab, ref_lab,
+    confidence and the graph (nbr_ids [..., n, k] global pixel ids,
+    nbr_slots, nbr_w) hold one band's rows (``band``, a
+    ``parallel.mesh.RowBand``); every rank passes the same candidates
+    [..., K, M].
 
-    Each slot keeps its strongest in-edges up to the whole graph's width,
-    ranked across bands (``_band_keep``), so the operator is the whole
-    one.  A matvec reads the candidates' values from the ranks that hold
-    them and adds the slots' in-edge sums over the bands in rank order (one
-    gather of [K*M] rows per matvec); the grid terms and the V-cycle take
-    one-row halos.  The block-Jacobi inverse is per pixel once its
-    diagonal holds the in-edge degree summed over the bands and the grid
-    degree over a halo: the whole one's rows bit for bit.  A leading batch
-    axis folds into the rows as in ``make_nonlocal_system``.
+    With the in-edge tables ("auto", "tables") each slot keeps its
+    strongest in-edges up to the whole graph's width, ranked across bands
+    (``_band_keep``), so the operator is the whole one.  The scatter
+    transpose keeps every pair: each band sums its own pairs' deposits per
+    slot in float64.  A matvec reads the candidates' values from the ranks
+    that hold them and adds the slots' in-edge sums over the bands in rank
+    order (one gather of [K*M] rows per matvec); the grid terms and the
+    V-cycle take one-row halos.  The block-Jacobi inverse is per pixel
+    once its diagonal holds the in-edge degree summed over the bands and
+    the grid degree over a halo: the whole one's rows bit for bit.  A
+    leading batch axis folds into the rows as in ``make_nonlocal_system``.
     """
     if precond_kind not in PRECOND_KINDS:
         raise ValueError(f"precond_kind={precond_kind!r}")
+    if transpose not in TRANSPOSES:
+        raise ValueError(f"transpose={transpose!r}")
     hl, w = src_lab.shape[-3], src_lab.shape[-2]
     g = src_lab.shape[0] if src_lab.dim() == 4 else 1
     n = hl * w                         # band pixels per item
@@ -608,6 +650,9 @@ def make_nonlocal_system_band(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
     gy2_ext = band.halo(gy2, 1, 0, dim=-2)[0]
 
     k = nbr_ids.shape[-1]
+    if transpose == "auto":
+        transpose = ("scatter" if n_all * k > _TABLES_MAX_PAIRS
+                     else "tables")
     n_slots = candidates.shape[-2] * candidates.shape[-1]    # per item
     goff = torch.arange(g, device=dev)[:, None]
     pair_w = (nbr_w.float() * (nonlocal_weight / k)).reshape(g * n, k)
@@ -619,45 +664,65 @@ def make_nonlocal_system_band(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
     cand_local = (cand - p0 + goff * n).reshape(-1)          # where owned
     owned = cand_owner == band.r
 
-    # the cap: the whole graph's width, every slot's in-degree over the
-    # bands, and each slot's strongest in-edges kept
-    in_max = in_edge_width(n_all * k, n_slots, in_cap)
-    deg_in = band.reduce_sum(torch.bincount(slots.reshape(-1),
-                                            minlength=g * n_slots))
-    key = slots_local.float() * 16.0 - torch.clamp(
-        pair_w.reshape(g, -1), 0.0, 15.0)
-    gidx = (goff * (n_all * k) + p0 * k
-            + torch.arange(n * k, device=dev)[None, :])
-    keep = _band_keep(band, slots.reshape(-1), key.reshape(-1),
-                      gidx.reshape(-1), deg_in, in_max).reshape(g, n * k)
-    pair_w = torch.where(keep.reshape(g * n, k), pair_w, 0.0)
-    pair_w_flat = pair_w.reshape(-1)
+    if transpose == "scatter":
+        # the exact transpose: every pair deposits at its slot, and this
+        # band's deposits add per slot in float64, in pair order
+        slots_flat = slots.reshape(-1)
+        slot_part = _slot_sums(slots_flat, pair_w.reshape(-1), g * n_slots)
 
-    # this band's in-edge table: its kept pairs ranked within each slot
-    flat_t = torch.where(keep, slots_local, n_slots)
-    sort_key = torch.where(keep, key, float(n_slots * 16))
-    order, sorted_t, rank = _rank_in_targets(flat_t, sort_key)
-    real = sorted_t < n_slots
-    # (a band of zero rows holds no pairs: a table of width 1, all empty)
-    width = max(int(torch.where(real, rank + 1, 0).amax())
-                if rank.numel() else 0, 1)
-    sentinel = g * n * k
-    in_tab = torch.full((g * n_slots + 1, width), sentinel,
-                        dtype=torch.int64, device=dev)
-    tgt = torch.where(real, sorted_t + goff * n_slots, g * n_slots)
-    in_tab[tgt.reshape(-1), torch.where(real, rank, 0).reshape(-1)] = (
-        torch.where(real, order + goff * (n * k), sentinel).reshape(-1))
-    in_tab = in_tab[:-1]
-    valid = in_tab < sentinel
-    in_src = torch.where(valid, in_tab // k, 0)
-    # the sentinel reads an appended zero (a band of zero rows has no pairs)
-    in_w = torch.where(valid, F.pad(pair_w_flat, (0, 1))[in_tab], 0.0)
+        def in_part(u):
+            # (a band of zero rows deposits nothing)
+            deposits = (pair_w[..., None] * u[:, None, :]).reshape(
+                g * n * k, u.shape[-1])
+            return _slot_sums(slots_flat, deposits, g * n_slots)
+    else:
+        # the cap: the whole graph's width, every slot's in-degree over the
+        # bands, and each slot's strongest in-edges kept
+        in_max = in_edge_width(n_all * k, n_slots, in_cap)
+        deg_in = band.reduce_sum(torch.bincount(slots.reshape(-1),
+                                                minlength=g * n_slots))
+        key = slots_local.float() * 16.0 - torch.clamp(
+            pair_w.reshape(g, -1), 0.0, 15.0)
+        gidx = (goff * (n_all * k) + p0 * k
+                + torch.arange(n * k, device=dev)[None, :])
+        keep = _band_keep(band, slots.reshape(-1), key.reshape(-1),
+                          gidx.reshape(-1), deg_in, in_max).reshape(g, n * k)
+        pair_w = torch.where(keep.reshape(g * n, k), pair_w, 0.0)
+        pair_w_flat = pair_w.reshape(-1)
+
+        # this band's in-edge table: its kept pairs ranked within each slot
+        flat_t = torch.where(keep, slots_local, n_slots)
+        sort_key = torch.where(keep, key, float(n_slots * 16))
+        order, sorted_t, rank = _rank_in_targets(flat_t, sort_key)
+        real = sorted_t < n_slots
+        # (a band of zero rows holds no pairs: a table of width 1, all
+        # empty)
+        width = max(int(torch.where(real, rank + 1, 0).amax())
+                    if rank.numel() else 0, 1)
+        sentinel = g * n * k
+        in_tab = torch.full((g * n_slots + 1, width), sentinel,
+                            dtype=torch.int64, device=dev)
+        tgt = torch.where(real, sorted_t + goff * n_slots, g * n_slots)
+        in_tab[tgt.reshape(-1), torch.where(real, rank, 0).reshape(-1)] = (
+            torch.where(real, order + goff * (n * k), sentinel).reshape(-1))
+        in_tab = in_tab[:-1]
+        valid = in_tab < sentinel
+        in_src = torch.where(valid, in_tab // k, 0)
+        # the sentinel reads an appended zero (a band of zero rows has no
+        # pairs)
+        in_w = torch.where(valid, F.pad(pair_w_flat, (0, 1))[in_tab], 0.0)
+        slot_part = torch.sum(in_w.double(), dim=1)
+
+        def in_part(u):
+            # a band of zero rows reads one zero row (all masked)
+            src = u if u.shape[0] else u.new_zeros((1, u.shape[-1]))
+            return torch.sum((in_w[..., None] * src[in_src]).double(), dim=1)
 
     # slot sums over every band (rank order) land on the owned candidates
     cs_order = torch.argsort(cand_flat, stable=True)
     cs_order = cs_order[owned[cs_order]]
     cs_ids = cand_local[cs_order]
-    slot_in = band.reduce_sum(torch.sum(in_w.double(), dim=1)).float()
+    slot_in = band.reduce_sum(slot_part).float()
     in_deg = torch.zeros(g * n, dtype=torch.float32, device=dev)
     in_deg.index_put_((cs_ids,), slot_in[cs_order], accumulate=True)
     both_deg = (torch.sum(pair_w, dim=1) + in_deg)[:, None]
@@ -671,8 +736,8 @@ def make_nonlocal_system_band(src_lab, ref_lab, confidence, nbr_ids, nbr_w,
         # a band of zero rows reads one zero row (its reads are all masked)
         src = u if u.shape[0] else u.new_zeros((1, c))
         mine = torch.where(owned[:, None], src[take], 0.0)
-        part = torch.sum((in_w[..., None] * src[in_src]).double(), dim=1)
-        parts = band.all_parts(torch.cat([mine.double(), part], dim=-1))
+        parts = band.all_parts(torch.cat([mine.double(), in_part(u)],
+                                         dim=-1))
         cand_u = torch.stack([p[:, :c] for p in parts])[
             cand_owner, slot_ids].float()
         in_sum_c = parts[0][:, c:]
@@ -721,16 +786,18 @@ def solve_nonlocal(a0, b0, src_lab, ref_lab, confidence, nbr_ids, nbr_w,
     run, final ||r||^2).  With a leading batch axis on every operand the
     B systems run as one through ``cg_solve_grouped``: iterations and
     ||r||^2 are then [B] tensors, each item's own.  With ``band`` (a
-    ``parallel.mesh.RowBand``; slot-keyed tables, either preconditioner)
-    every operand is one band's rows (``make_nonlocal_system_band``) and
-    the dot products add over the bands in rank order."""
+    ``parallel.mesh.RowBand``; a graph with candidate slots, either
+    transpose and preconditioner) every operand is one band's rows
+    (``make_nonlocal_system_band``) and the dot products add over the
+    bands in rank order."""
     if band is not None:
-        if transpose == "scatter" or candidates is None or nbr_slots is None:
-            raise ValueError("row bands solve the slot-keyed tables only")
+        if candidates is None or nbr_slots is None:
+            raise ValueError("row bands solve graphs with candidate slots "
+                             "only")
         operator, rhs, precond = make_nonlocal_system_band(
             src_lab, ref_lab, confidence, nbr_ids, nbr_w, norm_factor,
             local_weight, alpha, nonlocal_weight, candidates, nbr_slots,
-            in_cap, band, precond_kind)
+            in_cap, band, precond_kind, transpose)
     else:
         operator, rhs, precond = make_nonlocal_system(
             src_lab, ref_lab, confidence, nbr_ids, nbr_w, norm_factor,

@@ -14,9 +14,8 @@ of indices equal; ties may fall on another block there), and on
 integer-valued features bitwise against JAX's and the port's exact search.
 The mesh pipeline is held bitwise against the port's single-process path,
 which the pipeline tests hold against JAX: the row-sharded space meshes
-(their dot products add over the bands in rank order; PatchMatch too), the
-replicated stages a space mesh keeps for the scatter transpose, and the
-data mesh.  The ranks and the single-process
+(their dot products add over the bands in rank order; PatchMatch and the
+scatter transpose too), and the data mesh.  The ranks and the single-process
 references run with oneDNN off (``torch_mesh_workers.plain_convolutions``):
 oneDNN's convolutions may round a band's rows otherwise than the whole
 image's (``tests/test_torch_space_shard.py`` holds band VGG taps to rtol
@@ -269,14 +268,13 @@ def test_space_mesh_patchmatch_pair_bitwise_single_process(world2,
 
 def test_space_mesh_replicated_pair_bitwise_single_process(world2,
                                                            tiny_refs):
-    """The scatter transpose keeps a 1x2 space mesh on the replicated
-    stages (``pipeline.row_sharded`` is False: the ring at the exact
-    levels, every other stage whole on each rank): both ranks return the
-    single-process pair bit for bit."""
-    assert not pipeline.row_sharded(dataclasses.replace(
+    """The scatter transpose no longer replicates: under a 1x2 space mesh
+    it runs on row bands too (``pipeline.row_sharded`` is True), and both
+    ranks return the single-process pair bit for bit."""
+    assert pipeline.row_sharded(dataclasses.replace(
         workers.TINY_SCATTER, space_mesh=_FakeMesh()))
     for rank in world2["pipeline"]:
-        np.testing.assert_array_equal(rank["pair_space_replicated"],
+        np.testing.assert_array_equal(rank["pair_space_scatter"],
                                       tiny_refs["pair_scatter"])
 
 

@@ -52,11 +52,11 @@ class _FakeMesh:
 
 
 def test_row_sharded_for_several_memberships():
-    """P > 1 runs on row bands; the scatter transpose alone replicates."""
+    """P > 1 runs on row bands, with either transpose."""
     for p in (2, 3):
         assert pipeline.row_sharded(Config(knn_memberships=p,
                                            space_mesh=_FakeMesh()))
-        assert not pipeline.row_sharded(Config(
+        assert pipeline.row_sharded(Config(
             knn_memberships=p, nl_transpose="scatter",
             space_mesh=_FakeMesh()))
 

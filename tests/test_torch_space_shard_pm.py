@@ -23,8 +23,10 @@ this process runs the JAX pairs.  The rules:
     vmap bucket, and a 2-frame parity sequence (level-0 PatchMatch
     warm-started on bands) bitwise the single-process sequence; over 4
     ranks (a 64x48 / 68x52 pair) both configurations bitwise too;
-  * the scatter transpose still keeps the replicated stages (several
-    memberships run on row bands: ``test_torch_space_shard_multi.py``).
+  * every configuration runs on row bands under a mesh of more than one
+    space rank, the scatter transpose too
+    (``test_torch_space_shard_scatter.py``; several memberships:
+    ``test_torch_space_shard_multi.py``).
 """
 
 import dataclasses
@@ -70,15 +72,14 @@ class _FakeMesh:
     ({"wls_precond": "jacobi"}, True),
     ({"nl_transpose": "tables"}, True),
     ({"knn_memberships": 2}, True),
-    ({"nl_transpose": "scatter"}, False),
+    ({"nl_transpose": "scatter"}, True),
     ({"knn_memberships": 3, "nl_transpose": "scatter",
-      "wls_precond": "jacobi"}, False),
+      "wls_precond": "jacobi"}, True),
 ], ids=["default", "patchmatch", "pm_level0", "block_jacobi", "wls_jacobi",
         "tables", "memberships2", "scatter", "variants"])
 def test_row_sharded_truth_table(overrides, want):
-    """Every search, preconditioner and membership count runs on row
-    bands; the scatter transpose replicates; one space rank or no mesh
-    never shards."""
+    """Every search, preconditioner, transpose and membership count runs
+    on row bands; one space rank or no mesh never shards."""
     assert pipeline.row_sharded(Config(space_mesh=_FakeMesh(2),
                                        **overrides)) is want
     assert not pipeline.row_sharded(Config(space_mesh=_FakeMesh(1),
@@ -89,7 +90,7 @@ def test_row_sharded_truth_table(overrides, want):
 def test_reference_parity_row_sharded():
     assert pipeline.row_sharded(Config.reference_parity(
         space_mesh=_FakeMesh(4), vgg_compute_dtype="float32"))
-    assert not pipeline.row_sharded(Config.reference_parity(
+    assert pipeline.row_sharded(Config.reference_parity(
         space_mesh=_FakeMesh(2), nl_transpose="scatter"))
 
 

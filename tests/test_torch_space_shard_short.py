@@ -17,9 +17,12 @@ plain batch.  The rules:
   * the TINY pair at 64x48 over 8 space ranks (the geometry of JAX's
     ``tests/test_parallel_batch.py::test_space_only_sharding_single_pair``,
     4 ranks empty) and a seeded bucket of it through
-    ``make_batch_transfer``, TINY and TINY_PM at 32 rows over 3 ranks:
-    identical on every rank and bitwise the single process (oneDNN off on
-    both sides) with its iteration counts; the 8-rank pair, fed JAX's
+    ``make_batch_transfer``, TINY and TINY_PM at 32 rows over 3 ranks,
+    and TINY with the scatter transpose at 40 rows (3 units) over each
+    1 x 4 space group of the 8 ranks laid out 2 x 4 (the fourth rank on
+    empty bands): identical on every rank and bitwise the single process
+    (oneDNN off on both sides) with its iteration counts; the 8-rank pair,
+    fed JAX's
     draws, within the JAX package's batch contract (2 LSB at >= 95%,
     mean <= 0.5) of JAX's plain ``make_batch_transfer``, as JAX's own test
     holds its 8-device run.
@@ -149,6 +152,14 @@ def runs(tmp_path_factory):
                     single[n, "bucket"] = tbatch.make_batch_transfer(
                         mesh_workers.TINY, mode="vmap", device="cpu")(
                             model, cnt, stl, seeds, 2.0).numpy()
+                    c, s, sd = mesh_workers.tiny_pairs(1, *workers.SCATTER_HW)
+                    out, trace = pipeline.transfer_pair(
+                        model, c[0], s[0], 2.0, mesh_workers.TINY_SCATTER,
+                        seed=sd[0], device="cpu",
+                        return_intermediates="stats")
+                    single[n, "pair_scatter"] = (out.numpy(), [
+                        (int(t["nl_iters"]), int(t["wls_iters"]))
+                        for t in trace])
         rng = np.random.default_rng(18)
         weights = str(tmp_path_factory.mktemp("vgg") / "vgg.npz")
         mesh_workers.save_taps_weights(weights, params)
@@ -263,6 +274,25 @@ def test_pair_bitwise_single_process(runs, n):
             assert p[name][1] == iters
         if n == 8:
             np.testing.assert_array_equal(p["bucket"], single[8, "bucket"])
+
+
+def test_scatter_pair_over_four_ranks_bitwise_single_process(runs):
+    """The 3-unit pair under the scatter transpose over each 1 x 4 space
+    group of the 8 ranks (a 2 x 4 mesh): the fourth space rank holds empty
+    bands of both images, and every rank returns the single-process pair
+    bit for bit with its (nl, wls) iterations."""
+    n_space = workers.SCATTER_MESH[1]
+    hc, _, hs, _ = workers.SCATTER_HW
+    for h in (hc, hs):
+        bounds = tmesh.image_bands(h, n_space)
+        assert bounds[-2] == bounds[-1] == h and bounds[-3] < h
+    out, iters = runs["single"][8, "pair_scatter"]
+    ranks = _ranks(runs, 8, "pipeline")
+    assert sorted(p["scatter_space_rank"] for p in ranks) == sorted(
+        list(range(n_space)) * workers.SCATTER_MESH[0])
+    for p in ranks:
+        np.testing.assert_array_equal(p["pair_scatter"][0], out)
+        assert p["pair_scatter"][1] == iters
 
 
 def test_pair_over_eight_ranks_within_jax_batch_contract(runs):

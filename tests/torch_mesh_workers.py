@@ -37,9 +37,13 @@ TINY_PM = dataclasses.replace(TINY, exact_nn_levels=1,
 # a space mesh)
 TINY_P2 = dataclasses.replace(TINY, knn_memberships=2)
 
-# TINY with the scatter transpose: the one configuration a space mesh
-# still runs on the replicated stages
+# TINY with the scatter transpose (on row bands under a space mesh)
 TINY_SCATTER = dataclasses.replace(TINY, nl_transpose="scatter")
+
+# TINY as the variants configuration: the P = 3 merge, the scatter
+# transpose and Jacobi WLS
+TINY_VARIANTS = dataclasses.replace(TINY_SCATTER, knn_memberships=3,
+                                    wls_precond="jacobi")
 
 
 def tiny_pairs(b: int, h: int, w: int, hs: int, ws: int, seed: int = 0):
@@ -100,10 +104,9 @@ def pipeline_cases(device: str = "cpu") -> dict:
     """Over 2 ranks: ``transfer_pair`` and a vmap bucket of 2 under a 1x2
     space mesh (row-sharded; the bucket through the ring and, with
     ``ring_nn=False``, through each rank's ``nn_bidir`` on the gathered
-    levels), a bucket of 2 under a 2x1 data mesh, a PatchMatch pair under
-    the 1x2 mesh (row bands too), a pair with the scatter transpose under
-    it (the replicated stages) and the error paths; every result as uint8
-    numpy."""
+    levels), a bucket of 2 under a 2x1 data mesh, a PatchMatch pair and a
+    pair with the scatter transpose under the 1x2 mesh (row bands too) and
+    the error paths; every result as uint8 numpy."""
     cnt, stl, seeds = tiny_pairs(2, 40, 48, 44, 52)
     model = vgg19.init_params()
     space = make_mesh(n_data=1, n_space=2, device=device)
@@ -123,7 +126,7 @@ def pipeline_cases(device: str = "cpu") -> dict:
         model, cnt[0], stl[0], 2.0,
         dataclasses.replace(TINY_PM, space_mesh=space), seed=seeds[0]
     ).cpu().numpy()
-    out["pair_space_replicated"] = pipeline.transfer_pair(
+    out["pair_space_scatter"] = pipeline.transfer_pair(
         model, cnt[0], stl[0], 2.0,
         dataclasses.replace(TINY_SCATTER, space_mesh=space), seed=seeds[0]
     ).cpu().numpy()

@@ -21,7 +21,8 @@ from nct_tpu_torch.parallel.batch import make_batch_transfer
 from nct_tpu_torch.parallel.mesh import RowBand, image_bands, make_mesh
 from nct_tpu_torch.parallel.ring_nn import ring_exact_nn
 
-from torch_mesh_workers import TINY, TINY_PM, plain_convolutions, tiny_pairs
+from torch_mesh_workers import (TINY, TINY_PM, TINY_SCATTER,
+                                plain_convolutions, tiny_pairs)
 from torch_shard_pm_workers import ReplayDraws
 
 AXIS = "space"
@@ -34,6 +35,10 @@ BAND_GRIDS = {3: (5, 4), 8: (20, 4)}
 RING_HW = {3: ((2, 11), (7, 5)), 8: ((5, 7), (3, 9))}
 # the pairs: the JAX test's 64x48 over 8 ranks (4 units), 32 rows over 3
 PAIR_HW = {8: (64, 48, 64, 48), 3: (32, 48, 36, 52)}
+# the 8-rank world as a 2 x 4 mesh: each data row runs a 3-unit pair under
+# the scatter transpose over its 4 space ranks, the last on empty bands
+SCATTER_MESH = (2, 4)
+SCATTER_HW = (40, 48, 44, 52)
 
 
 def band_primitives(mesh) -> dict:
@@ -86,8 +91,10 @@ def _pair(model, mesh, config, cnt, stl, **kw):
 
 def pairs(mesh, inp: dict) -> dict:
     """The pairs of this world's geometry: over 8 ranks the TINY pair with
-    JAX's draws replayed and the seeded bucket of one through
-    ``make_batch_transfer``; over 3 ranks TINY and TINY_PM, seeded."""
+    JAX's draws replayed, the seeded bucket of one through
+    ``make_batch_transfer`` and, over a 2 x 4 mesh of the same ranks, the
+    seeded 3-unit TINY_SCATTER pair on each data row's 1 x 4 space group;
+    over 3 ranks TINY and TINY_PM, seeded."""
     n = mesh.shape[AXIS]
     model = vgg19.load_params(inp["vgg"])
     cnt, stl, seeds = tiny_pairs(1, *PAIR_HW[n])
@@ -98,6 +105,11 @@ def pairs(mesh, inp: dict) -> dict:
                             draws=ReplayDraws([inp["draws"]]))
         out["bucket"] = make_batch_transfer(TINY, mesh)(
             model, cnt, stl, seeds, 2.0).numpy()
+        grid = make_mesh(*SCATTER_MESH, device="cpu")
+        c, s, sd = tiny_pairs(1, *SCATTER_HW)
+        out["scatter_space_rank"] = grid.index(AXIS)
+        out["pair_scatter"] = _pair(model, grid, TINY_SCATTER, c[0], s[0],
+                                    seed=sd[0])
     else:
         out["pair"] = _pair(model, mesh, TINY, cnt[0], stl[0], seed=seeds[0])
         out["pair_pm"] = _pair(model, mesh, TINY_PM, cnt[0], stl[0],
