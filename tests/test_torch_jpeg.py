@@ -17,6 +17,7 @@ import sys
 import cv2
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from nct_tpu.data.loader import NativeLib, native_available
@@ -25,6 +26,11 @@ from nct_tpu_torch import cli as tcli
 from nct_tpu_torch import io as tio
 from nct_tpu_torch.data import PairLoader, jpeg
 from nct_tpu_torch.nn import apps
+
+# one thread each, as the other port tests hold torch: the test workers
+# share the cores
+torch.set_num_threads(1)
+cv2.setNumThreads(1)
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "jpeg")
 with open(os.path.join(FIXTURES, "digests.json")) as _f:

@@ -1,6 +1,7 @@
 """Rank functions of the mesh tests, run by ``parallel.mesh.launch`` in
-spawned processes (``tests/test_torch_mesh.py`` on the CPU,
-``tests/test_torch_cuda.py`` on a card).
+spawned processes (on the CPU in the worlds of
+``torch_shard_world_workers.world``, which ``tests/test_torch_space_shard.py``
+spawns; on a card from ``tests/test_torch_cuda.py``).
 
 A spawned rank imports the module of its function, so this module imports
 no JAX: every rank gets numpy inputs and returns numpy or CPU results, and
@@ -77,11 +78,13 @@ def save_taps_weights(path: str, params: dict) -> None:
     np.savez(path, **arrays)
 
 
-def ring_cases(n_space: int, cases: dict, device: str = "cpu") -> dict:
-    """``ring_exact_nn`` a -> b over a 1 x ``n_space`` mesh for each
-    case name -> (a, b) numpy features; returns name -> (nnf, annd) and the
-    directed launches of the rank."""
-    mesh = make_mesh(n_data=1, n_space=n_space, device=device)
+def ring_cases(n_space: int, cases: dict, device: str = "cpu",
+               mesh=None) -> dict:
+    """``ring_exact_nn`` a -> b over a 1 x ``n_space`` mesh (``mesh``, or
+    one made here) for each case name -> (a, b) numpy features; returns
+    name -> (nnf, annd) and the directed launches of the rank."""
+    if mesh is None:
+        mesh = make_mesh(n_data=1, n_space=n_space, device=device)
     out = {}
     before = cuda_nn.LAUNCHES["nn_directed"]
     for name, (a, b) in cases.items():
@@ -100,16 +103,15 @@ def _errors(fn) -> str:
     return "no error"
 
 
-def pipeline_cases(device: str = "cpu") -> dict:
-    """Over 2 ranks: ``transfer_pair`` and a vmap bucket of 2 under a 1x2
-    space mesh (row-sharded; the bucket through the ring and, with
-    ``ring_nn=False``, through each rank's ``nn_bidir`` on the gathered
-    levels), a bucket of 2 under a 2x1 data mesh, a PatchMatch pair and a
-    pair with the scatter transpose under the 1x2 mesh (row bands too) and
-    the error paths; every result as uint8 numpy."""
+def pipeline_cases(model, space, device: str = "cpu") -> dict:
+    """Over 2 ranks: ``transfer_pair`` and a vmap bucket of 2 under the 1x2
+    space mesh ``space`` (row-sharded; the bucket through the ring and,
+    with ``ring_nn=False``, through each rank's ``nn_bidir`` on the
+    gathered levels), a bucket of 2 under a 2x1 data mesh, a PatchMatch
+    pair and a pair with the scatter transpose under the 1x2 mesh (row
+    bands too) and the error paths, with the port's seeded VGG ``model``;
+    every result as uint8 numpy."""
     cnt, stl, seeds = tiny_pairs(2, 40, 48, 44, 52)
-    model = vgg19.init_params()
-    space = make_mesh(n_data=1, n_space=2, device=device)
     data = make_mesh(n_data=2, n_space=1, device=device)
     out = {}
     out["pair_space"] = pipeline.transfer_pair(
@@ -137,13 +139,16 @@ def pipeline_cases(device: str = "cpu") -> dict:
     return out
 
 
-def grid_bucket(device: str = "cpu") -> np.ndarray:
+def grid_bucket(model=None, device: str = "cpu") -> np.ndarray:
     """Over 4 ranks: a vmap bucket of 2 under a 2x2 mesh (each data row one
-    item, its exact levels on a ring of 2)."""
+    item, its exact levels on a ring of 2), with ``model`` or the port's
+    seeded VGG."""
     cnt, stl, seeds = tiny_pairs(2, 40, 48, 44, 52)
     mesh = make_mesh(n_data=2, n_space=2, device=device)
+    if model is None:
+        model = vgg19.init_params()
     return make_batch_transfer(TINY, mesh)(
-        vgg19.init_params(), cnt, stl, seeds, 2.0).cpu().numpy()
+        model, cnt, stl, seeds, 2.0).cpu().numpy()
 
 
 def card_pair(cnt: np.ndarray, stl: np.ndarray,
@@ -213,13 +218,14 @@ def plain_convolutions() -> None:
     torch.backends.mkldnn.enabled = False
 
 
-def world2(cases: dict) -> dict:
-    """Every 2-rank CPU case in one world: the rings and the pipeline."""
-    plain_convolutions()
-    return {"ring": ring_cases(2, cases), "pipeline": pipeline_cases()}
-
-
-def world4(cases: dict) -> dict:
-    """Every 4-rank CPU case in one world: the rings and the 2x2 bucket."""
-    plain_convolutions()
-    return {"ring": ring_cases(4, cases), "grid": grid_bucket()}
+def mesh_world(mesh, models: dict, cases: dict) -> dict:
+    """The mesh cases of a world over its 1 x n space mesh ``mesh``: the
+    rings of ``cases``, then over 2 ranks the pipeline cases and over 4
+    the 2x2 bucket, with the port's seeded VGG (``models["port"]``)."""
+    n = mesh.shape["space"]
+    out = {"ring": ring_cases(n, cases, mesh=mesh)}
+    if n == 2:
+        out["pipeline"] = pipeline_cases(models["port"], mesh)
+    else:
+        out["grid"] = grid_bucket(models["port"])
+    return out

@@ -1,10 +1,11 @@
-"""Rank functions of ``tests/test_torch_space_shard_multi.py``: the
-several-membership (P > 1) k-NN merge on row bands, run by
-``parallel.mesh.launch`` in spawned gloo ranks on the CPU.
+"""Rank functions of ``tests/test_torch_space_shard.py``'s several-membership
+part: the P > 1 k-NN merge on row bands, run in the spawned gloo ranks of
+``torch_shard_world_workers.world`` on the CPU.
 
 A spawned rank imports the module of its function, so this module imports
-no JAX.  Each rank gets numpy inputs (the VGG weights as the path of an
-npz file) and returns its results gathered whole, as numpy or CPU tensors.
+no JAX.  Each rank gets numpy inputs and the world's VGG models (read once
+from npz files) and returns its results gathered whole, as numpy or CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -15,12 +16,11 @@ import numpy as np
 import torch
 
 from nct_tpu_torch import pipeline
-from nct_tpu_torch.models import vgg19
 from nct_tpu_torch.parallel.batch import make_batch_transfer
-from nct_tpu_torch.parallel.mesh import RowBand, image_bands, make_mesh
+from nct_tpu_torch.parallel.mesh import RowBand, image_bands
 from nct_tpu_torch.solve import nonlocal_solve
 
-from torch_mesh_workers import TINY_P2, plain_convolutions, tiny_pairs
+from torch_mesh_workers import TINY_P2, tiny_pairs
 from torch_shard_workers import ReplayDraws
 
 AXIS = "space"
@@ -54,12 +54,11 @@ def nonlocal_cases(mesh, inp: dict) -> dict:
             "solve": (band.gather(a), band.gather(b), int(it))}
 
 
-def pipeline_cases(mesh, inp: dict) -> dict:
+def pipeline_cases(mesh, inp: dict, model) -> dict:
     """The TINY_P2 pair with JAX's draws replayed (``row_sharded``, its
     output and iterations) and, over 2 ranks, a seeded bucket of 2 through
     ``make_batch_transfer``; uint8 numpy."""
     cnt, stl, seeds = tiny_pairs(2, *PAIR_HW)
-    model = vgg19.load_params(inp["vgg"])
     config = dataclasses.replace(TINY_P2, space_mesh=mesh)
     out = {"row_sharded": pipeline.row_sharded(config)}
     res, trace = pipeline.transfer_pair(
@@ -74,11 +73,8 @@ def pipeline_cases(mesh, inp: dict) -> dict:
     return out
 
 
-def multi_world(n: int, stage_inputs: dict, pipe_inputs: dict) -> dict:
-    """Every case of one world of ``n`` ranks over a 1 x n space mesh
-    (oneDNN off, so the pairs are bitwise the single process's)."""
-    plain_convolutions()
-    mesh = make_mesh(n_data=1, n_space=n, device="cpu")
-    return {"rank": mesh.index(AXIS),
-            "nonlocal": nonlocal_cases(mesh, stage_inputs),
-            "pipeline": pipeline_cases(mesh, pipe_inputs)}
+def multi_world(mesh, models: dict, inp: dict) -> dict:
+    """Every case of the several-membership part over the 1 x n space
+    mesh, with the port's seeded VGG (``models["port"]``)."""
+    return {"nonlocal": nonlocal_cases(mesh, inp["stages"]),
+            "pipeline": pipeline_cases(mesh, inp, models["port"])}

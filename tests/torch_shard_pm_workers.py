@@ -1,7 +1,7 @@
-"""Rank functions of ``tests/test_torch_space_shard_pm.py``: band
-PatchMatch, the band block-Jacobi and Jacobi WLS preconditioners, and the
-PatchMatch / block-Jacobi / Jacobi-WLS configurations on row bands, run by
-``parallel.mesh.launch`` in spawned gloo ranks on the CPU.
+"""Rank functions of ``tests/test_torch_space_shard.py``'s PatchMatch part:
+band PatchMatch, the band block-Jacobi and Jacobi WLS preconditioners, and the
+PatchMatch / block-Jacobi / Jacobi-WLS configurations on row bands, run in
+the spawned gloo ranks of ``torch_shard_world_workers.world`` on the CPU.
 
 A spawned rank imports the module of its function, so this module imports
 no JAX.  Each rank gets the whole numpy inputs, takes its band of rows,
@@ -16,14 +16,13 @@ import numpy as np
 import torch
 
 from nct_tpu_torch import Config, pipeline
-from nct_tpu_torch.models import vgg19
 from nct_tpu_torch.ops import patchmatch as pm
 from nct_tpu_torch.parallel.batch import make_batch_transfer
 from nct_tpu_torch.parallel import mesh as mesh_mod
-from nct_tpu_torch.parallel.mesh import RowBand, image_bands, make_mesh
+from nct_tpu_torch.parallel.mesh import RowBand, image_bands
 from nct_tpu_torch.solve import nonlocal_solve, wls
 
-from torch_mesh_workers import plain_convolutions, tiny_pairs
+from torch_mesh_workers import tiny_pairs
 from torch_shard_workers import ReplayDraws as _ReplayDraws
 
 AXIS = "space"
@@ -112,13 +111,12 @@ def stage_cases(mesh, inp: dict) -> dict:
     return out
 
 
-def pipeline_cases(mesh, inp: dict) -> dict:
+def pipeline_cases(mesh, inp: dict, model) -> dict:
     """Each configuration's pair with the JAX draws replayed, a bucket of
     2 of the parity configuration (``make_batch_transfer``, seeded draws)
     and a 2-frame ``transfer_sequence`` of it (level 0 warm-started from
     the first frame), all under the 1 x n space mesh; uint8 numpy."""
     cnt, stl, seeds = tiny_pairs(2, *PAIR_HW)
-    model = vgg19.params_from_numpy(inp["vgg"])
     out = {}
     for name, config in CONFIGS.items():
         config = dataclasses.replace(config, space_mesh=mesh)
@@ -138,23 +136,18 @@ def pipeline_cases(mesh, inp: dict) -> dict:
     return out
 
 
-def shard_world(n: int, stage_inputs: dict, pipe_inputs: dict) -> dict:
-    """Every case of one world of ``n`` ranks over a 1 x n space mesh
-    (oneDNN off, so the pairs are bitwise the single process's)."""
-    plain_convolutions()
-    mesh = make_mesh(n_data=1, n_space=n, device="cpu")
-    return {"rank": mesh.index(AXIS),
-            "stages": stage_cases(mesh, stage_inputs),
-            "pipeline": pipeline_cases(mesh, pipe_inputs)}
+def shard_world(mesh, models: dict, inp: dict) -> dict:
+    """Every case of the PatchMatch part over the 1 x n space mesh, with
+    the JAX package's seeded VGG (``models["jax"]``)."""
+    return {"stages": stage_cases(mesh, inp["stages"]),
+            "pipeline": pipeline_cases(mesh, inp, models["jax"])}
 
 
-def four_rank_world(vgg: dict) -> dict:
-    """Each configuration's tall pair (seeded draws) over a 1 x 4 space
-    mesh, as uint8 numpy, with its row-sharding flag (oneDNN off)."""
-    plain_convolutions()
-    mesh = make_mesh(n_data=1, n_space=4, device="cpu")
+def four_rank_world(mesh, models: dict, inp: dict) -> dict:
+    """Each configuration's tall pair (seeded draws) over the 1 x 4 space
+    mesh, as uint8 numpy, with its row-sharding flag."""
     cnt, stl, seeds = tiny_pairs(1, *TALL_HW)
-    model = vgg19.params_from_numpy(vgg)
+    model = models["jax"]
     out = {}
     for name, config in CONFIGS.items():
         config = dataclasses.replace(config, space_mesh=mesh)

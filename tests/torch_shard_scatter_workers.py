@@ -1,10 +1,11 @@
-"""Rank functions of ``tests/test_torch_space_shard_scatter.py``: the
-scatter transpose (``nl_transpose="scatter"``) on row bands, run by
-``parallel.mesh.launch`` in spawned gloo ranks on the CPU.
+"""Rank functions of ``tests/test_torch_space_shard.py``'s scatter part:
+the scatter transpose (``nl_transpose="scatter"``) on row bands, run in the
+spawned gloo ranks of ``torch_shard_world_workers.world`` on the CPU.
 
 A spawned rank imports the module of its function, so this module imports
-no JAX.  Each rank gets numpy inputs (the VGG weights as the path of an
-npz file) and returns its results gathered whole, as numpy or CPU tensors.
+no JAX.  Each rank gets numpy inputs and the world's VGG models (read once
+from npz files) and returns its results gathered whole, as numpy or CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -15,13 +16,11 @@ import numpy as np
 import torch
 
 from nct_tpu_torch import pipeline
-from nct_tpu_torch.models import vgg19
 from nct_tpu_torch.parallel.batch import make_batch_transfer
-from nct_tpu_torch.parallel.mesh import RowBand, image_bands, make_mesh
+from nct_tpu_torch.parallel.mesh import RowBand, image_bands
 from nct_tpu_torch.solve import nonlocal_solve
 
-from torch_mesh_workers import (TINY_SCATTER, TINY_VARIANTS,
-                                plain_convolutions, tiny_pairs)
+from torch_mesh_workers import TINY_SCATTER, TINY_VARIANTS, tiny_pairs
 from torch_shard_workers import ReplayDraws
 
 AXIS = "space"
@@ -77,13 +76,12 @@ def operator_case(mesh, inp: dict, layout) -> dict:
     return out
 
 
-def pipeline_cases(mesh, inp: dict) -> dict:
+def pipeline_cases(mesh, inp: dict, model) -> dict:
     """The TINY variants pair with JAX's draws replayed (``row_sharded``,
     its output and iterations) and, over 2 ranks, a seeded bucket of 2 of
     TINY with the scatter transpose through ``make_batch_transfer``;
     uint8 numpy."""
     cnt, stl, seeds = tiny_pairs(2, *PAIR_HW)
-    model = vgg19.load_params(inp["vgg"])
     config = dataclasses.replace(TINY_VARIANTS, space_mesh=mesh)
     out = {"row_sharded": pipeline.row_sharded(config)}
     res, trace = pipeline.transfer_pair(
@@ -98,13 +96,10 @@ def pipeline_cases(mesh, inp: dict) -> dict:
     return out
 
 
-def scatter_world(n: int, stage_inputs: dict, pipe_inputs: dict) -> dict:
-    """Every case of one world of ``n`` ranks over a 1 x n space mesh
-    (oneDNN off, so the pairs are bitwise the single process's)."""
-    plain_convolutions()
-    mesh = make_mesh(n_data=1, n_space=n, device="cpu")
-    return {"rank": mesh.index(AXIS),
-            "operator": {(layout, len(lead)): operator_case(
-                mesh, stage_inputs[lead], layout)
+def scatter_world(mesh, models: dict, inp: dict) -> dict:
+    """Every case of the scatter part over the 1 x n space mesh, with the
+    port's seeded VGG (``models["port"]``)."""
+    return {"operator": {(layout, len(lead)): operator_case(
+                mesh, inp["stages"][lead], layout)
                 for layout in LAYOUTS for lead in LEADS},
-            "pipeline": pipeline_cases(mesh, pipe_inputs)}
+            "pipeline": pipeline_cases(mesh, inp, models["port"])}

@@ -1,11 +1,12 @@
-"""Rank functions of ``tests/test_torch_space_shard_short.py``: row bands
-of zero rows (images with fewer 16-row units than space ranks), run by
-``parallel.mesh.launch`` in spawned gloo ranks on the CPU.
+"""Rank functions of ``tests/test_torch_space_shard.py``'s short-image
+part: row bands of zero rows (images with fewer 16-row units than space
+ranks), run in the spawned gloo ranks of
+``torch_shard_world_workers.world`` on the CPU.
 
 A spawned rank imports the module of its function, so this module imports
-no JAX.  Each rank gets numpy inputs (the VGG weights as the path of an
-npz file: spawn pickles every argument once per rank) and returns CPU or
-numpy results; the parent holds them against the single process and JAX.
+no JAX.  Each rank gets numpy inputs and the world's VGG models (read once
+from npz files) and returns CPU or numpy results; the parent holds them
+against the single process and JAX.
 """
 
 from __future__ import annotations
@@ -16,13 +17,11 @@ import numpy as np
 import torch
 
 from nct_tpu_torch import pipeline
-from nct_tpu_torch.models import vgg19
 from nct_tpu_torch.parallel.batch import make_batch_transfer
 from nct_tpu_torch.parallel.mesh import RowBand, image_bands, make_mesh
 from nct_tpu_torch.parallel.ring_nn import ring_exact_nn
 
-from torch_mesh_workers import (TINY, TINY_PM, TINY_SCATTER,
-                                plain_convolutions, tiny_pairs)
+from torch_mesh_workers import TINY, TINY_PM, TINY_SCATTER, tiny_pairs
 from torch_shard_pm_workers import ReplayDraws
 
 AXIS = "space"
@@ -89,14 +88,13 @@ def _pair(model, mesh, config, cnt, stl, **kw):
                          for t in trace]
 
 
-def pairs(mesh, inp: dict) -> dict:
+def pairs(mesh, inp: dict, model) -> dict:
     """The pairs of this world's geometry: over 8 ranks the TINY pair with
     JAX's draws replayed, the seeded bucket of one through
     ``make_batch_transfer`` and, over a 2 x 4 mesh of the same ranks, the
     seeded 3-unit TINY_SCATTER pair on each data row's 1 x 4 space group;
     over 3 ranks TINY and TINY_PM, seeded."""
     n = mesh.shape[AXIS]
-    model = vgg19.load_params(inp["vgg"])
     cnt, stl, seeds = tiny_pairs(1, *PAIR_HW[n])
     out = {"row_sharded": pipeline.row_sharded(
         dataclasses.replace(TINY, space_mesh=mesh))}
@@ -117,10 +115,8 @@ def pairs(mesh, inp: dict) -> dict:
     return out
 
 
-def short_world(n: int, inp: dict) -> dict:
-    """Every case of one world of ``n`` ranks over a 1 x n space mesh
-    (oneDNN off, so the pairs are bitwise the single process's)."""
-    plain_convolutions()
-    mesh = make_mesh(n_data=1, n_space=n, device="cpu")
-    return {"rank": mesh.index(AXIS), "bands": band_primitives(mesh),
-            "ring": rings(mesh, inp), "pipeline": pairs(mesh, inp)}
+def short_world(mesh, models: dict, inp: dict) -> dict:
+    """Every case of the short-image part over the 1 x n space mesh, with
+    the port's seeded VGG (``models["port"]``)."""
+    return {"bands": band_primitives(mesh), "ring": rings(mesh, inp),
+            "pipeline": pairs(mesh, inp, models["port"])}

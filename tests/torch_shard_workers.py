@@ -1,6 +1,6 @@
-"""Rank functions of ``tests/test_torch_space_shard.py``: every band stage
-of the row-sharded pipeline and the pair, run by ``parallel.mesh.launch``
-in spawned gloo ranks on the CPU.
+"""Rank functions of ``tests/test_torch_space_shard.py``'s default family:
+every band stage of the row-sharded pipeline and the pair, run in the
+spawned gloo ranks of ``torch_shard_world_workers.world`` on the CPU.
 
 A spawned rank imports the module of its function, so this module imports
 no JAX.  Each rank gets the whole numpy inputs, takes its band of rows
@@ -20,11 +20,11 @@ from nct_tpu_torch import pipeline
 from nct_tpu_torch.models import vgg19
 from nct_tpu_torch.ops import bds, window_refine
 from nct_tpu_torch.parallel.batch import make_batch_transfer
-from nct_tpu_torch.parallel.mesh import RowBand, image_bands, make_mesh
+from nct_tpu_torch.parallel.mesh import RowBand, image_bands
 from nct_tpu_torch.parallel.ring_nn import ring_band_nn
 from nct_tpu_torch.solve import cg, knn, nonlocal_solve, stats, wls
 
-from torch_mesh_workers import TINY, plain_convolutions, tiny_pairs
+from torch_mesh_workers import TINY, tiny_pairs
 
 AXIS = "space"
 
@@ -58,9 +58,9 @@ def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 
 
-def stage_cases(mesh, inp: dict) -> dict:
+def stage_cases(mesh, inp: dict, model) -> dict:
     """Every band stage on the numpy inputs ``inp`` (see the test module's
-    ``STAGE_INPUTS``); each result whole."""
+    ``_shard_inputs``), VGG's taps through ``model``; each result whole."""
     out = {}
 
     # VGG taps of a band of the input (one-row halos per convolution)
@@ -71,7 +71,6 @@ def stage_cases(mesh, inp: dict) -> dict:
     levels = [RowBand.of_image(mesh, AXIS, bounds, pipeline._pools(t),
                                dims[t][0]) for t in vgg19.PIPELINE_TAPS]
     widths = [dims[t][1] for t in vgg19.PIPELINE_TAPS]
-    model = vgg19.params_from_numpy(inp["vgg"])
     taps = model(b0.take(img), vgg19.PIPELINE_TAPS, band=b0)
     out["vgg"] = {t: lv.gather(taps[t])
                   for t, lv in zip(vgg19.PIPELINE_TAPS, levels)}
@@ -177,14 +176,13 @@ def stage_cases(mesh, inp: dict) -> dict:
     return out
 
 
-def pipeline_cases(mesh, inp: dict) -> dict:
+def pipeline_cases(mesh, inp: dict, model) -> dict:
     """The TINY pair through ``transfer_pair`` (the JAX draws replayed, run
     twice; and with ``exact_nn_levels=1``, so the window refine runs on
     bands), and the bucket of 2 through ``make_batch_transfer`` (the ring
     and ``ring_nn=False``) and through ``transfer_batch`` with the JAX
     draws replayed; every result uint8 numpy."""
     cnt, stl, seeds = tiny_pairs(2, 40, 48, 44, 52)
-    model = vgg19.params_from_numpy(inp["vgg"])
     out = {}
     for name, exact in (("pair", 4), ("pair_exact1", 1)):
         config = dataclasses.replace(TINY, space_mesh=mesh,
@@ -212,11 +210,8 @@ def pipeline_cases(mesh, inp: dict) -> dict:
     return out
 
 
-def shard_world(n: int, stage_inputs: dict, pipe_inputs: dict) -> dict:
-    """Every case of one world of ``n`` ranks over a 1 x n space mesh
-    (oneDNN off, so the pairs are bitwise the single process's)."""
-    plain_convolutions()
-    mesh = make_mesh(n_data=1, n_space=n, device="cpu")
-    return {"rank": mesh.index(AXIS),
-            "stages": stage_cases(mesh, stage_inputs),
-            "pipeline": pipeline_cases(mesh, pipe_inputs)}
+def shard_world(mesh, models: dict, inp: dict) -> dict:
+    """Every case of the default family over the 1 x n space mesh, with
+    the JAX package's seeded VGG (``models["jax"]``)."""
+    return {"stages": stage_cases(mesh, inp["stages"], models["jax"]),
+            "pipeline": pipeline_cases(mesh, inp, models["jax"])}
