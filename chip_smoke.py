@@ -244,6 +244,22 @@ no result, without them.  Phases, each of which raises on failure:
      nl_transpose="scatter", wls_precond="jacobi")`` (the variants
      configuration: the scatter transpose on row bands), with (a)'s
      checks.
+ 19. the diagnosis tools (``nct_tpu_torch/tools``) on a seeded demo
+     directory of one smooth pair of 120x160 images whose golden is the
+     card's own default-Config output: ``profile_cg`` in a new process
+     (``python3 -m``; its rows the "stats" trace of the pair in this
+     process), ``wls_convergence`` at L4 (iterations do not fall as the
+     tolerance tightens), ``knn_recall`` at 72x96 (the card's table the
+     CPU's, or, where the card's level Lab differs from the CPU's, each
+     recall within 1e-3 / 1e-5; with the count of uint8 values whose
+     division by 255.0 differs on the card), ``capture_nl`` (each
+     level's system replayed by ``retune.nl_solve_at_cap`` at its trip
+     count gives the pipeline's coefficients bit for bit, or within 1e-6
+     relative), ``retune_caps`` over the L4 nonlocal and WLS systems at
+     caps 4 and 8 (the curves fall), ``compare_strategies`` (default,
+     patchmatch), ``diagnose_pair``, ``quality_table --skip-parity`` and
+     ``sweep_nl_quality`` (every golden ratio 0), and 4 ``nn_bidir``
+     launches per default-Config pair of each tool.
 The line before the last holds {"kernels": [...]}, the one before it the
 card's name and power limit; the last line is {"ok": true, "device": ...}.
 """
@@ -3923,6 +3939,265 @@ def _check_shard_part(torch, smi: str, label: str, part: str, n: int,
     return bad
 
 
+# phase 19: the diagnosis tools (nct_tpu_torch/tools) on a seeded demo
+# directory: pairs in/in{i}.png, in/tar{i}.png and golden stand-ins
+# res/in{i}_tar{i}_2.00.png, each the card's default-Config output of its
+# pair, so that every golden ratio must be 0
+TOOLS_PAIRS = 1                         # depth cut for the time limit
+# content / style of each demo pair: sweep_nl_quality resizes both to its
+# fixed 120x160, the other tools cap both to TOOLS_SIZE, and none of them
+# then changes a pixel
+TOOLS_HW = ((120, 160), (120, 160))
+TOOLS_SIZE = 160
+KNN_RECALL_SIZE = 96                    # L3 of a 72x96 content: 1,728 px
+# knn_recall on the card against the CPU: the card's level Lab is not the
+# CPU's (PyTorch's CUDA kernel divides by a Python scalar through its
+# reciprocal, which differs from the CPU's division in the last bit; see
+# scalar_division_diffs), so near-tied neighbours may swap; each row's
+# recalls must then stay within these
+KNN_ID_RECALL_TOL = 1e-3
+KNN_WEIGHT_RECALL_TOL = 1e-5
+REPLAY_REL_MAX = 1e-6
+TUNE_CAPS = (4, 8)
+TUNE_LEVEL = 4                          # the finest nonlocal and WLS system
+
+
+def write_demo(torch, root: str, n: int = TOOLS_PAIRS,
+               hw=TOOLS_HW) -> None:
+    """Seeded smooth pairs ``in/in{i}.png`` / ``in/tar{i}.png`` (i < n)."""
+    import os
+
+    from nct_tpu_torch.io import imwrite_bgr
+
+    os.makedirs(os.path.join(root, "in"), exist_ok=True)
+    os.makedirs(os.path.join(root, "res"), exist_ok=True)
+    gen = torch.Generator().manual_seed(21)
+    for i in range(n):
+        cnt, stl = _pair(torch, gen, *hw, smooth=True)
+        imwrite_bgr(os.path.join(root, "in", f"in{i}.png"), cnt)
+        imwrite_bgr(os.path.join(root, "in", f"tar{i}.png"), stl)
+
+
+def scalar_division_diffs(torch) -> tuple[int, int]:
+    """(uint8 values v whose v / 255.0 differs between the card and the
+    CPU, of 256; BGR triples whose ``bgr_u8_to_lab_u8`` differs, of
+    2**24)."""
+    from nct_tpu_torch.ops.color import bgr_u8_to_lab_u8
+
+    v = torch.arange(256)
+    unit = int(((v.float() / 255.0)
+                != (v.cuda().float() / 255.0).cpu()).sum())
+    b, g, r = torch.meshgrid(*(v.to(torch.uint8),) * 3, indexing="ij")
+    bgr = torch.stack([b, g, r], dim=-1).reshape(-1, 3)
+    lab = (bgr_u8_to_lab_u8(bgr) != bgr_u8_to_lab_u8(bgr.cuda()).cpu())
+    return unit, int(lab.any(dim=-1).sum())
+
+
+def _tool_rows(stdout: str) -> list:
+    """The rows of profile_cg's table in a process's output."""
+    return [[c.strip() for c in line.strip().strip("|").split("|")]
+            for line in stdout.splitlines() if line.startswith("| in")]
+
+
+def check_tools(torch, smi: str) -> None:
+    """Phase 19: the nine diagnosis tools on the card (see the module
+    docstring); raises when a check fails."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from nct_tpu_torch import Config, pipeline
+    from nct_tpu_torch.io import imwrite_bgr
+    from nct_tpu_torch.ops import cuda_nn
+    from nct_tpu_torch.solve import retune
+    from nct_tpu_torch.tools import (bench, capture_nl, compare_strategies,
+                                     demo, diagnose_pair, knn_recall,
+                                     quality_table, retune_caps,
+                                     sweep_nl_quality, wls_convergence)
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    device = bench.resolve_device("cuda")
+    model = demo.load_model(None, device)
+    draws = demo.seeded_draws()
+    per_pair = Config().exact_nn_levels
+    bad = []
+
+    def run(name, fn, default_pairs: int):
+        """fn(out) with its lines printed, its seconds and its nn_bidir
+        launches, which must be 4 per default-Config pair it runs."""
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        result = fn(lambda line: log(f"[tools:{name}] {line}"))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = cuda_nn.LAUNCHES["nn_bidir"]
+        log(f"[tools] {name}: {dt:.3f} s, {launches} nn_bidir launches "
+            f"(want {per_pair * default_pairs}; {smi})")
+        if launches != per_pair * default_pairs:
+            bad.append(f"{name}: {launches} nn_bidir launches")
+        return result
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ex = os.path.join(tmp, "example")
+        write_demo(torch, ex)
+        # (a) profile_cg in a new process, beside the in-process tools
+        t_cg = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "nct_tpu_torch.tools.profile_cg",
+             "--device", "cuda", "--example", ex, "--size", str(TOOLS_SIZE),
+             "--pairs", ",".join(map(str, range(TOOLS_PAIRS)))],
+            stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=repo,
+            env=dict(os.environ, PYTHONPATH=repo))
+        try:
+            # the golden stand-ins and the "stats" trace of every pair
+            def goldens(out):
+                traces = []
+                for i in range(TOOLS_PAIRS):
+                    cnt, stl = demo.read_pair(ex, i, TOOLS_SIZE)
+                    res, trace = pipeline.transfer_pair(
+                        model, cnt, stl, 2.0, Config(), draws=draws(),
+                        device=device, return_intermediates="stats")
+                    imwrite_bgr(os.path.join(ex, "res",
+                                             f"in{i}_tar{i}_2.00.png"),
+                                res.cpu().numpy())
+                    traces.append(trace)
+                out(f"{TOOLS_PAIRS} pairs {TOOLS_HW[0]} / {TOOLS_HW[1]} "
+                    f"written with their goldens")
+                return traces
+            traces = run("goldens", goldens, TOOLS_PAIRS)
+
+            rows = run("wls_convergence", lambda out: wls_convergence.
+                       convergence(device, ex, 0, TOOLS_SIZE, 4, 400, out), 0)
+            for pk in ("jacobi", "mg"):
+                its = [r["iters"] for r in rows if r["precond"] == pk]
+                if its != sorted(its):
+                    bad.append(f"wls_convergence {pk}: iterations {its} "
+                               f"fall as the tolerance tightens")
+
+            def table(rows):
+                return [(r["config"], r["candidates"],
+                         f"{r['id_recall']:.4f}",
+                         f"{r['weight_recall']:.6f}") for r in rows]
+            card = run("knn_recall", lambda out: knn_recall.recall(
+                model, draws, device, ex, 0, KNN_RECALL_SIZE, 3, out), 0)
+            cpu = torch.device("cpu")
+            cpu_model = demo.load_model(None, cpu)
+            host = run("knn_recall --device cpu", lambda out: knn_recall.
+                       recall(cpu_model, draws, cpu, ex, 0, KNN_RECALL_SIZE,
+                              3, out), 0)
+            # where the tables differ, the clusters they start from
+            img = demo.read_pair(ex, 0, KNN_RECALL_SIZE)[0]
+            cl = [knn_recall.level_clusters(
+                m, draws(), torch.from_numpy(img).to(dev), 3, Config())
+                for m, dev in ((model, device), (cpu_model, cpu))]
+            flips = int((cl[0]["label_map"].cpu() != cl[1]["label_map"]).sum())
+            lab_diff = int((cl[0]["lab"].cpu() != cl[1]["lab"]).sum())
+            unit, triples = scalar_division_diffs(torch)
+            equal = table(card) == table(host)
+            near = all(
+                abs(c["id_recall"] - h["id_recall"]) <= KNN_ID_RECALL_TOL
+                and abs(c["weight_recall"] - h["weight_recall"])
+                <= KNN_WEIGHT_RECALL_TOL for c, h in zip(card, host))
+            log(f"[tools] knn_recall card vs CPU: tables equal {equal}, "
+                f"each recall within {KNN_ID_RECALL_TOL} / "
+                f"{KNN_WEIGHT_RECALL_TOL} {near}; k-means labels differing "
+                f"{flips} of {cl[1]['label_map'].numel()}, level unit Lab "
+                f"values {lab_diff} of {cl[1]['lab'].numel()}; on the card "
+                f"v / 255.0 differs for {unit} of 256 uint8 values and "
+                f"bgr_u8_to_lab_u8 for {triples} of 2**24 triples ({smi})")
+            if not (equal or (lab_diff and near)):
+                bad.append("knn_recall: the card's table is not the CPU's")
+
+            nl_dir = os.path.join(tmp, "nl")
+            calls = run("capture_nl", lambda out: capture_nl.capture(
+                model, draws, device, ex, nl_dir, 0, TOOLS_SIZE, out), 1)
+            for c in calls:
+                a, b, _ = retune.nl_solve_at_cap(
+                    retune.load_nl_system(c["path"]), c["iters"], Config(),
+                    device)
+                want = [t.cpu().numpy() for t in (c["a"], c["b"])]
+                rel = max(float(np.abs(g - w).max() / np.abs(w).max())
+                          for g, w in zip((a, b), want))
+                same = all(np.array_equal(g, w) for g, w in zip((a, b), want))
+                log(f"[tools] capture_nl L{c['level']}: replay at "
+                    f"{c['iters']} iterations bitwise {same} (max rel "
+                    f"{rel:.3e})")
+                if not same and rel > REPLAY_REL_MAX:
+                    bad.append(f"capture_nl L{c['level']} replay rel {rel}")
+
+            # the finest captured system alone (each curve ~230 iterations)
+            tune_dir = os.path.join(tmp, "tune")
+            os.makedirs(tune_dir)
+            name = f"nl_L{TUNE_LEVEL}.npz"
+            os.link(os.path.join(nl_dir, name), os.path.join(tune_dir, name))
+            report = run("retune_caps", lambda out: retune_caps.retune_caps(
+                None, None, device, ex, tune_dir, pair=0, size=TOOLS_SIZE,
+                caps=TUNE_CAPS, wls_levels=(TUNE_LEVEL,), out=out), 0)
+            for kind in ("nl", "wls"):
+                for level, rec in report[kind].items():
+                    curve = rec["curve"]
+                    red = [curve["caps"][c]["reduction"]
+                           for c in sorted(curve["caps"])]
+                    conv = curve["converged"]
+                    if not (1.0 > red[0] > red[-1]
+                            and conv["r2"] < conv["r2_init"]):
+                        bad.append(f"retune_caps {kind} L{level}: the curve "
+                                   f"does not fall ({red})")
+
+            cmp = run("compare_strategies", lambda out: compare_strategies.
+                      compare(model, draws, device, ex, TOOLS_SIZE,
+                              ("default", "patchmatch"), out), 4)
+            if not 0.0 < cmp["ssim"]["patchmatch"] <= 1.0:
+                bad.append(f"compare_strategies SSIM {cmp['ssim']}")
+
+            rep = run("diagnose_pair", lambda out: diagnose_pair.diagnose(
+                model, draws, device, ex, 0, TOOLS_SIZE, out=out), 1)
+            if rep["final_ratio"] != 0.0:
+                bad.append(f"diagnose_pair ratio {rep['final_ratio']}")
+
+            # (--skip-parity: a parity pair takes ~14 s on an H100)
+            rows = run("quality_table", lambda out: quality_table.table(
+                model, draws, device, ex, TOOLS_SIZE, (0,), skip_parity=True,
+                out=out), 3)
+            if rows[0]["ratio"] != 0.0 or not rows[0]["bds_move"] > 0.0:
+                bad.append(f"quality_table ratio {rows[0]['ratio']}, BDS "
+                           f"movement {rows[0]['bds_move']}")
+
+            sweep = run("sweep_nl_quality", lambda out: sweep_nl_quality.
+                        sweep(model, draws, device, ex,
+                              iters=Config().cg_iters_mg,
+                              pairs=range(TOOLS_PAIRS), out=out),
+                        TOOLS_PAIRS)
+            if sweep["closures"] != [0.0] * TOOLS_PAIRS:
+                bad.append(f"sweep_nl_quality closures {sweep['closures']}")
+
+            stdout, stderr = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        for line in stdout.splitlines():
+            log(f"[tools:profile_cg] {line}")
+        log(f"[tools] profile_cg in a new process: exit {proc.returncode} "
+            f"{time.perf_counter() - t_cg:.3f} s after its start")
+        want = [[f"in{i}", f"L{t['level']}", str(int(t["nl_iters"])),
+                 f"{np.sqrt(float(t['nl_r2'])):.3e}",
+                 str(int(t["wls_iters"])),
+                 f"{np.sqrt(float(t['wls_r2'])):.3e}"]
+                for i in range(TOOLS_PAIRS) for t in traces[i]]
+        got = _tool_rows(stdout)
+        if proc.returncode != 0 or got != want:
+            bad.append(f"profile_cg: exit {proc.returncode}, rows {got} "
+                       f"against the stats trace {want}\n{stderr}")
+    log(f"[tools] phase 19 in {time.perf_counter() - t_phase:.1f} s ({smi})")
+    if bad:
+        raise AssertionError(f"phase 19 failed: {bad}")
+
+
 def main() -> int:
     import torch
 
@@ -3981,6 +4256,8 @@ def main() -> int:
     check_shard_multi(torch, smi, worlds=worlds)
     phase_done("phase 18 (P > 1 merge, a short pair and the scatter "
                "transpose on row bands)")
+    check_tools(torch, smi)
+    phase_done("phase 19 (the diagnosis tools)")
     log(f"[time] whole run {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [bidir, directed, conv]}))
     log(smi)

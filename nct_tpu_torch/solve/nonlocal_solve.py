@@ -120,13 +120,6 @@ def _prolong_const(xc: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return x[..., :h, :w, :]
 
 
-# V-cycle shape: coarsen until the grid's short side is <= _COARSEST or
-# _MAX_LEVELS levels exist; _COARSE_SWEEPS symmetric sweeps at the bottom.
-_COARSEST = 8
-_COARSE_SWEEPS = 8
-_MAX_LEVELS = 8
-
-
 def _prolong_rows(xc: torch.Tensor, y0: int, rows: int,
                   w: int) -> torch.Tensor:
     """Rows [y0, y0 + rows) of ``_prolong_const`` of a whole coarse grid."""
@@ -136,7 +129,9 @@ def _prolong_rows(xc: torch.Tensor, y0: int, rows: int,
     return x[..., y0 % 2:y0 % 2 + rows, :w, :]
 
 
-def make_mg_preconditioner(blk_aa, blk_ab, blk_bb, wx2, wy2, band=None):
+def make_mg_preconditioner(blk_aa, blk_ab, blk_bb, wx2, wy2, band=None, *,
+                           omega: float = 0.8, coarsest: int = 8,
+                           coarse_sweeps: int = 8, max_levels: int = 8):
     """Geometric-multigrid V-cycle approximating the inverse of
     [[blk_aa, blk_ab], [blk_ab, blk_bb]] ([..., H, W, 3] per-pixel blocks)
     plus the grid Laplacian with edge weights wx2/wy2 [..., H, W] on a and
@@ -145,6 +140,13 @@ def make_mg_preconditioner(blk_aa, blk_ab, blk_bb, wx2, wy2, band=None):
     Piecewise-constant prolongation P, restriction P^T / 4, Galerkin coarse
     coefficients, red-black block Gauss-Seidel smoothing, symmetric pre- and
     post-smoothing: a fixed SPD operator, so PCG stays valid.
+
+    The V-cycle's strength, with the JAX package's keywords and defaults:
+    it coarsens until the grid's short side is <= ``coarsest`` or
+    ``max_levels`` levels exist, and runs ``coarse_sweeps`` symmetric
+    sweeps at the bottom.  ``omega`` is accepted as the JAX package accepts
+    it and, as there, unused: the red-black sweeps are exact block
+    Gauss-Seidel updates, undamped.
 
     With ``band`` (a ``parallel.mesh.RowBand``; the operands one band's
     rows) the fine levels coarsen band by band while every band starts on
@@ -168,7 +170,7 @@ def make_mg_preconditioner(blk_aa, blk_ab, blk_bb, wx2, wy2, band=None):
         levels.append((caa, cab, cbb, cwx, wy_ext, daa, dbb, inv_det))
         bands.append(b)
         h_all = h if b is None else b.h
-        if min(h_all, w) <= _COARSEST or len(levels) >= _MAX_LEVELS:
+        if min(h_all, w) <= coarsest or len(levels) >= max_levels:
             break
         if b is not None:
             b = b.coarsen()
@@ -229,7 +231,7 @@ def make_mg_preconditioner(blk_aa, blk_ab, blk_bb, wx2, wy2, band=None):
         _, cab, _, _, _, daa, dbb, inv_det = levels[lev]
         if lev == len(levels) - 1:
             xa, xb = torch.zeros_like(fa), torch.zeros_like(fb)
-            for i in range(_COARSE_SWEEPS):
+            for i in range(coarse_sweeps):
                 xa, xb = smooth(lev, xa, xb, fa, fb, reverse=bool(i % 2))
             return xa, xb
         # pre-smooth from zero: the first half-sweep is a masked block solve

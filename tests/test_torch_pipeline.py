@@ -156,6 +156,10 @@ def test_port_never_imports_jax():
         "import nct_tpu_torch.nn.coord_map, nct_tpu_torch.nn.upgrade\n"
         "import nct_tpu_torch.tools.caffe_tool\n"
         "import nct_tpu_torch.tools.extract_features\n"
+        "from nct_tpu_torch.tools import profile_cg, wls_convergence\n"
+        "from nct_tpu_torch.tools import knn_recall, capture_nl, retune_caps\n"
+        "from nct_tpu_torch.tools import compare_strategies, diagnose_pair\n"
+        "from nct_tpu_torch.tools import quality_table, sweep_nl_quality\n"
         # every module the mesh tests' gloo ranks load
         "import torch_mesh_workers, torch_shard_workers\n"
         "import torch_shard_pm_workers, torch_shard_multi_workers\n"

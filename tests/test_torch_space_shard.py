@@ -189,6 +189,7 @@ import torch
 import torch_mesh_workers as mesh_workers
 import torch_shard_pm_workers as pm_workers
 import torch_shard_scatter_workers as scatter_workers
+import torch_shard_workers as shard_workers
 import torch_shard_short_workers as short_workers
 import torch_shard_world_workers as world_workers
 from nct_tpu import pipeline as jpipe
@@ -1039,17 +1040,23 @@ def test_band_error_confidence_bitwise(shard_runs, n):
 @pytest.mark.parametrize("n", SHARD_WORLDS)
 def test_band_grid_terms_and_vcycle_bitwise(shard_runs, n):
     """Gradient weights, Laplacian, degree and the V-cycle (its first
-    coarsening on bands, the next levels gathered) on halos, bit for bit."""
+    coarsening on bands, the next levels gathered) on halos, bit for bit;
+    the V-cycle also at non-default keywords (``VCYCLE_KNOBS``), which
+    the band path takes as the single process does."""
     inp = shard_runs["inputs"]
     gx, gy = nonlocal_solve.gradient_weights(_t(inp["lum"]), 0.5, 1.2)
     u = _t(inp["u"])
     lap = nonlocal_solve.laplacian_apply(u, gx, gy)
     deg = nonlocal_solve.laplacian_degree(gx, gy)
-    pre = nonlocal_solve.make_mg_preconditioner(
-        *(_t(inp[k]) for k in ("blk_aa", "blk_ab", "blk_bb")), gx, gy)
-    za, zb = pre((u, _t(inp["u2"])))
+    blk = [_t(inp[k]) for k in ("blk_aa", "blk_ab", "blk_bb")]
+    za, zb = nonlocal_solve.make_mg_preconditioner(*blk, gx, gy)(
+        (u, _t(inp["u2"])))
+    ka, kb = nonlocal_solve.make_mg_preconditioner(
+        *blk, gx, gy, **shard_workers.VCYCLE_KNOBS)((u, _t(inp["u2"])))
+    assert not torch.equal(ka, za)
     for st in _ranks(shard_runs, n, "stages"):
-        for got, ref in zip(st["grid"], (gx, gy, lap, deg, za, zb)):
+        assert len(st["grid"]) == 8
+        for got, ref in zip(st["grid"], (gx, gy, lap, deg, za, zb, ka, kb)):
             assert torch.equal(got, ref)
 
 

@@ -47,6 +47,10 @@ class ReplayDraws:
         return self._stack(f"cand{level}")
 
 
+# non-default V-cycle keywords: coarsening past the default's bottom
+VCYCLE_KNOBS = {"coarsest": 2, "coarse_sweeps": 3, "max_levels": 6}
+
+
 def band(mesh, h: int, unit: int = 1, bounds=None) -> RowBand:
     """The band of an h-row grid split by ``image_bands`` (or ``bounds``)."""
     if bounds is None:
@@ -137,8 +141,13 @@ def stage_cases(mesh, inp: dict, model) -> dict:
     blk = [bg.take(_t(inp[k])) for k in ("blk_aa", "blk_ab", "blk_bb")]
     pre = nonlocal_solve.make_mg_preconditioner(*blk, gx, gy, bg)
     za, zb = pre((bg.take(u), bg.take(_t(inp["u2"]))))
+    # and a stronger, deeper cycle (the V-cycle's keywords)
+    pre = nonlocal_solve.make_mg_preconditioner(*blk, gx, gy, bg,
+                                                **VCYCLE_KNOBS)
+    ka, kb = pre((bg.take(u), bg.take(_t(inp["u2"]))))
     out["grid"] = (bg.gather(gx, -2), bg.gather(gy, -2), bg.gather(lap),
-                   bg.gather(deg, -2), bg.gather(za), bg.gather(zb))
+                   bg.gather(deg, -2), bg.gather(za), bg.gather(zb),
+                   bg.gather(ka), bg.gather(kb))
 
     # the nonlocal system and both solves (fixed iterations, tol 0)
     src, ref, conf = (_t(inp[k]) for k in ("src", "ref", "conf"))
